@@ -1,0 +1,169 @@
+"""Unified LUT-MU execution engine: one entry point, three backends.
+
+``lutmu_matmul(x, params, backend="auto")`` is the single call site the
+models use, as in ``repro.kernels.dispatch``.  It normalises the input form,
+picks a backend per shape/dtype/device and runs:
+
+  * ``"ref"``     — plain PyTorch: parallel-comparator one-hot encode + an
+    integer-exact contraction (``core.maddness``).  The path CPU tensors
+    take under ``auto``; on a CUDA tensor it runs only when asked for by
+    name.
+  * ``"unfused"`` — two CUDA kernels: ``maddness_encode`` then
+    ``lut_aggregate``; the one-hot round-trips through device memory.
+  * ``"fused"``   — the single-pass CUDA kernel (``fused_lutmu``).
+
+On CPU tensors the kernel wrappers run their plain versions, so every
+backend executes in the CPU tests.  ``REPRO_LUTMU_BACKEND`` overrides
+``"auto"``.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from repro_torch.core.maddness import (HashTree, MaddnessParams,
+                                       contract_onehot, encode_onehot,
+                                       gather_split_values)
+from repro_torch.core.pruning import PruningPlan, pruned_to_split_values
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_lutmu as FL
+from repro_torch.kernels.lut_aggregate import lut_aggregate
+from repro_torch.kernels.maddness_encode import encode_onehot as encode_onehot_cuda
+
+Tensor = torch.Tensor
+
+BACKENDS = ("ref", "unfused", "fused")
+INPUT_KINDS = ("full", "split", "package")
+
+# Calls of the ``ref`` backend on CUDA tensors (only ever by name); the
+# chip smoke run asserts the main path made none.
+REF_ON_CUDA = _build.LaunchCount()
+
+# Optional observability hook: called with the call's static metadata (ints
+# and strings only) after backend selection.  None costs one check a call.
+_PROFILE_HOOK = None
+
+
+def set_profile_hook(hook) -> None:
+    """Install (or clear, with ``None``) the dispatch-metadata hook."""
+    global _PROFILE_HOOK
+    _PROFILE_HOOK = hook
+
+
+# N-tile count past which the fused kernel's per-N-tile encode recompute
+# outweighs the unfused path's one-hot round trip, for deep trees (G ≥ 64)
+# with float LUTs (the JAX dispatch's rule 4, in CUDA N-tiles).
+_UNFUSED_N_TILES = 8
+_UNFUSED_MIN_G = 64
+
+
+def params_from_arrays(split_dims: Tensor, thresholds: Tensor, lut: Tensor,
+                       lut_scale: Tensor, lut_offset: Tensor) -> MaddnessParams:
+    """Bundle raw tensors (e.g. a serving param dict) into
+    ``MaddnessParams``; prototypes are only needed offline."""
+    return MaddnessParams(HashTree(split_dims, thresholds), None, lut,
+                          lut_scale, lut_offset)
+
+
+def select_backend(b: int, c: int, n: int, depth: int,
+                   lut_dtype=torch.float32, device_type: str = "cuda") -> str:
+    """Shape/dtype/device → backend name (the ``"auto"`` policy).
+
+      1. tensors on the CPU → ``ref`` (the kernels' plain versions exist
+         for correctness, never for speed);
+      2. int8 LUTs → ``fused``: int32 sums of gathered LUT rows, no one-hot;
+      3. many N-tiles × deep trees → ``unfused``: encode once, spill the
+         one-hot, instead of re-encoding per N-tile;
+      4. otherwise → ``fused``.
+
+    The TPU dispatch's minimum tile sizes (8 rows, 128 columns) describe
+    MXU padding and do not apply here: on CUDA, ``auto`` never picks
+    ``ref``, so a decode batch of any size reaches the kernel.
+    """
+    del b, c  # the CUDA rules depend on neither
+    if device_type != "cuda":
+        return "ref"
+    if lut_dtype == torch.int8:
+        return "fused"
+    if (math.ceil(n / FL.block_cols(lut_dtype)) >= _UNFUSED_N_TILES
+            and 2**depth >= _UNFUSED_MIN_G):
+        return "unfused"
+    return "fused"
+
+
+def _to_split_values(x: Tensor, params: MaddnessParams,
+                     input_kind: str) -> Tensor:
+    if input_kind == "full":
+        xs = gather_split_values(x, params.tree)
+    elif input_kind == "split":
+        xs = x
+    elif input_kind == "package":
+        plan = PruningPlan(
+            keep_idx=torch.zeros((0,), dtype=torch.int64),  # gathered upstream
+            consumer_codebooks=params.tree.num_codebooks,
+            consumer_depth=params.tree.depth,
+        )
+        xs = pruned_to_split_values(x, plan)
+    else:
+        raise ValueError(
+            f"input_kind must be one of {INPUT_KINDS}, got {input_kind!r}")
+    # the encode compares in float32 (JAX promotes to the thresholds' type)
+    return xs.to(torch.float32).contiguous()
+
+
+def _run_ref(xs: Tensor, params: MaddnessParams) -> Tensor:
+    if xs.device.type == "cuda":
+        REF_ON_CUDA.bump()
+    onehot = encode_onehot(xs, params.tree)
+    return contract_onehot(onehot, params.lut, params.lut_scale,
+                           params.lut_offset)
+
+
+def _run_unfused(xs: Tensor, params: MaddnessParams) -> Tensor:
+    onehot = encode_onehot_cuda(xs, params.tree.thresholds)
+    return lut_aggregate(onehot, params.lut, params.lut_scale,
+                         params.lut_offset)
+
+
+def _run_fused(xs: Tensor, params: MaddnessParams) -> Tensor:
+    return FL.fused_lutmu(xs, params.tree.thresholds, params.lut,
+                          params.lut_scale, params.lut_offset)
+
+
+_RUNNERS = {"ref": _run_ref, "unfused": _run_unfused, "fused": _run_fused}
+
+
+def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
+                 input_kind: str = "full") -> Tensor:
+    """The unified LUT-MU entry point: ``x`` → approximate ``x @ W``.
+
+    Args:
+      x: the input, per ``input_kind``: ``"full"`` (B, D) activations;
+        ``"split"`` (B, C, I) pre-gathered split values; ``"package"``
+        (B, I·C) cluster-ordered pruned package from an upstream LUT-MU.
+      params: tree + LUT (+ dequant epilogue); see :func:`params_from_arrays`.
+      backend: ``"auto"`` (see :func:`select_backend`) or one of
+        ``"ref" | "unfused" | "fused"``.  ``REPRO_LUTMU_BACKEND`` overrides
+        ``"auto"``.
+
+    Returns:
+      (B, N) float32.
+    """
+    xs = _to_split_values(x, params, input_kind)
+    b, c, depth = xs.shape
+    n = params.lut.shape[-1]
+    if backend == "auto":
+        backend = os.environ.get("REPRO_LUTMU_BACKEND", "auto")
+    if backend == "auto":
+        backend = select_backend(b, c, n, depth, params.lut.dtype,
+                                 xs.device.type)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be 'auto' or one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if _PROFILE_HOOK is not None:
+        _PROFILE_HOOK(backend=backend, input_kind=input_kind, b=int(b),
+                      c=int(c), n=int(n), depth=int(depth),
+                      lut_dtype=str(params.lut.dtype))
+    return _RUNNERS[backend](xs, params)

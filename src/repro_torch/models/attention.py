@@ -1,0 +1,169 @@
+"""GQA attention against the paged KV cache (PyTorch), as in
+``repro.models.attention``.
+
+Weights are stored flat, ``(D, H·hd)``, as in the JAX package.  The paged
+cache is one layer's ``(P, page_size, n_kv, hd)`` page pool (the last page
+is the engine's trash page); the new tokens' K/V are written into it **in
+place** — the JAX functions return an updated copy instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import fused_verify as FV
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+
+NEG_INF = FV.NEG_INF
+
+
+def init_attn_params(cfg: ModelConfig, gen: torch.Generator,
+                     dtype=torch.float32) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dev = gen.device
+    p = {
+        "wq": L.dense_init(gen, d, nq * hd, dtype),
+        "wk": L.dense_init(gen, d, nkv * hd, dtype),
+        "wv": L.dense_init(gen, d, nkv * hd, dtype),
+        "wo": L.dense_init(gen, nq * hd, d, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", nq * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(params: dict, x: Tensor, cfg: ModelConfig,
+                 positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _grouped(q: Tensor, nkv: int) -> Tensor:
+    """(B, S, Hq, hd) → (B, S, n_kv, group, hd)."""
+    b, s, nq, hd = q.shape
+    return q.reshape(b, s, nkv, nq // nkv, hd)
+
+
+def _direct_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """Materialised-logits attention in the operands' type, softmax in
+    float32.  q: (B, S, n_kv, g, hd); k/v: (B, T, n_kv, hd); mask: (S, T)
+    additive."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bsngh,btnh->bngst", q, k).to(torch.float32) * scale
+    logits = logits + mask[None, None, None]
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bngst,btnh->bsngh", w, v)
+
+
+def _paged_view(k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
+                nkv: int, hd: int) -> Tuple[Tensor, Tensor]:
+    """Gather the logical ``(B, S, n_kv, hd)`` view of the physical pages."""
+    b = page_table.shape[0]
+    idx = page_table.to(torch.int64)
+    return (k_pages[idx].reshape(b, -1, nkv, hd),
+            v_pages[idx].reshape(b, -1, nkv, hd))
+
+
+def _check_kv(k_pages: Tensor) -> None:
+    if k_pages.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV cache (cfg.amm.kv_int8) is not ported yet (ROADMAP A5)")
+
+
+def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
+                      k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
+                      pos: Tensor, window: Optional[int],
+                      write_ok: Optional[Tensor] = None) -> Tensor:
+    """One-token decode against one layer's paged KV cache.
+
+    x: (B, 1, D); k_pages/v_pages: (P, page_size, n_kv, hd), written in
+    place; page_table: (B, max_pages) int32, trash-padded; pos: (B,) write
+    index per row.  ``write_ok`` ((B,) bool) sends a row's K/V write to the
+    trash page.  Returns the attention output (B, 1, D).
+    """
+    _check_kv(k_pages)
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    pos_b = pos.to(torch.int64).reshape(-1).expand(b)
+    q, k, v = _project_qkv(params, x, cfg, pos_b[:, None])
+    ps = k_pages.shape[1]
+    trash = k_pages.shape[0] - 1
+    rows = torch.arange(b, device=x.device)
+    phys = page_table.to(torch.int64)[rows, pos_b // ps]
+    if write_ok is not None:
+        phys = torch.where(write_ok, phys, torch.full_like(phys, trash))
+    off = pos_b % ps
+    k_pages[phys, off] = k[:, 0].to(k_pages.dtype)  # in place
+    v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
+    k_view, v_view = _paged_view(k_pages, v_pages, page_table, nkv, hd)
+    out = FV.decode_attend(_grouped(q, nkv), k_view, v_view, pos_b, window)
+    out = out.reshape(b, 1, nq * hd).to(x.dtype)
+    return out @ params["wo"].to(x.dtype)
+
+
+def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
+                        start: int, n_valid: int, k_pages: Tensor,
+                        v_pages: Tensor, page_row: Tensor,
+                        window: Optional[int]) -> Tensor:
+    """Chunked-prefill attention for ONE request against the paged cache.
+
+    x: (1, cs, D), right-padded to the engine's chunk width; ``start``:
+    tokens already prefilled; ``n_valid`` ≤ cs real tokens in this chunk;
+    page_row: (max_pages,) int32, trash-padded.  Writes the chunk's K/V in
+    place (padding rows go to the trash page), then attends the chunk's
+    queries against the gathered view under the causal(+window) mask.
+    """
+    _check_kv(k_pages)
+    b, cs, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dev = x.device
+    idx = start + torch.arange(cs, device=dev)  # logical positions
+    q, k, v = _project_qkv(params, x, cfg, idx[None])
+    ps = k_pages.shape[1]
+    trash = k_pages.shape[0] - 1
+    row = page_row.to(torch.int64)
+    valid_tok = torch.arange(cs, device=dev) < n_valid
+    phys = torch.where(valid_tok, row[torch.clamp(idx // ps, max=row.shape[0] - 1)],
+                       torch.full_like(idx, trash))
+    off = idx % ps
+    k_pages[phys, off] = k[0].to(k_pages.dtype)  # in place
+    v_pages[phys, off] = v[0].to(v_pages.dtype)
+    k_view, v_view = _paged_view(k_pages, v_pages, page_row[None], nkv, hd)
+    kv_pos = torch.arange(k_view.shape[1], device=dev)
+    ok = kv_pos[None, :] <= idx[:, None]
+    if window is not None:
+        ok = ok & (kv_pos[None, :] > idx[:, None] - window)
+    mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)  # (cs, S) additive
+    out = _direct_attention(_grouped(q, nkv), k_view.to(x.dtype),
+                            v_view.to(x.dtype), mask)
+    out = out.reshape(b, cs, nq * hd).to(x.dtype)
+    return out @ params["wo"].to(x.dtype)

@@ -1,0 +1,178 @@
+"""The paged serving path of a uniform dense LM (PyTorch), as in
+``repro.models.model``: embeddings → layer stack → head, for chunked
+prefill and batched decode against the paged KV cache.
+
+Params keep the JAX layout: a nested dict whose ``layers`` entries are
+stacked over a leading layer axis ``(L, …)``.  The JAX ``lax.scan`` over
+layers is a Python loop over those stacks, and the paged cache
+``{"k","v"}`` of ``(L, P, page_size, n_kv, hd)`` is updated **in place**.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.models import amm_mlp as AMM
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+
+_GLOBAL_WINDOW = 2**30  # "no window" sentinel of window_flags
+
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """Uniform attention stacks have a paged KV path; SSM, hybrid and
+    enc-dec families do not."""
+    return not (cfg.family == "ssm" or cfg.is_hybrid or cfg.is_encdec)
+
+
+def _check_uniform_dense(cfg: ModelConfig) -> None:
+    if not supports_paged(cfg) or cfg.is_moe:
+        raise NotImplementedError(
+            f"the port serves uniform dense stacks only, not family "
+            f"{cfg.family!r} (ROADMAP A10)")
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype,
+                serving: bool) -> dict:
+    d = cfg.d_model
+    dev = gen.device
+    p = {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
+         "attn": A.init_attn_params(cfg, gen, dtype),
+         "ln2": torch.zeros((d,), dtype=dtype, device=dev)}
+    if serving and cfg.amm.enabled and "mlp" in cfg.amm.targets:
+        p["amm_mlp"] = AMM.init_amm_mlp_params(cfg, gen)
+    else:
+        p["mlp"] = {
+            "w_gate": L.dense_init(gen, d, cfg.d_ff, dtype),
+            "w_up": L.dense_init(gen, d, cfg.d_ff, dtype),
+            "w_down": L.dense_init(gen, cfg.d_ff, d, dtype),
+        }
+    return p
+
+
+def _stack_into(dst: Optional[dict], src: dict, l: int, n: int) -> dict:
+    """Write layer ``l``'s params into preallocated ``(n, …)`` stacks."""
+    if dst is None:
+        dst = {k: (_stack_into(None, v, l, n) if isinstance(v, dict) else
+                   torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                               device=v.device))
+               for k, v in src.items()}
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, l, n)
+        else:
+            dst[k][l].copy_(v)
+    return dst
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
+                serving: bool = False) -> dict:
+    """Random params of a uniform dense stack, made on ``gen``'s device;
+    with ``serving`` and ``cfg.amm.enabled`` the MLPs are LUT-MU tables.
+    The draws differ from ``jax.random``'s: tests carry JAX params across
+    with ``convert.params_from_jax`` instead."""
+    _check_uniform_dense(cfg)
+    d = cfg.d_model
+    params = {
+        "embed": L.embed_init(gen, cfg.vocab_size, d, dtype),
+        "final_norm": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "lm_head": L.dense_init(gen, d, cfg.vocab_size, dtype),
+    }
+    layers = None
+    for l in range(cfg.num_layers):  # one layer at a time: no 2x peak
+        layers = _stack_into(layers, _init_block(cfg, gen, dtype, serving), l,
+                             cfg.num_layers)
+    params["layers"] = layers
+    return params
+
+
+def window_flags(cfg: ModelConfig) -> list:
+    """(L,) per-layer attention window (sentinel 2**30 = global)."""
+    return [cfg.sliding_window
+            if cfg.sliding_window is not None and cfg.layer_is_local(i)
+            else _GLOBAL_WINDOW for i in range(cfg.num_layers)]
+
+
+def layer_params(layers: dict, l: int) -> dict:
+    """Layer ``l``'s params: views into the stacked ``(L, …)`` tensors."""
+    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
+            for k, v in layers.items()}
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device="cuda") -> Dict[str, Tensor]:
+    """Physical page pool: ``(L, P, page_size, n_kv, hd)`` per k/v; the
+    caller includes its trash page in ``P``."""
+    if not supports_paged(cfg):
+        raise ValueError(f"family {cfg.family!r} has no paged KV layout")
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd) -> Tensor:
+    """The per-block MLP shared by every serving path (dense or LUT-MU)."""
+    if "amm_mlp" in lp:
+        return AMM.amm_mlp_apply(lp["amm_mlp"], mlp_in, cfg)
+    m = lp["mlp"]
+    return L.gated_mlp(mlp_in, m["w_gate"].to(cd), m["w_up"].to(cd),
+                       m["w_down"].to(cd), cfg.act)
+
+
+def _head(params: dict, h: Tensor, cfg: ModelConfig, cd) -> Tensor:
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return (h @ params["lm_head"].to(cd)).to(torch.float32)
+
+
+@torch.inference_mode()
+def paged_decode_step(params: dict, token: Tensor, pos: Tensor,
+                      page_table: Tensor, cache: Dict[str, Tensor],
+                      cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                      write_ok: Optional[Tensor] = None) -> Tensor:
+    """One decode step against the paged KV cache.
+
+    token: (B, 1) int; pos: (B,) per-row write positions; page_table:
+    (B, max_pages) int32 (rows without a request point at the trash page);
+    cache: ``{"k","v"}`` of (L, P, page_size, n_kv, hd), updated in place.
+    Returns logits (B, 1, V) float32.
+    """
+    _check_uniform_dense(cfg)
+    cd = compute_dtype
+    h = params["embed"].to(cd)[token.to(torch.int64)]  # (B, 1, D)
+    for l, win in enumerate(window_flags(cfg)):
+        lp = layer_params(params["layers"], l)
+        h = h + A.paged_decode_step(
+            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+            cache["k"][l], cache["v"][l], page_table, pos, win,
+            write_ok=write_ok)
+        h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
+    return _head(params, h, cfg, cd)
+
+
+@torch.inference_mode()
+def paged_prefill_chunk(params: dict, tokens: Tensor, start: int,
+                        n_valid: int, page_row: Tensor,
+                        cache: Dict[str, Tensor], cfg: ModelConfig, *,
+                        compute_dtype=torch.bfloat16) -> Tensor:
+    """One chunk of a single request's prefill against the paged cache.
+
+    tokens: (1, cs) right-padded to the engine's chunk width; start /
+    n_valid: tokens already prefilled / real tokens in this chunk;
+    page_row: (max_pages,) int32.  The cache is updated in place.  Returns
+    logits (1, 1, V) float32 at the chunk's last valid position.
+    """
+    _check_uniform_dense(cfg)
+    cd = compute_dtype
+    h = params["embed"].to(cd)[tokens.to(torch.int64)]
+    for l, win in enumerate(window_flags(cfg)):
+        lp = layer_params(params["layers"], l)
+        h = h + A.paged_prefill_chunk(
+            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg, start,
+            n_valid, cache["k"][l], cache["v"][l], page_row, win)
+        h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
+    return _head(params, h[:, n_valid - 1:n_valid], cfg, cd)

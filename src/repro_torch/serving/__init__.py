@@ -1,0 +1,19 @@
+"""Public serving surface of the port: :func:`load_engine` builds the
+paged :class:`ServeEngine`; ``submit()`` returns a :class:`RequestHandle`.
+"""
+from repro_torch.serving.engine import Request, ServeEngine  # noqa: F401
+from repro_torch.serving.handle import RequestHandle  # noqa: F401
+from repro_torch.serving.kv_cache import (PageAllocator, PagedKVCache,  # noqa: F401
+                                          PageError)
+from repro_torch.serving.loader import load_engine  # noqa: F401
+from repro_torch.serving.obs import NULL_RECORDER, NullRecorder, log  # noqa: F401
+from repro_torch.serving.prefix import RadixPrefixIndex  # noqa: F401
+from repro_torch.serving.sampling import SamplingParams  # noqa: F401
+from repro_torch.serving.scheduler import Scheduler, StepPlan  # noqa: F401
+
+__all__ = [
+    "load_engine", "RequestHandle", "ServeEngine", "Request",
+    "SamplingParams", "PagedKVCache", "PageAllocator", "PageError",
+    "RadixPrefixIndex", "Scheduler", "StepPlan", "NULL_RECORDER",
+    "NullRecorder", "log",
+]

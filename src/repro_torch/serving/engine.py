@@ -1,0 +1,187 @@
+"""Continuous-batching serving over a paged KV cache (PyTorch).
+
+The port of ``repro.serving.engine.ServeEngine``: a host-side scheduler
+(``scheduler.py``: FCFS + priority admission, page-fault eviction with host
+swap, cancellation, per-request budgets) over a paged KV cache
+(``kv_cache.py``) with **chunked prefill** — long prompts advance one
+fixed-width chunk per step and interleave with the batched decode.  Each
+step runs at most one prefill chunk and one decode of ``max_batch`` rows
+through ``models/model.py``; the model writes the K/V pages in place.
+Greedy requests only for now (``sampling.py``).
+"""
+from __future__ import annotations
+
+import itertools
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import model as MD
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving import sampling as S
+from repro_torch.serving import scheduler as SCH
+from repro_torch.serving.handle import RequestHandle, _step_engine_async
+from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.scheduler import Request, Scheduler
+
+
+def _sample_batch(logits: torch.Tensor, rows_reqs, batch: int) -> np.ndarray:
+    """``logits (batch, V)`` + ``(row, request)`` pairs → ``(batch,)`` int32
+    tokens on the host; rows not listed are greedy and discarded."""
+    _, _, temp, _, _ = S.batch_rows(rows_reqs, batch)
+    return S.sample_tokens(logits, temp)
+
+
+class ServeEngine:
+    """Continuous-batching serving over a paged KV cache."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, *,
+                 max_batch: int = 4, max_len: int = 256, page_size: int = 16,
+                 prefill_chunk: int = 32, num_pages: Optional[int] = None,
+                 prefix_cache: bool = True, compute_dtype=torch.float32,
+                 device="cuda"):
+        if not MD.supports_paged(cfg):
+            raise ValueError(
+                f"family {cfg.family!r} has no paged decode path")
+        if cfg.amm.enabled and cfg.amm.kv_int8:
+            raise NotImplementedError(
+                "int8 KV cache (cfg.amm.kv_int8) is not ported yet "
+                "(ROADMAP A5)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = params
+        self.max_batch = int(max_batch)
+        self.max_len = max_len
+        self.page_size = ps = int(page_size)
+        self.prefill_chunk = int(prefill_chunk)
+        self.max_pages_per_seq = mp = -(-max_len // ps)
+        if num_pages is None:
+            # full provisioning: no eviction unless the caller shrinks it
+            num_pages = self.max_batch * mp
+        self.cd = compute_dtype
+        self._uid = itertools.count()
+        self.kv = PagedKVCache(cfg, num_pages=num_pages, page_size=ps,
+                               dtype=compute_dtype, device=self.device)
+        self.sched = Scheduler(
+            max_batch=self.max_batch, allocator=self.kv.allocator,
+            page_size=ps, max_pages_per_seq=mp,
+            prefill_chunk=self.prefill_chunk, max_len=max_len,
+            prefix_cache=prefix_cache)
+        self._driver = None  # a server driver that owns the loop, if any
+        # model calls made, for callers that check per-call kernel counts
+        self.stats = {"prefill_calls": 0, "decode_calls": 0}
+
+    # -- API -------------------------------------------------------------
+    def submit(self, prompt: List[int],
+               sampling: Optional[SamplingParams] = None, *,
+               max_new_tokens: int = 16, eos_id: Optional[int] = None,
+               priority: int = 0) -> RequestHandle:
+        """Queue a request; returns a :class:`RequestHandle`."""
+        sampling = sampling if sampling is not None else SamplingParams()
+        if not sampling.greedy:
+            raise NotImplementedError(
+                "temperature > 0 sampling is not ported yet (ROADMAP A8)")
+        req = Request(uid=next(self._uid), prompt=list(prompt),
+                      max_new_tokens=max_new_tokens, eos_id=eos_id,
+                      priority=priority, sampling=sampling)
+        self.sched.submit(req)
+        return RequestHandle(self, req)
+
+    def cancel(self, uid: int) -> bool:
+        return self.sched.cancel(uid)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.sched.live())
+
+    async def _advance_async(self) -> None:
+        await _step_engine_async(self)
+
+    def step(self) -> List[Request]:
+        """One engine iteration: execute the scheduler's plan — swap-outs,
+        swap-ins, copy-on-write clones, at most one prefill chunk, one
+        batched decode — and retire finished requests."""
+        plan = self.sched.schedule()
+        for req, old_pages in plan.swap_out:
+            # the allocator already released these pages; copy them before
+            # anything writes (the first writes happen below)
+            req.host_kv = self.kv.gather_host(old_pages)
+        for req in plan.swap_in:
+            self.kv.scatter_host(req.host_kv, req.pages)
+            req.host_kv = None
+        for clone in plan.cow:
+            if clone.req.cow is None:
+                continue  # dropped: its request was evicted in this plan
+            self.kv.clone_page(clone.src, clone.dst)
+            self.sched.cow_executed(clone)
+        finished: List[Request] = []
+        if plan.prefill is not None:
+            self._run_prefill_chunk(plan.prefill, finished)
+        if plan.decode:
+            self._run_decode(plan.decode, finished)
+        return finished
+
+    def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
+        """Step until idle; raise rather than return a partial result when
+        the step budget runs out with requests still live."""
+        done: List[Request] = []
+        for _ in range(max_steps):
+            done.extend(self.step())
+            if not self.has_work:
+                return done
+        raise RuntimeError(
+            f"run_until_drained: {max_steps} steps exhausted with "
+            f"{len(self.sched.live())} request(s) still live ({len(done)} "
+            "finished) — raise max_steps for longer workloads, or "
+            "investigate a stuck schedule")
+
+    # -- internals ---------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _run_prefill_chunk(self, chunk: SCH.PrefillChunk,
+                           finished: List[Request]) -> None:
+        req = chunk.req
+        toks = np.zeros((1, self.prefill_chunk), np.int32)
+        toks[0, : chunk.n_valid] = req.prompt[chunk.start:
+                                              chunk.start + chunk.n_valid]
+        page_row = self.kv.page_row(req.pages, self.max_pages_per_seq)
+        logits = MD.paged_prefill_chunk(
+            self.params, self._tensor(toks), chunk.start, chunk.n_valid,
+            self._tensor(page_row), self.kv.buffers, self.cfg,
+            compute_dtype=self.cd)
+        self.stats["prefill_calls"] += 1
+        req.pf_done += chunk.n_valid
+        if req.pf_done == len(req.prompt):
+            req.generated.append(
+                int(_sample_batch(logits[0, -1:], [(0, req)], 1)[0]))
+            # prefill_finished first — it indexes the prompt pages for
+            # prefix reuse, which a budget-limited request still provides
+            self.sched.prefill_finished(req)
+            if req.budget_reached(self.max_len):
+                self.sched.retire(req)
+                finished.append(req)
+
+    def _run_decode(self, decode, finished: List[Request]) -> None:
+        token = np.zeros((self.max_batch, 1), np.int32)
+        pos = np.zeros((self.max_batch,), np.int32)
+        table = np.full((self.max_batch, self.max_pages_per_seq),
+                        self.kv.trash, np.int32)
+        for row, req in decode:
+            token[row, 0] = req.generated[-1]
+            pos[row] = req.next_pos
+            table[row, : len(req.pages)] = req.pages
+        logits = MD.paged_decode_step(
+            self.params, self._tensor(token), self._tensor(pos),
+            self._tensor(table), self.kv.buffers, self.cfg,
+            compute_dtype=self.cd)
+        self.stats["decode_calls"] += 1
+        nxt = _sample_batch(logits[:, 0], decode, self.max_batch)
+        for row, req in decode:
+            req.generated.append(int(nxt[row]))
+            if req.budget_reached(self.max_len):
+                self.sched.retire(req)
+                finished.append(req)

@@ -1,0 +1,105 @@
+"""The port's LUT-MU kernels' plain versions against the JAX Pallas
+kernels (the CUDA kernels against the plain versions are in
+``test_torch_cuda_kernels.py``).
+
+On the CPU every port wrapper runs its plain version; the same numpy inputs
+go through the JAX Pallas kernel in interpret mode.  Tree codes, one-hots
+and int32 LUT sums (unit epilogue) must match bit for bit; float LUT sums
+match within rtol 1e-5 (float32 sums of at most a few tens of terms, taken
+in another order).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.fused_lutmu import fused_lutmu_pallas
+from repro.kernels.lut_aggregate import lut_aggregate_pallas
+from repro.kernels.maddness_encode import encode_onehot_pallas
+from repro_torch.kernels import fused_lutmu as FL
+from repro_torch.kernels import lut_aggregate as LA
+from repro_torch.kernels import maddness_encode as ME
+from repro_torch.kernels import ref as tref
+from test_torch_cuda_kernels import CASES, LUT_DTYPES, _TORCH, _inputs, _torch
+
+_JNP = {"int8": jnp.int8, "float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _jax(a, dtype=None):
+    out = jnp.asarray(a)
+    return out.astype(_JNP[dtype]) if dtype else out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_encode_codes_match_jax_oracle(case):
+    b, c, _, depth = case
+    x, thr, *_ = _inputs(*case, "float32")
+    want = np.asarray(jref.encode_codes_ref(_jax(x), _jax(thr)))
+    got = tref.encode_codes_ref(_torch(x), _torch(thr)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", CASES[:3])
+@pytest.mark.parametrize("out_dtype", ["float32", "int8"])
+def test_encode_onehot_plain_matches_pallas(case, out_dtype):
+    _, _, _, depth = case
+    x, thr, *_ = _inputs(*case, "float32")
+    want = encode_onehot_pallas(_jax(x), _jax(thr), depth=depth,
+                                out_dtype=_JNP[out_dtype], interpret=True)
+    got = ME.encode_onehot(_torch(x), _torch(thr),
+                           out_dtype=_TORCH[out_dtype])
+    assert got.dtype == _TORCH[out_dtype]
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want).astype(np.float32))
+
+
+def _check(got: torch.Tensor, want, lut_dtype: str, unit: bool):
+    got, want = got.numpy(), np.asarray(want)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    if lut_dtype == "int8" and unit:
+        np.testing.assert_array_equal(got, want)  # the int32 sums, exactly
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_fused_lutmu_plain_matches_pallas(case, lut_dtype):
+    depth = case[3]
+    for unit in (True, False):
+        x, thr, lut, scale, offset = _inputs(*case, lut_dtype,
+                                             unit_epilogue=unit)
+        want = fused_lutmu_pallas(_jax(x), _jax(thr), _jax(lut, lut_dtype),
+                                  _jax(scale), _jax(offset), depth=depth,
+                                  interpret=True)
+        got = FL.fused_lutmu(_torch(x), _torch(thr), _torch(lut, lut_dtype),
+                             _torch(scale), _torch(offset))
+        _check(got, want, lut_dtype, unit)
+
+
+@pytest.mark.parametrize("case", CASES[:3])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_lut_aggregate_plain_matches_pallas(case, lut_dtype):
+    x, thr, lut, scale, offset = _inputs(*case, lut_dtype, unit_epilogue=True)
+    onehot = np.asarray(jref.encode_onehot_ref(_jax(x), _jax(thr)))
+    want = lut_aggregate_pallas(_jax(onehot), _jax(lut, lut_dtype),
+                                _jax(scale), _jax(offset), interpret=True)
+    got = LA.lut_aggregate(_torch(onehot), _torch(lut, lut_dtype),
+                           _torch(scale), _torch(offset))
+    _check(got, want, lut_dtype, unit=True)
+
+
+def test_lut_aggregate_plain_takes_any_left_operand():
+    """Not only one-hots: a dense integer left operand sums exactly."""
+    rng = np.random.default_rng(3)
+    lhs = rng.integers(-3, 4, size=(6, 4, 8)).astype(np.int8)
+    lut = rng.integers(-128, 128, size=(4, 8, 40)).astype(np.int8)
+    one, zero = np.asarray(np.float32(1)), np.asarray(np.float32(0))
+    want = lut_aggregate_pallas(_jax(lhs), _jax(lut), _jax(one), _jax(zero),
+                                interpret=True)
+    got = LA.lut_aggregate(_torch(lhs), _torch(lut), _torch(one),
+                           _torch(zero))
+    exact = lhs.reshape(6, -1).astype(np.int64) @ lut.reshape(-1, 40)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
