@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
-2. build — the three LUT-MU CUDA kernels from ``src/repro_torch/csrc``;
+2. build — the four CUDA kernels from ``src/repro_torch/csrc``, one
+   ``nvcc`` per source, all started together;
 3. kernels — each kernel against its plain PyTorch version at the main
    path's shapes (gate/up C=640 N=8704, down C=2176 N=5120; B=4 decode and
    B=32 prefill chunk; int8, plus one float32 and one bfloat16 LUT case):
@@ -23,7 +24,30 @@ Phases, each fatal on failure:
    120 times per forward call and the ``ref`` path never; then a decode
    step's host time and device busy time (``torch.profiler``);
 6. unfused — the ``--amm-backend unfused`` path (encode + aggregate
-   kernels) at full width, depth cut to 4 layers, 2 requests.
+   kernels) at full width, depth cut to 4 layers, 2 requests;
+7. verify-kernel (runs after 3) — the verify-window kernel against its
+   plain version at the full-width shape (B=4, W=5, n_kv=8, g=5, hd=128,
+   page_size 16, rows of S=128 and S=4096; bf16, float32 and int8 KV)
+   within ``VERIFY_TOL``; kernel, plain, bound and library (one
+   ``scaled_dot_product_attention`` over the gathered view with the same
+   boolean mask, float only) times;
+8. verify-agree (after 5) — at full width, one ``paged_verify_step``
+   ``fused`` (the kernel, 40 launches) against ``scan`` on copies of one
+   cache: logits within ``LOGIT_TOL``, the argmax equal wherever the top-2
+   margin exceeds it;
+9. spec — speculative serve at full width and depth, bf16, ``spec_k=4``,
+   identical draft, 6 requests × 16 tokens: with ``verify_backend="scan"``
+   the streams equal phase 5's and acceptance is exactly 1.0; then with
+   ``fused``, counts set to 0 just before, the verify kernel launches 40
+   times per round and the plain version never on CUDA; tok/s, TTFT,
+   acceptance and peak memory.  A fused stream that differs from the
+   plain engine's is reported with its first differing position and the
+   plain path's top-2 margin there, and fails only if that margin exceeds
+   ``STREAM_MARGIN_TOL``;
+10. spec-4layer (after 6) — depth cut to 4 layers, a garbage draft (other
+    LUT tables, same backbone) through rejection and rollback, on bf16 KV
+    and on the int8 KV cache, held to the plain engine's streams by the
+    same rule.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
@@ -55,6 +79,32 @@ CASES = [("gate_up", 4, "int8"), ("down", 4, "int8"),
          ("gate_up", 32, "int8"), ("down", 32, "int8"),
          ("gate_up", 4, "float32"), ("down", 32, "bfloat16")]
 JSON_CASE = ("down", 4, "int8")          # the case each kernel's JSON entry reports
+VERIFY_SHAPE = (4, 5, 8, 5, 128, 16)     # B, W=k+1, n_kv, g, hd, page_size
+VERIFY_S = (128, 4096)                   # cache positions of a row's table
+VERIFY_JSON_CASE = ("bfloat16", 128)     # the serve path's verify call
+# verify window against its plain version, max abs error (as
+# tests/test_torch_cuda_kernels): float32 — sums in another order, expf:
+# atol 1e-5 + rtol 1e-5 on outputs ≤ 4;
+# bfloat16 — a weight one ulp apart may round to the neighbouring bfloat16
+# before the value product (2**-8 relative); int8 — exact integer sums, a
+# weight may round to the neighbouring int8 step (≤ 0.05 per weight, two
+# allowed), and ≥ 99 % of the outputs bit-equal
+VERIFY_TOL = {"float32": 5e-5, "bfloat16": 2e-2, "int8": 2 * 0.05}
+INT8_MIN_EQUAL_SHARE = 0.99
+# logits of the full-width model (bf16 head: ulp 2**-6 at |x| ≈ 4) through
+# the verify kernel against the scan oracle, one step from one cache: a few
+# bf16 ulps
+LOGIT_TOL = 0.25
+# a speculative stream through the kernel against the plain engine's: the
+# kernel's float sums differ from the oracle's in the last bits, which can
+# move a bf16 rounding of an attention output; the LUT-MU MLP's tree encode
+# turns such a difference into another LUT row (ROADMAP C2), and the K/V
+# written from it feed every later step, so once streams drift the logits
+# move by far more than one step's error.  A first difference is accepted
+# where the plain top-2 margin is at most this; a faulty kernel diverges at
+# margins well above it
+STREAM_MARGIN_TOL = 1.0
+SPEC_K = 4
 
 
 def ensure(cond: bool, msg: str) -> None:
@@ -193,6 +243,109 @@ def kernel_checks(torch, timer, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the verify-window kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _reach(pos: int, w: int, win: int, s_len: int):
+    """Cache positions ``[lo, hi)`` any of a row's W window masks can
+    reach (all of them when one row's mask is empty)."""
+    rows = [(max(0, pos + j - win + 1), min(s_len - 1, pos + j))
+            for j in range(w)]
+    if any(lo > hi for lo, hi in rows):
+        return 0, s_len
+    return rows[0][0], rows[-1][1] + 1
+
+
+def verify_inputs(torch, s_len: int, kv_name: str, gen):
+    """Full-width verify-window inputs: B=4 rows whose windows end near the
+    end of an S-position table, pages in random order."""
+    b, w, nkv, g, hd, ps = VERIFY_SHAPE
+    mp = s_len // ps
+    n_pages = b * mp + 1
+    shape = (n_pages, ps, nkv, hd)
+    if kv_name == "int8":
+        kp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+    else:
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[kv_name]
+        kp = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    pt = torch.randperm(b * mp, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, mp)
+    pos = torch.tensor([max(0, s_len - w - d) for d in (0, 3, 9, 17)],
+                       dtype=torch.int32, device="cuda")
+    q = torch.randn((b, w, nkv, g, hd), generator=gen, device="cuda") * 2.0
+    return q, kp, vp, pt, pos
+
+
+def verify_kernel_checks(torch, timer, FV):
+    """``verify_window_attend_cuda`` against its plain version at the
+    full-width shapes (global window, as qwen3-14b's layers); kernel,
+    plain, bound and library (one ``scaled_dot_product_attention`` over
+    the pre-gathered view with the same boolean mask, float caches only)
+    times."""
+    import torch.nn.functional as F
+    b, w, nkv, g, hd, ps = VERIFY_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    results = {}
+    for s_len in VERIFY_S:
+        for kv_name in ("bfloat16", "float32", "int8"):
+            q, kp, vp, pt, pos = verify_inputs(torch, s_len, kv_name, gen)
+            args = (q, kp, vp, pt, pos, None)
+            got = FV.verify_window_attend_cuda(*args)
+            want = FV.verify_window_attend_plain(*args)
+            torch.cuda.synchronize()
+            ensure(bool(torch.isfinite(got).all()), f"verify {kv_name}: non-finite")
+            err = (got - want).abs().max().item()
+            tol = VERIFY_TOL[kv_name]
+            ensure(err <= tol, f"verify_window {kv_name} S={s_len}: max abs "
+                   f"err {err} > {tol}")
+            share = (got == want).float().mean().item()
+            if kv_name == "int8":
+                ensure(share >= INT8_MIN_EQUAL_SHARE,
+                       f"verify_window int8 S={s_len}: only {share:.4f} of the "
+                       "outputs bit-equal")
+            reach = [_reach(int(p), w, FV.GLOBAL_WINDOW, s_len) for p in pos.tolist()]
+            positions = sum(hi - lo for lo, hi in reach)
+            item = kp.element_size()
+            nbytes = (2 * positions * nkv * hd * item + 2 * q.numel() * 4
+                      + pt.numel() * 4 + pos.numel() * 4)
+            ops = 2 * 2 * w * g * hd * positions * nkv
+            bms, by = bound_ms(nbytes, ops, PEAK_OPS[kv_name])
+            library_ms = None
+            if kv_name != "int8":
+                k_view, v_view = FV.paged_view(kp, vp, pt)
+                kq = k_view.permute(0, 2, 1, 3).contiguous()  # (B, nkv, S, hd)
+                vq = v_view.permute(0, 2, 1, 3).contiguous()
+                qq = q.permute(0, 2, 1, 3, 4).reshape(b, nkv, w * g, hd).to(kp.dtype)
+                kv_pos = torch.arange(s_len, device="cuda")
+                pj = (pos[:, None].long() + torch.arange(w, device="cuda")[None])
+                mask = (kv_pos[None, None, :] <= pj[:, :, None])  # (B, W, S)
+                mask = mask[:, :, None, :].expand(b, w, g, s_len).reshape(
+                    b, 1, w * g, s_len)
+                library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                    qq, kq, vq, attn_mask=mask), 20)
+                del k_view, v_view, kq, vq, qq, mask
+            r = dict(max_abs_err=err, equal_share=share,
+                     ms=timer.ms(lambda: FV.verify_window_attend_cuda(*args), 20),
+                     plain_ms=timer.ms(lambda: FV.verify_window_attend_plain(*args), 3),
+                     bound_ms=bms, bound_by=by, library_ms=library_ms)
+            results[(kv_name, s_len)] = r
+            lib = "null" if library_ms is None else f"{library_ms:.4f}"
+            print(f"[verify-kernel] B={b} W={w} n_kv={nkv} g={g} hd={hd} "
+                  f"S={s_len:<4d} {kv_name:8s} kernel_ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} bound_ms={bms:.4f} ({by}) "
+                  f"library_ms={lib} max_abs_err={err:.3g} "
+                  f"bit_equal={share:.4f}", flush=True)
+            del q, kp, vp, pt, pos, got, want
+            torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the model
 # ---------------------------------------------------------------------------
 
@@ -243,11 +396,19 @@ def agree_phase(torch, cfg, params, MD):
           "bit-identical to the plain LUT-MU path", flush=True)
 
 
+ENGINE_KNOBS = dict(max_batch=4, max_len=128, page_size=16, prefill_chunk=32)
+
+
 def serve(torch, cfg, params, load_engine, n_requests: int, max_new: int):
     """Drive the engine; returns (requests, seconds, ttft list, engine)."""
-    engine = load_engine(None, params, cfg, max_batch=4, max_len=128,
-                         page_size=16, prefill_chunk=32,
-                         compute_dtype=torch.bfloat16, device="cuda")
+    engine = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                         device="cuda", **ENGINE_KNOBS)
+    return drive(torch, engine, cfg, n_requests, max_new)
+
+
+def drive(torch, engine, cfg, n_requests: int, max_new: int):
+    """Submit the CLI prompts and step ``engine`` until it drains; returns
+    (requests, seconds, ttft list, engine)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [engine.submit(p, max_new_tokens=max_new)
@@ -262,6 +423,128 @@ def serve(torch, cfg, params, load_engine, n_requests: int, max_new: int):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     return handles, dt, [ttft[h.request_id] for h in handles], engine
+
+
+def plain_margin(torch, make_plain, prompt, at: int) -> float:
+    """The plain engine's top-2 logit margin at generated position ``at``
+    of ``prompt``'s greedy stream (the request served alone)."""
+    import repro_torch.serving.engine as ENG
+    seen = []
+    orig = ENG._sample_batch
+
+    def spy(logits, rows_reqs, batch):
+        seen.append(logits[rows_reqs[0][0]].float())
+        return orig(logits, rows_reqs, batch)
+
+    ENG._sample_batch = spy
+    try:
+        eng = make_plain()
+        eng.submit(prompt, max_new_tokens=at + 1)
+        eng.run_until_drained()
+    finally:
+        ENG._sample_batch = orig
+    top = torch.topk(seen[at], 2).values
+    return (top[0] - top[1]).item()
+
+
+def compare_streams(torch, label, handles, want, make_plain) -> int:
+    """Speculative streams through the verify kernel against the plain
+    engine's: a stream that differs is reported with its first differing
+    position and the plain path's top-2 margin there, and fails only when
+    that margin exceeds STREAM_MARGIN_TOL (the kernel's float path is
+    allclose to the oracle, not bitwise).  Returns the number of differing
+    streams."""
+    differ = 0
+    for h, ref_stream in zip(handles, want):
+        if h.generated == ref_stream:
+            continue
+        differ += 1
+        at = next(i for i, (a, b) in enumerate(zip(h.generated, ref_stream))
+                  if a != b)
+        margin = plain_margin(torch, make_plain, h.prompt, at)
+        print(f"[{label}] req {h.request_id}: first difference at generated "
+              f"position {at} ({h.generated[at]} vs plain {ref_stream[at]}); "
+              f"plain top-2 margin {margin:.4f} (tolerance "
+              f"{STREAM_MARGIN_TOL})", flush=True)
+        ensure(margin <= STREAM_MARGIN_TOL,
+               f"{label}: req {h.request_id} differs at {at} where the plain "
+               f"margin {margin} exceeds {STREAM_MARGIN_TOL}")
+    return differ
+
+
+def verify_agree_phase(torch, cfg, params, MD, FV):
+    """At full width, one ``paged_verify_step`` through the verify kernel
+    (``fused``) against the ``scan`` oracle on copies of one prefilled
+    cache: logits within LOGIT_TOL, the argmax equal wherever the oracle's
+    top-2 margin exceeds it, and layer 0's K/V pages bit-equal (the
+    projections run at the oracle's shapes)."""
+    ps, mp, w = 16, 8, SPEC_K + 1
+    cache = MD.init_paged_cache(cfg, 2 * mp + 1, ps, torch.bfloat16, "cuda")
+    rows = torch.arange(2 * mp, dtype=torch.int32, device="cuda").reshape(2, mp)
+    pos = []
+    for i, p in enumerate(prompts(cfg.vocab_size, 2)):
+        toks = torch.tensor([p + [0] * (32 - len(p))], dtype=torch.int32,
+                            device="cuda")
+        MD.paged_prefill_chunk(params, toks, 0, len(p), rows[i], cache, cfg,
+                               compute_dtype=torch.bfloat16)
+        pos.append(len(p))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (2, w), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    n_valid = torch.tensor([w, w - 2], dtype=torch.int32, device="cuda")
+    out = {}
+    for backend in ("scan", "fused"):
+        c = {k: v.clone() for k, v in cache.items()}
+        before = FV.LAUNCHES.n
+        logits = MD.paged_verify_step(params, tokens, pos_t, n_valid, rows, c,
+                                      cfg, compute_dtype=torch.bfloat16,
+                                      backend=backend)
+        torch.cuda.synchronize()
+        out[backend] = (logits, c, FV.LAUNCHES.n - before)
+    (ls, cs, ns), (lf, cf, nf) = out["scan"], out["fused"]
+    ensure(ns == 0 and nf == cfg.num_layers,
+           f"verify kernel launches: scan {ns}, fused {nf}")
+    err, flips, checked = 0.0, 0, 0
+    for i, nv in enumerate(n_valid.tolist()):
+        a, b = ls[i, :nv], lf[i, :nv]
+        ensure(bool(torch.isfinite(b).all()), "fused verify: non-finite logits")
+        err = max(err, (a - b).abs().max().item())
+        top = torch.topk(a, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > LOGIT_TOL
+        checked += int(sure.sum())
+        flips += int((a.argmax(-1) != b.argmax(-1))[sure].sum())
+    ensure(err <= LOGIT_TOL, f"fused verify logits off by {err} > {LOGIT_TOL}")
+    ensure(flips == 0, f"{flips} argmax flips where the margin exceeds the "
+           "tolerance")
+    for name in ("k", "v"):
+        ensure(torch.equal(cs[name][0, :-1], cf[name][0, :-1]),
+               f"layer-0 {name} pages differ between scan and fused")
+    print(f"[verify-agree] full-width paged_verify_step (W={w}, "
+          f"{cfg.num_layers} layers): fused (kernel, {nf} launches) vs scan "
+          f"max abs logit diff {err:.4g} (tolerance {LOGIT_TOL}); argmax "
+          f"equal at all {checked} positions with margin > tolerance; layer-0 "
+          "pages bit-equal", flush=True)
+    del cache, out
+
+
+def spec_serve(torch, cfg, params, draft_params, SpeculativeEngine, backend,
+               n_requests, max_new):
+    engine = SpeculativeEngine(params, cfg, draft_params, spec_k=SPEC_K,
+                               verify_backend=backend,
+                               compute_dtype=torch.bfloat16, device="cuda",
+                               **ENGINE_KNOBS)
+    return drive(torch, engine, cfg, n_requests, max_new)
+
+
+def spec_line(label, handles, dt, ttft, engine, peak) -> str:
+    n_tok = sum(len(h.generated) for h in handles)
+    return (f"[{label}] {len(handles)} requests: {n_tok} tokens in {dt:.3f}s "
+            f"= {n_tok / dt:.2f} tok/s; TTFT mean {sum(ttft) / len(ttft):.4f}s "
+            f"max {max(ttft):.4f}s; rounds {engine.stats['decode_calls']}; "
+            f"acceptance {engine.acceptance_rate:.4f}; emitted/round "
+            f"{engine.mean_emitted_per_round:.3f}; stats {engine.stats}; "
+            f"peak memory {peak / 1e9:.2f} GB")
 
 
 def profile_phase(torch, cfg, params, load_engine, steps: int = 6):
@@ -315,11 +598,12 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels import fused_lutmu as FL
+    from repro_torch.kernels import fused_verify as FV
     from repro_torch.kernels import lut_aggregate as LA
     from repro_torch.kernels import maddness_encode as ME
     from repro_torch.kernels import ref
     from repro_torch.models import model as MD
-    from repro_torch.serving import load_engine
+    from repro_torch.serving import SpeculativeEngine, load_engine
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     torch.backends.cudnn.allow_tf32 = False
@@ -346,6 +630,8 @@ def main() -> int:
     # 3. kernels
     timer = Timer(torch)
     kres = kernel_checks(torch, timer, (FL, ME, LA, ref))
+    # 7. the verify-window kernel at the full-width shapes
+    vres = verify_kernel_checks(torch, timer, FV)
     del timer
     torch.cuda.empty_cache()
 
@@ -362,7 +648,8 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of params in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     agree_phase(torch, cfg, params, MD)
-    counters = (FL.LAUNCHES, ME.LAUNCHES, LA.LAUNCHES, dispatch.REF_ON_CUDA)
+    counters = (FL.LAUNCHES, ME.LAUNCHES, LA.LAUNCHES, dispatch.REF_ON_CUDA,
+                FV.LAUNCHES, FV.PLAIN_ON_CUDA)
     serve(torch, cfg, params, load_engine, 1, 2)  # warm-up, not counted
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
@@ -392,8 +679,54 @@ def main() -> int:
           f"peak memory {peak / 1e9:.2f} GB", flush=True)
     for h in handles:
         print(f"  req {h.request_id}: {h.prompt} -> {h.generated}")
+    plain_streams = [list(h.generated) for h in handles]
     del engine, handles
     profile_phase(torch, cfg, params, load_engine)
+
+    # 8. fused verify step (kernel) against the scan oracle at full width
+    verify_agree_phase(torch, cfg, params, MD, FV)
+
+    # 9. speculative serve, 40 layers, bf16, spec_k=4, identical draft:
+    # the scan oracle first (streams equal to plain, acceptance 1.0), then
+    # the fused path through the verify kernel
+    reset_counts(counters)
+    sh, sdt, sttft, seng = spec_serve(torch, cfg, params, params,
+                                      SpeculativeEngine, "scan", 6, 16)
+    ensure([h.generated for h in sh] == plain_streams,
+           "scan speculative streams differ from the plain engine's")
+    ensure(seng.acceptance_rate == 1.0,
+           f"identical draft accepted {seng.acceptance_rate}, not 1.0")
+    ensure(FV.LAUNCHES.n == 0, "the scan oracle launched the verify kernel")
+    print(spec_line("spec-scan", sh, sdt, sttft, seng,
+                    torch.cuda.max_memory_allocated()) +
+          "; streams equal to the plain engine's", flush=True)
+    del seng, sh
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    fh, fdt, fttft, feng = spec_serve(torch, cfg, params, params,
+                                      SpeculativeEngine, "fused", 6, 16)
+    rounds = feng.stats["decode_calls"]
+    launches["verify_window"] = FV.LAUNCHES.n
+    ensure(FV.LAUNCHES.n == cfg.num_layers * rounds,
+           f"verify kernel launches {FV.LAUNCHES.n} != {cfg.num_layers} x "
+           f"{rounds} rounds")
+    ensure(FV.PLAIN_ON_CUDA.n == 0 and dispatch.REF_ON_CUDA.n == 0,
+           f"plain verify on CUDA {FV.PLAIN_ON_CUDA.n}, ref LUT-MU on CUDA "
+           f"{dispatch.REF_ON_CUDA.n}")
+    ensure(all(h.done and len(h.generated) == 16 for h in fh),
+           "fused speculative requests did not finish")
+
+    def make_plain(c=cfg, p=params):
+        return load_engine(None, p, c, compute_dtype=torch.bfloat16,
+                           device="cuda", **ENGINE_KNOBS)
+
+    differ = compare_streams(torch, "spec-fused", fh, plain_streams, make_plain)
+    print(spec_line("spec-fused", fh, fdt, fttft, feng,
+                    torch.cuda.max_memory_allocated()) +
+          f"; verify_window launches {FV.LAUNCHES.n} = {cfg.num_layers} x "
+          f"{rounds} rounds; plain verify on CUDA 0; {differ} of {len(fh)} "
+          "streams differ from the plain engine's", flush=True)
+    del feng, fh
     del params
     torch.cuda.empty_cache()
 
@@ -420,24 +753,72 @@ def main() -> int:
     print(f"[unfused] 4 layers, 2 requests x 4 tokens in {udt:.3f}s; "
           f"encode_onehot {ME.LAUNCHES.n} + lut_aggregate {LA.LAUNCHES.n} "
           f"launches = 12 x {ucalls} calls", flush=True)
-    del ueng, uparams
+    del ueng
 
+    # 10. speculative rounds with rejection and rollback, full width, depth
+    # cut to 4 layers: a garbage draft (other LUT tables, same backbone) on
+    # bf16 KV, then on the int8 KV cache
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    other = MD.init_params(cfg4, torch.Generator(device="cuda").manual_seed(2),
+                           torch.bfloat16, serving=True)
+    dparams = dict(uparams, layers=dict(uparams["layers"],
+                                        amm_mlp=other["layers"]["amm_mlp"]))
+    del other
+    cfg4_int8 = dataclasses.replace(cfg4, amm=dataclasses.replace(
+        cfg4.amm, kv_int8=True))
+    for label, c in (("spec-4layer-garbage", cfg4),
+                     ("spec-4layer-int8kv", cfg4_int8)):
+        ph, _, _, _ = serve(torch, c, uparams, load_engine, 4, 12)
+        want = [list(h.generated) for h in ph]
+        reset_counts(counters)
+        gh, gdt, gttft, geng = spec_serve(torch, c, uparams, dparams,
+                                          SpeculativeEngine, "fused", 4, 12)
+        grounds = geng.stats["decode_calls"]
+        ensure(FV.LAUNCHES.n == c.num_layers * grounds
+               and FV.PLAIN_ON_CUDA.n == 0,
+               f"{label}: verify launches {FV.LAUNCHES.n} for {grounds} rounds")
+        ensure(geng.stats["corrections"] > 0,
+               f"{label}: the garbage draft was never rejected")
+        ensure(geng.kv.buffers["k"].dtype == (torch.int8 if c.amm.kv_int8
+                                              else torch.bfloat16),
+               f"{label}: cache dtype {geng.kv.buffers['k'].dtype}")
+        differ = compare_streams(
+            torch, label, gh, want,
+            lambda c=c: load_engine(None, uparams, c, compute_dtype=torch.bfloat16,
+                                    device="cuda", **ENGINE_KNOBS))
+        print(spec_line(label, gh, gdt, gttft, geng,
+                        torch.cuda.max_memory_allocated()) +
+              f"; verify_window launches {FV.LAUNCHES.n}; {differ} of "
+              f"{len(gh)} streams differ from the plain engine's", flush=True)
+        del geng, gh
+    del uparams, dparams
+
+    lutmu_shape = "down C=2176 N=5120, B=4, int8"
+    # name: (source, TPU kernel, path, shape, results by case, reported case)
     sources = {"fused_lutmu": ("src/repro_torch/csrc/fused_lutmu.cu",
-                               "src/repro/kernels/fused_lutmu.py:124", "auto"),
+                               "src/repro/kernels/fused_lutmu.py:124", "auto",
+                               lutmu_shape, kres["fused_lutmu"], JSON_CASE),
                "encode_onehot": ("src/repro_torch/csrc/maddness_encode.cu",
                                  "src/repro/kernels/maddness_encode.py:85",
-                                 "unfused"),
+                                 "unfused", lutmu_shape,
+                                 kres["encode_onehot"], JSON_CASE),
                "lut_aggregate": ("src/repro_torch/csrc/lut_aggregate.cu",
                                  "src/repro/kernels/lut_aggregate.py:96",
-                                 "unfused")}
+                                 "unfused", lutmu_shape,
+                                 kres["lut_aggregate"], JSON_CASE),
+               "verify_window": ("src/repro_torch/csrc/verify_window.cu",
+                                 "src/repro/kernels/fused_verify.py:281",
+                                 "speculative",
+                                 "B=4 W=5 n_kv=8 g=5 hd=128, S=128 (page_size "
+                                 "16), bf16 KV", vres, VERIFY_JSON_CASE)}
     entries = []
-    for name, (src, replaces, path) in sources.items():
-        r = kres[name][JSON_CASE]
+    for name, (src, replaces, path, shape, res, case) in sources.items():
+        r = res[case]
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name], "path": path,
-            "shape": "down C=2176 N=5120, B=4, int8",
-            "max_abs_err": max(v["max_abs_err"] for v in kres[name].values()),
+            "shape": shape,
+            "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     ensure(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries),

@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_lutmu", "maddness_encode", "lut_aggregate")
+SOURCES = ("fused_lutmu", "maddness_encode", "lut_aggregate", "verify_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,6 +48,9 @@ ENTRY_POINTS = {
     "lut_aggregate": ("lut_aggregate_launch",
                       [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _CI,
                        _CI, _VP]),
+    "verify_window": ("verify_window_launch",
+                      [_VP, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+                       _CI, _CI, _CI, _CI, _CI, _CI, _VP]),
 }
 
 _LOCK = threading.Lock()

@@ -1,19 +1,68 @@
-"""The one masked attention read of the paged decode path.
+"""The masked attention read of the paged decode path, and the fused
+speculative-verify window, as in ``repro/kernels/fused_verify.py``.
 
-``decode_attend`` lives here, as in ``repro/kernels/fused_verify.py``, so
-the decode path and the speculative verify window (a later slice, with its
-CUDA kernel) share one definition.
+``decode_attend`` is the one masked read: the decode step, the scan oracle
+of ``models/model.py::paged_verify_step`` and the fused verify window all
+go through it, so their read paths cannot drift.  The verify window scores
+all ``W = k+1`` draft positions of a row against one view of its pages:
+position ``j``'s mask (``kv_pos <= pos + j``) already hides the later
+window slots, so the W attends are independent.
+
+Two implementations, selected by :func:`resolve_impl` (the counterparts of
+the JAX package's ``xla`` and ``pallas`` lowerings):
+
+* ``plain`` — :func:`verify_window_attend_plain`: gather the page view
+  once (:func:`paged_view`), then :func:`verify_window_attend`, a loop over
+  window positions of the very :func:`decode_attend` call the scan oracle
+  makes, so it is bitwise the oracle for every cache dtype;
+* ``cuda`` — :func:`verify_window_attend_cuda`: one hand-written kernel
+  (``csrc/verify_window.cu``) that reads each row's pages through the page
+  table and computes all W attends without materialising the view.  Its
+  int8 path sums in int32 (exact, any order); its float path sums in
+  float32 in another order than the plain version, so it is held
+  ``allclose``.
+
+``auto`` picks ``cuda`` for CUDA tensors and ``plain`` for CPU tensors;
+the plain version runs on a CUDA tensor only when asked for by name.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
+KV_INT8_SCALE = 0.05
+GLOBAL_WINDOW = 2**30  # the "no window" sentinel of the window flags
+
+VERIFY_IMPLS = ("plain", "cuda")
+
+LAUNCHES = _build.LaunchCount()
+# calls of the plain version on CUDA tensors (only ever by name); the chip
+# smoke run asserts the main path made none
+PLAIN_ON_CUDA = _build.LaunchCount()
+
+_MAX_ROWS = 64           # W·g query rows one block holds
+_MAX_HD = 256
+_SMEM_LOGITS_MAX = 96 * 1024   # logits of a block above this go to scratch
+_KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def resolve_impl(impl: str = "auto", device=None) -> str:
+    """``auto`` → ``cuda`` on a CUDA device, else ``plain``."""
+    if impl == "auto":
+        dev = torch.device(device) if device is not None else None
+        return "cuda" if dev is not None and dev.type == "cuda" else "plain"
+    if impl not in VERIFY_IMPLS:
+        raise ValueError(
+            f"verify attend impl must be 'auto' or one of {VERIFY_IMPLS}, "
+            f"got {impl!r}")
+    return impl
 
 
 def decode_attend(qg: Tensor, cache_k: Tensor, cache_v: Tensor, pos_b: Tensor,
@@ -21,24 +70,145 @@ def decode_attend(qg: Tensor, cache_k: Tensor, cache_v: Tensor, pos_b: Tensor,
     """Masked one-token attention read over a ``(B, S, n_kv, hd)`` cache
     view.  qg: (B, 1, n_kv, g, hd); returns (B, 1, n_kv, g, hd) float32.
 
-    The products accumulate in float32 over the upcast cache, as the JAX
-    ``preferred_element_type=f32`` einsums do; the softmax weights are
-    rounded to the cache's type before the value product.
+    Float caches: the products accumulate in float32 over the upcast cache,
+    as the JAX ``preferred_element_type=f32`` einsums do; the softmax
+    weights are rounded to the cache's type before the value product.
+
+    int8 caches: q and the softmax weights are quantised on the fly and the
+    products sum exactly (integers far below 2**24, summed in float64), then
+    rescale.  q is quantised from float32 whatever the compute type — the
+    JAX function quantises in the compute type, which is the same at
+    float32 and lets the CUDA kernel, which takes float32 q, agree with
+    this version at bf16 too.
     """
-    if cache_k.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV cache (cfg.amm.kv_int8) is not ported yet "
-            "(ROADMAP A5)")
     hd = qg.shape[-1]
     kv_pos = torch.arange(cache_k.shape[1], device=qg.device)
     valid = kv_pos[None, :] <= pos_b[:, None]  # (B, S)
     if window is not None:
         valid = valid & (kv_pos[None, :] > pos_b[:, None] - window)
+    valid = valid[:, None, None, None, :]
     scale = 1.0 / math.sqrt(hd)
+    if cache_k.dtype == torch.int8:
+        q = qg.float()
+        sq = torch.amax(q.abs(), dim=-1, keepdim=True) / 127.0 + 1e-9
+        q_i8 = torch.clamp(torch.round(q / sq), -127, 127)
+        logits = torch.einsum("bsngh,btnh->bngst", q_i8.double(),
+                              cache_k.double()).float()
+        logits = logits * (sq.permute(0, 2, 3, 1, 4) * KV_INT8_SCALE * scale)
+        logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+        w = torch.softmax(logits, dim=-1)
+        w_i8 = torch.clamp(torch.round(w * 127.0), 0, 127)
+        out = torch.einsum("bngst,btnh->bsngh", w_i8.double(),
+                           cache_v.double()).float()
+        return out * (KV_INT8_SCALE / 127.0)
     logits = torch.einsum("bsngh,btnh->bngst", qg.float(),
                           cache_k.float()) * scale
-    logits = torch.where(valid[:, None, None, None, :], logits,
-                         torch.full_like(logits, NEG_INF))
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bngst,btnh->bsngh", w.to(cache_v.dtype).float(),
                         cache_v.float())
+
+
+def paged_view(k_pages: Tensor, v_pages: Tensor, page_table: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+    """Gather the logical ``(B, S, n_kv, hd)`` view of the physical
+    ``(P, page_size, n_kv, hd)`` pages through a ``(B, max_pages)``
+    page table."""
+    b = page_table.shape[0]
+    nkv, hd = k_pages.shape[2], k_pages.shape[3]
+    idx = page_table.to(torch.int64)
+    return (k_pages[idx].reshape(b, -1, nkv, hd),
+            v_pages[idx].reshape(b, -1, nkv, hd))
+
+
+def verify_window_attend(qg: Tensor, k_view: Tensor, v_view: Tensor,
+                         pos: Tensor, window: Optional[int]) -> Tensor:
+    """All W window positions attend against one ``(B, S, n_kv, hd)`` view.
+
+    qg: (B, W, n_kv, g, hd); ``pos``: (B,) first window position per row.
+    Position ``j`` reads with the mask ``kv_pos <= pos + j``: a loop of the
+    exact :func:`decode_attend` call the scan oracle makes, so the result
+    is bitwise the oracle's for every dtype.
+    """
+    outs = [decode_attend(qg[:, j:j + 1], k_view, v_view, pos + j, window)
+            for j in range(qg.shape[1])]
+    return torch.cat(outs, dim=1)
+
+
+def verify_window_attend_plain(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
+                               page_table: Tensor, pos: Tensor,
+                               window: Optional[int]) -> Tensor:
+    """The kernel's plain version: gather the view once, then
+    :func:`verify_window_attend`.  ``window`` ``None`` or the ``2**30``
+    sentinel means global."""
+    if qg.device.type == "cuda":
+        PLAIN_ON_CUDA.bump()
+    k_view, v_view = paged_view(k_pages, v_pages, page_table)
+    return verify_window_attend(qg, k_view, v_view, pos.to(torch.int64),
+                                window)
+
+
+def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
+                              page_table: Tensor, pos: Tensor,
+                              window: Optional[int]) -> Tensor:
+    """Page gather + all W masked attends in one kernel.
+
+    Args:
+      qg: (B, W, n_kv, g, hd) float32.
+      k_pages / v_pages: (P, page_size, n_kv, hd) float32, bfloat16 or int8.
+      page_table: (B, max_pages) int32, trash-padded.
+      pos: (B,) int32 first window position per row.
+      window: the layer's window (``None`` or ``2**30`` = global).
+
+    Returns:
+      (B, W, n_kv, g, hd) float32.  CPU tensors take the plain version.
+    """
+    if _build.on_cpu(qg, k_pages, v_pages, page_table, pos):
+        return verify_window_attend_plain(qg, k_pages, v_pages, page_table,
+                                          pos, window)
+    win = GLOBAL_WINDOW if window is None else int(window)
+    _build.require(qg.dim() == 5, f"qg must be (B, W, n_kv, g, hd), got "
+                   f"{tuple(qg.shape)}")
+    b, w, nkv, g, hd = qg.shape
+    _build.require(qg.dtype == torch.float32, f"qg must be float32, got {qg.dtype}")
+    _build.require(k_pages.dtype in _KV_DTYPES and v_pages.dtype == k_pages.dtype,
+                   f"pages must share one dtype of {_KV_DTYPES}, got "
+                   f"{k_pages.dtype}/{v_pages.dtype}")
+    _build.require(k_pages.dim() == 4 and k_pages.shape == v_pages.shape
+                   and tuple(k_pages.shape[2:]) == (nkv, hd),
+                   f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} must "
+                   f"be (P, page_size, {nkv}, {hd})")
+    _build.require(page_table.dtype == torch.int32 and page_table.dim() == 2
+                   and page_table.shape[0] == b,
+                   f"page_table must be int32 ({b}, max_pages), got "
+                   f"{page_table.dtype} {tuple(page_table.shape)}")
+    _build.require(pos.dtype == torch.int32 and tuple(pos.shape) == (b,),
+                   f"pos must be int32 ({b},), got {pos.dtype} {tuple(pos.shape)}")
+    _build.require(1 <= w * g <= _MAX_ROWS,
+                   f"W·g = {w * g} query rows per block, must be in [1, {_MAX_ROWS}]")
+    _build.require(1 <= hd <= _MAX_HD, f"head_dim {hd} must be in [1, {_MAX_HD}]")
+    _build.require(win >= 1, f"window must be >= 1, got {win}")
+    _build.require_contiguous(qg=qg, k_pages=k_pages, v_pages=v_pages,
+                              page_table=page_table, pos=pos)
+    ps, max_pages = k_pages.shape[1], page_table.shape[1]
+    s_len = ps * max_pages
+    out = torch.empty((b, w, nkv, g, hd), dtype=torch.float32, device=qg.device)
+    if out.numel() == 0:
+        return out
+    # a block keeps its W·g × S float32 logits in shared memory when they
+    # fit the budget, else in a scratch allocated here
+    in_smem = w * g * s_len * 4 <= _SMEM_LOGITS_MAX
+    scratch = (None if in_smem else
+               torch.empty((b, nkv, w * g, s_len), dtype=torch.float32,
+                           device=qg.device))
+    lib = _build.library("verify_window")
+    err = lib.verify_window_launch(
+        qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        _build.DTYPE_CODES[k_pages.dtype], page_table.data_ptr(),
+        pos.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        b, w, nkv, g, hd, ps, max_pages, win, int(in_smem),
+        _build.stream_of(qg))
+    _build.check(lib, err, "verify_window")
+    LAUNCHES.bump()
+    return out

@@ -82,19 +82,12 @@ def _direct_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     return torch.einsum("bngst,btnh->bsngh", w, v)
 
 
-def _paged_view(k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
-                nkv: int, hd: int) -> Tuple[Tensor, Tensor]:
-    """Gather the logical ``(B, S, n_kv, hd)`` view of the physical pages."""
-    b = page_table.shape[0]
-    idx = page_table.to(torch.int64)
-    return (k_pages[idx].reshape(b, -1, nkv, hd),
-            v_pages[idx].reshape(b, -1, nkv, hd))
-
-
-def _check_kv(k_pages: Tensor) -> None:
-    if k_pages.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV cache (cfg.amm.kv_int8) is not ported yet (ROADMAP A5)")
+def _quantize_kv_int8(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
+    """Quantise new K/V on write to an int8 cache: integer-valued float32
+    in [-127, 127] (the caller casts to the page type)."""
+    k = torch.clamp(torch.round(k.to(torch.float32) / FV.KV_INT8_SCALE), -127, 127)
+    v = torch.clamp(torch.round(v.to(torch.float32) / FV.KV_INT8_SCALE), -127, 127)
+    return k, v
 
 
 def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
@@ -108,24 +101,31 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
     index per row.  ``write_ok`` ((B,) bool) sends a row's K/V write to the
     trash page.  Returns the attention output (B, 1, D).
     """
-    _check_kv(k_pages)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     pos_b = pos.to(torch.int64).reshape(-1).expand(b)
     q, k, v = _project_qkv(params, x, cfg, pos_b[:, None])
+    if k_pages.dtype == torch.int8:
+        k, v = _quantize_kv_int8(k, v)
     ps = k_pages.shape[1]
     trash = k_pages.shape[0] - 1
     rows = torch.arange(b, device=x.device)
-    phys = page_table.to(torch.int64)[rows, pos_b // ps]
+    # a position past the table (a masked step of the speculative loops)
+    # clamps onto the last entry, as the JAX gather does; write_ok then
+    # sends its write to the trash page
+    page_idx = torch.clamp(pos_b // ps, max=page_table.shape[1] - 1)
+    phys = page_table.to(torch.int64)[rows, page_idx]
     if write_ok is not None:
         phys = torch.where(write_ok, phys, torch.full_like(phys, trash))
     off = pos_b % ps
     k_pages[phys, off] = k[:, 0].to(k_pages.dtype)  # in place
     v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
-    k_view, v_view = _paged_view(k_pages, v_pages, page_table, nkv, hd)
+    k_view, v_view = FV.paged_view(k_pages, v_pages, page_table)
     out = FV.decode_attend(_grouped(q, nkv), k_view, v_view, pos_b, window)
-    out = out.reshape(b, 1, nq * hd).to(x.dtype)
+    # contiguous before the product: a strided operand can take another
+    # GEMM path, and the verify window must see the same bits
+    out = out.reshape(b, 1, nq * hd).to(x.dtype).contiguous()
     return out @ params["wo"].to(x.dtype)
 
 
@@ -141,13 +141,14 @@ def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
     place (padding rows go to the trash page), then attends the chunk's
     queries against the gathered view under the causal(+window) mask.
     """
-    _check_kv(k_pages)
     b, cs, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     dev = x.device
     idx = start + torch.arange(cs, device=dev)  # logical positions
     q, k, v = _project_qkv(params, x, cfg, idx[None])
+    if k_pages.dtype == torch.int8:
+        k, v = _quantize_kv_int8(k, v)
     ps = k_pages.shape[1]
     trash = k_pages.shape[0] - 1
     row = page_row.to(torch.int64)
@@ -157,7 +158,11 @@ def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
     off = idx % ps
     k_pages[phys, off] = k[0].to(k_pages.dtype)  # in place
     v_pages[phys, off] = v[0].to(v_pages.dtype)
-    k_view, v_view = _paged_view(k_pages, v_pages, page_row[None], nkv, hd)
+    k_view, v_view = FV.paged_view(k_pages, v_pages, page_row[None])
+    if k_pages.dtype == torch.int8:
+        # int8 pages: prefill reads the dequantised view in float
+        k_view = k_view.to(torch.float32) * FV.KV_INT8_SCALE
+        v_view = v_view.to(torch.float32) * FV.KV_INT8_SCALE
     kv_pos = torch.arange(k_view.shape[1], device=dev)
     ok = kv_pos[None, :] <= idx[:, None]
     if window is not None:
@@ -167,3 +172,64 @@ def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
                             v_view.to(x.dtype), mask)
     out = out.reshape(b, cs, nq * hd).to(x.dtype)
     return out @ params["wo"].to(x.dtype)
+
+
+def paged_verify_window(params: dict, x: Tensor, cfg: ModelConfig,
+                        k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
+                        pos: Tensor, n_valid: Tensor, window: Optional[int],
+                        attend_impl: str = "auto") -> Tensor:
+    """One layer's attention over the whole speculative-verify window.
+
+    x: (B, W, D), the ln1-normalised hidden states of the ``W = k+1``
+    window tokens; pos: (B,) first window position per row; n_valid: (B,)
+    real tokens in each row's window (the rest write to the trash page, as
+    ``paged_decode_step``'s ``write_ok`` does).  Writes the window's K/V in
+    place and returns (B, W, D).
+
+    The same values as W successive ``paged_decode_step`` attention blocks:
+    Q/K/V and ``wo`` are applied per token at the oracle's ``(B, 1, ·)``
+    shapes, all W keys/values go in with one batched page write, and every
+    window position attends under its own ``kv_pos <= pos + j`` mask, so
+    the later window slots are invisible to it.  ``attend_impl``: ``auto``
+    → the CUDA kernel on CUDA tensors, the plain version on CPU tensors
+    (``kernels/fused_verify.py``).
+    """
+    b, w, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dev = x.device
+    pos_b = pos.to(torch.int64).reshape(-1).expand(b)
+    qs, ks, vs = [], [], []
+    for j in range(w):
+        q, k, v = _project_qkv(params, x[:, j:j + 1].contiguous(), cfg,
+                               (pos_b + j)[:, None])
+        if k_pages.dtype == torch.int8:
+            k, v = _quantize_kv_int8(k, v)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    q = torch.cat(qs, dim=1)                          # (B, W, nq, hd)
+    ps = k_pages.shape[1]
+    trash = k_pages.shape[0] - 1
+    offs = torch.arange(w, device=dev)
+    wpos = pos_b[:, None] + offs[None, :]             # (B, W) logical pos
+    page_idx = torch.clamp(wpos // ps, max=page_table.shape[1] - 1)
+    phys = torch.where(offs[None, :] < n_valid.to(dev)[:, None],
+                       torch.gather(page_table.to(torch.int64), 1, page_idx),
+                       torch.full_like(wpos, trash))
+    off = wpos % ps
+    # in place; duplicate trash targets are never read unmasked
+    k_pages[phys, off] = torch.cat(ks, dim=1).to(k_pages.dtype)
+    v_pages[phys, off] = torch.cat(vs, dim=1).to(v_pages.dtype)
+    qg = _grouped(q, nkv)                             # (B, W, n_kv, g, hd)
+    if FV.resolve_impl(attend_impl, dev) == "cuda":
+        out = FV.verify_window_attend_cuda(
+            qg.to(torch.float32).contiguous(), k_pages, v_pages,
+            page_table.to(torch.int32).contiguous(),
+            pos_b.to(torch.int32).contiguous(), window)
+    else:
+        out = FV.verify_window_attend_plain(qg, k_pages, v_pages, page_table,
+                                            pos_b, window)
+    wo = params["wo"].to(x.dtype)
+    return torch.cat([out[:, j].reshape(b, 1, nq * hd).to(x.dtype)
+                      .contiguous() @ wo for j in range(w)], dim=1)

@@ -9,10 +9,12 @@ layers is a Python loop over those stacks, and the paged cache
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.fused_verify import GLOBAL_WINDOW
 from repro_torch.models import amm_mlp as AMM
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -20,7 +22,24 @@ from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 
-_GLOBAL_WINDOW = 2**30  # "no window" sentinel of window_flags
+# Speculative-verify window implementations (see paged_verify_step):
+# "scan" replays one exact paged_decode_step per window position (the
+# oracle); "fused" is the layer-major window backed by
+# kernels/fused_verify.py.
+VERIFY_BACKENDS = ("scan", "fused")
+
+
+def resolve_verify_backend(backend: str = "auto") -> str:
+    """``auto`` → ``$REPRO_VERIFY_BACKEND`` if set, else ``fused``."""
+    if backend == "auto":
+        backend = os.environ.get("REPRO_VERIFY_BACKEND", "auto")
+    if backend == "auto":
+        backend = "fused"
+    if backend not in VERIFY_BACKENDS:
+        raise ValueError(
+            f"verify backend must be 'auto' or one of {VERIFY_BACKENDS}, "
+            f"got {backend!r}")
+    return backend
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -94,7 +113,7 @@ def window_flags(cfg: ModelConfig) -> list:
     """(L,) per-layer attention window (sentinel 2**30 = global)."""
     return [cfg.sliding_window
             if cfg.sliding_window is not None and cfg.layer_is_local(i)
-            else _GLOBAL_WINDOW for i in range(cfg.num_layers)]
+            else GLOBAL_WINDOW for i in range(cfg.num_layers)]
 
 
 def layer_params(layers: dict, l: int) -> dict:
@@ -176,3 +195,103 @@ def paged_prefill_chunk(params: dict, tokens: Tensor, start: int,
             n_valid, cache["k"][l], cache["v"][l], page_row, win)
         h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
     return _head(params, h[:, n_valid - 1:n_valid], cfg, cd)
+
+
+@torch.inference_mode()
+def paged_verify_step(params: dict, tokens: Tensor, pos: Tensor,
+                      n_valid: Tensor, page_table: Tensor,
+                      cache: Dict[str, Tensor], cfg: ModelConfig, *,
+                      compute_dtype=torch.bfloat16, backend: str = "auto"
+                      ) -> Tensor:
+    """Multi-token target step: per-position logits for a whole verify
+    window.
+
+    Row ``b`` feeds ``tokens[b]`` (its last emitted token, then the draft
+    proposals) at cache positions ``pos[b] .. pos[b]+W-1``.  tokens: (B, W)
+    int; pos / n_valid: (B,) int — window slots past ``n_valid`` write to
+    the trash page and their logits are don't-cares.  The cache is updated
+    in place.  Returns logits (B, W, V) float32: ``argmax(logits[b, j])``
+    is the token the target emits after ``tokens[b, :j+1]``.
+
+    ``backend`` (``auto`` honours ``$REPRO_VERIFY_BACKEND``, then
+    ``fused``): ``scan`` replays the exact :func:`paged_decode_step` per
+    window position; ``fused`` runs layer-major with one verify-window
+    attention per layer (the CUDA kernel on CUDA tensors) and every other
+    op at the oracle's per-token shapes — on the CPU the two are bitwise
+    equal.
+    """
+    if resolve_verify_backend(backend) == "fused":
+        return _paged_verify_step_fused(
+            params, tokens, pos, n_valid, page_table, cache, cfg,
+            compute_dtype=compute_dtype)
+    logits = [paged_decode_step(params, tokens[:, off:off + 1], pos + off,
+                                page_table, cache, cfg,
+                                compute_dtype=compute_dtype,
+                                write_ok=off < n_valid)
+              for off in range(tokens.shape[1])]
+    return torch.cat(logits, dim=1)
+
+
+def _paged_verify_step_fused(params: dict, tokens: Tensor, pos: Tensor,
+                             n_valid: Tensor, page_table: Tensor,
+                             cache: Dict[str, Tensor], cfg: ModelConfig, *,
+                             compute_dtype=torch.bfloat16) -> Tensor:
+    """Layer-major verify window (see :func:`paged_verify_step`): per layer
+    ``attention.paged_verify_window``, then the MLP and finally the head
+    per token at ``(B, 1, D)``."""
+    _check_uniform_dense(cfg)
+    cd = compute_dtype
+    w = tokens.shape[1]
+    h = params["embed"].to(cd)[tokens.to(torch.int64)]  # (B, W, D)
+    for l, win in enumerate(window_flags(cfg)):
+        lp = layer_params(params["layers"], l)
+        h = h + A.paged_verify_window(
+            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+            cache["k"][l], cache["v"][l], page_table, pos, n_valid, win)
+        mlp_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + torch.cat([_mlp_out(lp, mlp_in[:, j:j + 1].contiguous(),
+                                    cfg, cd) for j in range(w)], dim=1)
+    return torch.cat([_head(params, h[:, j:j + 1].contiguous(), cfg, cd)
+                      for j in range(w)], dim=1)
+
+
+def _greedy(logits: Tensor, off: int) -> Tuple[Tensor, None]:
+    return torch.argmax(logits, dim=-1).to(torch.int32), None
+
+
+@torch.inference_mode()
+def paged_draft_loop(params: dict, token: Tensor, pos: Tensor,
+                     n_valid: Tensor, page_table: Tensor,
+                     cache: Dict[str, Tensor], cfg: ModelConfig, k: int, *,
+                     sample: Optional[Callable] = None,
+                     compute_dtype=torch.bfloat16
+                     ) -> Tuple[Tensor, Optional[Tensor]]:
+    """``k`` draft-model decode steps over the whole decode batch.
+
+    Row ``b`` starts from ``token[b]`` (B, 1) at cache position ``pos[b]``
+    and proposes ``k`` tokens, writing the draft's KV in place (to the
+    trash page past the row's ``n_valid`` window).  ``k+1`` steps run: the
+    last one is write-only, so the KV of the last proposal is in the draft
+    cache too — without it a fully accepted window would leave a hole
+    there, and an identical draft would stop accepting everything.
+
+    ``sample``: ``(logits (B, V), off) -> (next (B,) int32, probs or
+    None)``; the default is greedy argmax (first index on ties) and
+    reports no distribution (the greedy round needs none).
+
+    Returns ``(draft (B, k) int32, q (B, k, V) or None)``.
+    """
+    sample = _greedy if sample is None else sample
+    tok, toks, qs = token, [], []
+    for off in range(k + 1):
+        logits = paged_decode_step(params, tok, pos + off, page_table, cache,
+                                   cfg, compute_dtype=compute_dtype,
+                                   write_ok=off < n_valid)
+        if off == k:
+            break  # write-only step: its proposal would be discarded
+        nxt, q = sample(logits[:, 0], off)
+        toks.append(nxt)
+        qs.append(q)
+        tok = nxt[:, None]
+    q_probs = None if any(q is None for q in qs) else torch.stack(qs, dim=1)
+    return torch.stack(toks, dim=1), q_probs

@@ -1,5 +1,7 @@
 """Public serving surface of the port: :func:`load_engine` builds the
-paged :class:`ServeEngine`; ``submit()`` returns a :class:`RequestHandle`.
+paged :class:`ServeEngine`; :class:`SpeculativeEngine` adds draft-propose /
+target-verify rounds on top of it; ``submit()`` returns a
+:class:`RequestHandle`.
 """
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: F401
 from repro_torch.serving.handle import RequestHandle  # noqa: F401
@@ -10,9 +12,11 @@ from repro_torch.serving.obs import NULL_RECORDER, NullRecorder, log  # noqa: F4
 from repro_torch.serving.prefix import RadixPrefixIndex  # noqa: F401
 from repro_torch.serving.sampling import SamplingParams  # noqa: F401
 from repro_torch.serving.scheduler import Scheduler, StepPlan  # noqa: F401
+from repro_torch.serving.speculative import SpeculativeEngine  # noqa: F401
 
 __all__ = [
-    "load_engine", "RequestHandle", "ServeEngine", "Request",
+    "load_engine", "RequestHandle", "ServeEngine", "SpeculativeEngine",
+    "Request",
     "SamplingParams", "PagedKVCache", "PageAllocator", "PageError",
     "RadixPrefixIndex", "Scheduler", "StepPlan", "NULL_RECORDER",
     "NullRecorder", "log",

@@ -7,7 +7,10 @@ swap, cancellation, per-request budgets) over a paged KV cache
 fixed-width chunk per step and interleave with the batched decode.  Each
 step runs at most one prefill chunk and one decode of ``max_batch`` rows
 through ``models/model.py``; the model writes the K/V pages in place.
-Greedy requests only for now (``sampling.py``).
+Greedy requests only for now (``sampling.py``).  ``cfg.amm.kv_int8`` serves
+from an int8-quantised KV cache.  ``speculative.py`` subclasses the engine
+through its per-step hooks: ``_swap_out``/``_swap_in``, ``_clone_pages``,
+``_prefill_call`` and ``_run_decode``.
 """
 from __future__ import annotations
 
@@ -42,15 +45,15 @@ class ServeEngine:
                  max_batch: int = 4, max_len: int = 256, page_size: int = 16,
                  prefill_chunk: int = 32, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, compute_dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", verify_backend: str = "auto"):
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged decode path")
-        if cfg.amm.enabled and cfg.amm.kv_int8:
-            raise NotImplementedError(
-                "int8 KV cache (cfg.amm.kv_int8) is not ported yet "
-                "(ROADMAP A5)")
         self.cfg = cfg
+        # speculative verify-window implementation, resolved once (env
+        # override included); the plain engine never verifies but keeps it
+        # for SpeculativeEngine
+        self.verify_backend = MD.resolve_verify_backend(verify_backend)
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = int(max_batch)
@@ -63,8 +66,13 @@ class ServeEngine:
             num_pages = self.max_batch * mp
         self.cd = compute_dtype
         self._uid = itertools.count()
+        # the int8-quantised KV cache is a model feature (cfg.amm.kv_int8);
+        # decode, prefill and verify key their quantise-on-write off the
+        # page type
+        self.kv_dtype = (torch.int8 if cfg.amm.enabled and cfg.amm.kv_int8
+                         else compute_dtype)
         self.kv = PagedKVCache(cfg, num_pages=num_pages, page_size=ps,
-                               dtype=compute_dtype, device=self.device)
+                               dtype=self.kv_dtype, device=self.device)
         self.sched = Scheduler(
             max_batch=self.max_batch, allocator=self.kv.allocator,
             page_size=ps, max_pages_per_seq=mp,
@@ -108,14 +116,13 @@ class ServeEngine:
         for req, old_pages in plan.swap_out:
             # the allocator already released these pages; copy them before
             # anything writes (the first writes happen below)
-            req.host_kv = self.kv.gather_host(old_pages)
+            self._swap_out(req, old_pages)
         for req in plan.swap_in:
-            self.kv.scatter_host(req.host_kv, req.pages)
-            req.host_kv = None
+            self._swap_in(req)
         for clone in plan.cow:
             if clone.req.cow is None:
                 continue  # dropped: its request was evicted in this plan
-            self.kv.clone_page(clone.src, clone.dst)
+            self._clone_pages(clone.src, clone.dst)
             self.sched.cow_executed(clone)
         finished: List[Request] = []
         if plan.prefill is not None:
@@ -142,6 +149,33 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    def _swap_out(self, req: Request, old_pages: List[int]) -> None:
+        """Copy an evicted request's pages to the host (the speculative
+        engine copies its draft cache too)."""
+        req.host_kv = self.kv.gather_host(old_pages)
+
+    def _swap_in(self, req: Request) -> None:
+        """Write a resumed request's host copy into its new pages."""
+        self.kv.scatter_host(req.host_kv, req.pages)
+        req.host_kv = None
+
+    def _clone_pages(self, src: int, dst: int) -> None:
+        """Device copy backing one copy-on-write clone (the speculative
+        engine clones its draft cache too)."""
+        self.kv.clone_page(src, dst)
+
+    def _prefill_call(self, toks: np.ndarray, chunk: SCH.PrefillChunk,
+                      page_row: np.ndarray) -> torch.Tensor:
+        """Run one prefill chunk and return the target logits (1, 1, V) —
+        the one prefill behaviour a subclass may change (the speculative
+        engine prefills its draft cache here too)."""
+        logits = MD.paged_prefill_chunk(
+            self.params, self._tensor(toks), chunk.start, chunk.n_valid,
+            self._tensor(page_row), self.kv.buffers, self.cfg,
+            compute_dtype=self.cd)
+        self.stats["prefill_calls"] += 1
+        return logits
+
     def _run_prefill_chunk(self, chunk: SCH.PrefillChunk,
                            finished: List[Request]) -> None:
         req = chunk.req
@@ -149,11 +183,7 @@ class ServeEngine:
         toks[0, : chunk.n_valid] = req.prompt[chunk.start:
                                               chunk.start + chunk.n_valid]
         page_row = self.kv.page_row(req.pages, self.max_pages_per_seq)
-        logits = MD.paged_prefill_chunk(
-            self.params, self._tensor(toks), chunk.start, chunk.n_valid,
-            self._tensor(page_row), self.kv.buffers, self.cfg,
-            compute_dtype=self.cd)
-        self.stats["prefill_calls"] += 1
+        logits = self._prefill_call(toks, chunk, page_row)
         req.pf_done += chunk.n_valid
         if req.pf_done == len(req.prompt):
             req.generated.append(

@@ -151,15 +151,27 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg: ModelConfig, *, num_pages: int, page_size: int,
-                 dtype=torch.float32, device="cuda", recorder=None):
+                 dtype=torch.float32, device="cuda",
+                 allocator: Optional[PageAllocator] = None, recorder=None):
+        """``dtype`` is the page type (float, bfloat16, or int8 for the
+        quantised cache).  ``allocator`` shares another cache's page pool:
+        the speculative engine mirrors its target cache with a draft cache
+        of identical geometry, and one page id must address the same
+        logical slot in both (one page table, one scheduler, two physical
+        pools)."""
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged KV layout")
+        if allocator is not None and allocator.num_pages != num_pages:
+            raise ValueError(
+                f"shared allocator manages {allocator.num_pages} pages, "
+                f"mirror cache asked for {num_pages}")
         self.cfg = cfg
         self.num_pages = num_pages
         self.page_size = page_size
         self.obs = recorder if recorder is not None else NULL_RECORDER
-        self.allocator = PageAllocator(num_pages, recorder=recorder)
+        self.allocator = allocator or PageAllocator(num_pages,
+                                                    recorder=recorder)
         # +1 physical page: the trash page is always the LAST one
         self.trash = num_pages
         self.buffers: Dict[str, torch.Tensor] = MD.init_paged_cache(

@@ -2,8 +2,9 @@
 
 The port of ``repro.serving.loader.load_engine``: with no source it serves
 ``params`` as given — dense MLPs, or LUT-MU MLPs when ``cfg.amm.enabled``
-— through the paged :class:`ServeEngine`.  Artifact and bundle sources
-need the artifact reader (ROADMAP A4) and raise until it is ported.
+— through the paged :class:`ServeEngine`.  Artifact and bundle sources,
+speculative ones included, need the artifact reader (ROADMAP A4) and raise
+until it is ported.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ def load_engine(source, params: dict, cfg: ModelConfig, *,
             f"engine must be one of {_ENGINE_CHOICES}, got {engine!r}")
     if speculative:
         raise NotImplementedError(
-            "speculative serving is not ported yet (ROADMAP A7)")
+            "speculative serving from load_engine takes a (target, draft) "
+            "artifact pair or a bundle, which needs the artifact reader "
+            "(ROADMAP A4); build a SpeculativeEngine from params directly")
     if source is not None:
         raise NotImplementedError(
             f"serving from an artifact or bundle ({source!r}) needs the "

@@ -1,0 +1,226 @@
+"""Speculative decoding (greedy): a low-resolution LUT-MU draft proposes,
+the full-resolution target verifies, as in ``repro.serving.speculative``.
+
+Round structure (one :meth:`SpeculativeEngine.step`):
+
+1. **draft** — ``models/model.py::paged_draft_loop`` runs ``k`` decode
+   steps of the draft model over the whole decode batch (plus one
+   write-only step), writing the draft's own paged KV cache;
+2. **verify** — ``models/model.py::paged_verify_step`` feeds each row's
+   last emitted token plus its ``k`` proposals at positions
+   ``next_pos .. next_pos+k`` and returns per-position logits; the
+   ``fused`` backend runs one verify-window attention per layer (the CUDA
+   kernel ``csrc/verify_window.cu`` on the card);
+3. **accept** — greedy prefix matching: proposal ``j`` is accepted while it
+   equals the target's argmax after the prefix before it; the target's
+   token at the first mismatch (the correction) or after the whole window
+   (the bonus) is emitted too, so each request gains 1 to ``k+1`` tokens
+   per round, each one the plain engine would have emitted;
+4. **rollback** — positions past the accepted prefix hold rejected-draft
+   K/V in both caches.  The next window starts at the first rejected
+   position and every paged write precedes every read of the same
+   position, so that garbage is overwritten before it is attended to;
+   pages backing only garbage go back to the pool
+   (``scheduler.Scheduler.rollback``).
+
+Both models share one scheduler, one page allocator and one page table;
+the draft's cache mirrors the target's pool (``PagedKVCache(allocator=…)``),
+so admission, chunked prefill, eviction with host swap, copy-on-write
+prefix sharing and cancellation all come from the plain engine, applied to
+both caches.  Sampled rounds (temperature > 0) need the counter-derived
+sampling streams (ROADMAP A8): ``submit`` raises for them.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as MD
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving import scheduler as SCH
+from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.kv_cache import HostKV, PagedKVCache
+from repro_torch.serving.scheduler import Request
+
+# cfg fields that must agree between target and draft: both models route
+# through one page table and one verify window, so KV geometry and the
+# token space are load-bearing (LUT/AMM settings are free to differ — that
+# difference is the draft)
+_GEOMETRY_FIELDS = ("family", "num_layers", "d_model", "num_heads",
+                    "num_kv_heads", "head_dim", "vocab_size",
+                    "sliding_window", "local_global_ratio", "qk_norm",
+                    "qkv_bias", "rope_theta", "norm_eps")
+
+_SPEC_KEYS = ("rounds", "proposed", "accepted", "emitted", "corrections",
+              "bonuses")
+
+
+class SpeculativeEngine(ServeEngine):
+    """Continuous-batching serving with draft-propose / target-verify.
+
+    ``stats`` holds the plain engine's ``prefill_calls`` (one per chunk,
+    through both models) and ``decode_calls`` (one per draft+verify round)
+    beside the JAX package's speculative counters: ``rounds`` counts
+    per-request round participations, ``proposed``/``accepted`` draft
+    proposals, ``emitted`` every token a round appended, split into
+    ``accepted + corrections + bonuses``.
+    """
+
+    def __init__(self, params: dict, cfg: ModelConfig, draft_params: dict, *,
+                 draft_cfg: Optional[ModelConfig] = None, spec_k: int = 4,
+                 **kwargs):
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        super().__init__(params, cfg, **kwargs)
+        self.spec_k = int(spec_k)
+        self.draft_cfg = draft_cfg if draft_cfg is not None else self.cfg
+        for f in _GEOMETRY_FIELDS:
+            if getattr(self.cfg, f) != getattr(self.draft_cfg, f):
+                raise ValueError(
+                    f"draft/target geometry mismatch on {f!r}: "
+                    f"{getattr(self.draft_cfg, f)!r} vs "
+                    f"{getattr(self.cfg, f)!r}")
+        self.draft_params = draft_params
+        # verify windows write up to k+1 positions per request per step;
+        # the scheduler grows pages to cover the window up front
+        self.sched.lookahead = self.spec_k + 1
+        # mirror of the target pool: same page ids, the draft model's KV
+        self.kv_draft = PagedKVCache(
+            self.cfg, num_pages=self.kv.num_pages, page_size=self.page_size,
+            dtype=self.kv_dtype, device=self.device,
+            allocator=self.kv.allocator)
+        assert self.kv_draft.trash == self.kv.trash
+        self._draft_host: Dict[int, HostKV] = {}  # uid → swapped draft KV
+        self.stats.update({k: 0 for k in _SPEC_KEYS})
+
+    # -- telemetry ---------------------------------------------------------
+    @property
+    def acceptance_rate(self) -> float:
+        """Engine-wide fraction of verified proposals accepted so far."""
+        return self.stats["accepted"] / max(1, self.stats["proposed"])
+
+    @property
+    def mean_emitted_per_round(self) -> float:
+        """Tokens emitted per request per draft+verify round (1 .. k+1)."""
+        return self.stats["emitted"] / max(1, self.stats["rounds"])
+
+    # -- API ---------------------------------------------------------------
+    def cancel(self, uid: int) -> bool:
+        ok = super().cancel(uid)
+        if ok:
+            self._draft_host.pop(uid, None)
+        return ok
+
+    # -- internals: the plain engine's step calls these ---------------------
+    def _swap_out(self, req: Request, old_pages: List[int]) -> None:
+        super()._swap_out(req, old_pages)
+        self._draft_host[req.uid] = self.kv_draft.gather_host(old_pages)
+
+    def _swap_in(self, req: Request) -> None:
+        super()._swap_in(req)
+        host_d = self._draft_host.pop(req.uid, None)
+        if host_d is not None:
+            self.kv_draft.scatter_host(host_d, req.pages)
+
+    def _clone_pages(self, src: int, dst: int) -> None:
+        """Copy-on-write covers both caches: one page table addresses both,
+        so a cloned page id must carry both models' prefix KV."""
+        self.kv.clone_page(src, dst)
+        self.kv_draft.clone_page(src, dst)
+
+    def _prefill_call(self, toks: np.ndarray, chunk: SCH.PrefillChunk,
+                      page_row: np.ndarray) -> torch.Tensor:
+        """Chunked prefill through both models (the draft needs its own KV
+        of the prompt); the first token comes from the target's logits, the
+        same call on the same arguments as the plain engine's."""
+        toks_t, row_t = self._tensor(toks), self._tensor(page_row)
+        logits = MD.paged_prefill_chunk(
+            self.params, toks_t, chunk.start, chunk.n_valid, row_t,
+            self.kv.buffers, self.cfg, compute_dtype=self.cd)
+        MD.paged_prefill_chunk(
+            self.draft_params, toks_t, chunk.start, chunk.n_valid, row_t,
+            self.kv_draft.buffers, self.draft_cfg, compute_dtype=self.cd)
+        self.stats["prefill_calls"] += 1
+        return logits
+
+    def _round_greedy(self, token: torch.Tensor, pos: torch.Tensor,
+                      n_valid: torch.Tensor, table: torch.Tensor):
+        """Draft k proposals, verify the k+1 window, match prefixes.
+        Returns ``(accepted (B,), target (B, k+1))`` on the device."""
+        k = self.spec_k
+        draft, _ = MD.paged_draft_loop(
+            self.draft_params, token, pos, n_valid, table,
+            self.kv_draft.buffers, self.draft_cfg, k, compute_dtype=self.cd)
+        window = torch.cat([token.to(draft.dtype), draft], dim=1)  # (B, k+1)
+        logits = MD.paged_verify_step(
+            self.params, window, pos, n_valid, table, self.kv.buffers,
+            self.cfg, compute_dtype=self.cd, backend=self.verify_backend)
+        target = torch.argmax(logits, dim=-1).to(torch.int32)
+        ok = (draft == target[:, :-1]) & (
+            torch.arange(k, device=draft.device)[None, :] < n_valid[:, None] - 1)
+        accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+        return accepted, target
+
+    def _run_decode(self, decode, finished: List[Request]) -> None:
+        """One speculative round over the decode batch (JAX
+        ``_run_spec_round``): draft, verify, accept, then emit 1 to k+1
+        tokens per request and roll back what was rejected."""
+        k = self.spec_k
+        token = np.zeros((self.max_batch, 1), np.int32)
+        pos = np.zeros((self.max_batch,), np.int32)
+        n_valid = np.zeros((self.max_batch,), np.int32)
+        table = np.full((self.max_batch, self.max_pages_per_seq),
+                        self.kv.trash, np.int32)
+        for row, req in decode:
+            token[row, 0] = req.generated[-1]
+            pos[row] = req.next_pos
+            # never verify past the request's token budget or max_len: the
+            # last window position stays a legal cache index, and every
+            # emitted token is one the plain engine could have emitted
+            n_valid[row] = min(
+                k + 1,
+                req.max_new_tokens - len(req.generated),
+                self.max_len - len(req.prompt) - len(req.generated))
+            table[row, : len(req.pages)] = req.pages
+        accepted, emit = self._round_greedy(
+            self._tensor(token), self._tensor(pos), self._tensor(n_valid),
+            self._tensor(table))
+        accepted = accepted.cpu().numpy()  # (B,)   accepted-prefix lengths
+        emit = emit.cpu().numpy()          # (B, k+1) tokens to emit per row
+        self.stats["decode_calls"] += 1
+
+        st = self.stats
+        for row, req in decode:
+            w = int(n_valid[row])
+            a = int(accepted[row])
+            req.spec_rounds += 1
+            req.spec_proposed += w - 1
+            # emit the accepted proposals + the correction/bonus token,
+            # checking the budget after every token as the plain engine's
+            # one-token steps do (eos truncates the window)
+            emitted_n = 0
+            for tok in emit[row, : a + 1]:
+                req.generated.append(int(tok))
+                emitted_n += 1
+                if req.budget_reached(self.max_len):
+                    break
+            # only tokens that landed count, so emitted == accepted +
+            # corrections + bonuses holds under eos truncation too
+            acc_emitted = min(emitted_n, a)
+            final_emitted = emitted_n == a + 1
+            req.spec_accepted += acc_emitted
+            st["rounds"] += 1
+            st["proposed"] += w - 1
+            st["accepted"] += acc_emitted
+            st["emitted"] += emitted_n
+            st["corrections"] += int(final_emitted and a < w - 1)
+            st["bonuses"] += int(final_emitted and a == w - 1)
+            if req.budget_reached(self.max_len):
+                self.sched.retire(req)
+                finished.append(req)
+            else:
+                # positions past the new next_pos hold rejected-draft KV in
+                # both caches: free the pages backing only garbage
+                self.sched.rollback(req)

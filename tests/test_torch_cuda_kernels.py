@@ -1,10 +1,11 @@
-"""The CUDA LUT-MU kernels against their plain PyTorch versions.
+"""The CUDA kernels against their plain PyTorch versions.
 
 The kernels need a card: these tests carry the ``cuda`` marker and skip
 without one.  The module imports no JAX, so it runs on the card as
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py``.
-int8 results must be bit-equal; float32/bfloat16 LUT sums within rtol 1e-5,
-atol 1e-4 (float32 sums taken in another order).
+LUT-MU: int8 results must be bit-equal; float32/bfloat16 LUT sums within
+rtol 1e-5, atol 1e-4 (float32 sums taken in another order).  Verify window:
+tolerances at ``VERIFY_TOL`` below, each with its reason.
 """
 import numpy as np
 import pytest
@@ -12,7 +13,10 @@ import torch
 
 from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels import lut_aggregate as LA
+from repro_torch.kernels import fused_verify as FV
 from repro_torch.kernels import maddness_encode as ME
+from repro_torch.models import attention as TA
+from repro_torch.models.config import ModelConfig
 
 # (B, C, N, depth): ragged B, C and N at each depth
 CASES = [(5, 7, 130, 2), (16, 3, 33, 3), (1, 12, 257, 4), (9, 5, 64, 4)]
@@ -116,3 +120,136 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
                        lt, st, ot)  # same shape, not contiguous
     with pytest.raises(ValueError):
         FL.fused_lutmu(xt.cpu(), tt, lt, st, ot)
+
+
+# ---------------------------------------------------------------------------
+# verify window: csrc/verify_window.cu against the plain version
+# ---------------------------------------------------------------------------
+
+# float32: sums of ≤ 128 products and of ≤ 4096 weighted values, taken in
+# another order than the plain einsums, plus expf and the softmax sum's
+# order → a few float32 ulps of outputs of size ≈ 1.
+# bfloat16: the weights are rounded to bfloat16 before the value product,
+# and a weight one float32 ulp apart can land on the neighbouring bfloat16
+# (a relative step of 2**-8), so each output may move by ≈ 2**-8 · |v|.
+# int8: logits and both products are exact integers in both versions; a
+# softmax weight whose float32 value differs by an ulp can round to the
+# neighbouring int8 step, moving an output by |v|·0.05/127 ≤ 0.05 per such
+# weight.  At most two such weights per output, and ≥ 99 % of the outputs
+# bit-equal.
+VERIFY_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+              "bfloat16": dict(rtol=0, atol=2e-2),
+              "int8": dict(rtol=0, atol=2 * 0.05)}
+INT8_MIN_EQUAL_SHARE = 0.99
+# (page_size, max_pages, W, n_kv, g, hd): S up to 4096; the full-width
+# qwen3-14b heads (n_kv 8, g 5, hd 128, W 5) at S = 128 and S = 4096
+VERIFY_CASES = [(16, 8, 5, 8, 5, 128), (16, 256, 5, 8, 5, 128),
+                (16, 64, 3, 2, 3, 64), (8, 5, 2, 1, 2, 32)]
+
+
+def _verify_inputs(dev, case, kv_dtype, seed=0):
+    """4 batch rows: a long history, a short one, a window that runs past
+    the table's end (its last slots are trash-padded, as for n_valid < W),
+    and an inactive row whose whole table is the trash page."""
+    ps, mp, w, nkv, g, hd = case
+    rng = np.random.default_rng(seed)
+    b = 4
+    n_pages = b * mp + 1
+    trash = n_pages - 1
+    s_len = ps * mp
+    if kv_dtype == "int8":
+        kp = rng.integers(-127, 128, (n_pages, ps, nkv, hd)).astype(np.int8)
+        vp = rng.integers(-127, 128, (n_pages, ps, nkv, hd)).astype(np.int8)
+    else:
+        kp = rng.normal(size=(n_pages, ps, nkv, hd)).astype(np.float32)
+        vp = rng.normal(size=(n_pages, ps, nkv, hd)).astype(np.float32)
+    pt = np.full((b, mp), trash, np.int32)
+    pos = np.array([s_len - w, min(3, s_len - w), s_len - 2, 0], np.int32)
+    for i in range(3):
+        used = -(-(int(pos[i]) + w) // ps)
+        pt[i, :min(used, mp)] = rng.permutation(b * mp)[:min(used, mp)]
+    q = rng.normal(size=(b, w, nkv, g, hd)).astype(np.float32) * 2.0
+    kt, vt = _on(dev, kp, vp, dtype=None)
+    if kv_dtype == "bfloat16":
+        kt, vt = kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+    qt, ptt, post = _on(dev, q, pt, pos)
+    return qt, kt, vt, ptt, post
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VERIFY_CASES)
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window", [None, 37])
+def test_cuda_verify_window_matches_plain(cuda_device, case, kv_dtype, window):
+    qt, kt, vt, ptt, post = _verify_inputs(cuda_device, case, kv_dtype)
+    before, plain_before = FV.LAUNCHES.n, FV.PLAIN_ON_CUDA.n
+    got = FV.verify_window_attend_cuda(qt, kt, vt, ptt, post, window)
+    torch.cuda.synchronize()
+    assert FV.LAUNCHES.n == before + 1 and FV.PLAIN_ON_CUDA.n == plain_before
+    want = FV.verify_window_attend_plain(qt, kt, vt, ptt, post, window)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **VERIFY_TOL[kv_dtype])
+    if kv_dtype == "int8":
+        share = (got == want).float().mean().item()
+        assert share >= INT8_MIN_EQUAL_SHARE, share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_cuda_paged_verify_window_kernel_matches_plain(cuda_device, kv_dtype):
+    """One layer's verify-window attention with ``n_valid < W`` rows (their
+    last slots write to the trash page): the kernel route against the
+    plain route from the same pages, pages compared after the write."""
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=1, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64,
+                      head_dim=32, qk_norm=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = TA.init_attn_params(cfg, gen)
+    b, w, ps, mp = 3, 4, 8, 4
+    n_pages = b * mp + 1
+    shape = (n_pages, ps, 2, 32)
+    if kv_dtype == "int8":
+        kp = torch.randint(-127, 128, shape, generator=gen, device=cuda_device,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=cuda_device,
+                           dtype=torch.int8)
+    else:
+        kp = torch.randn(shape, generator=gen, device=cuda_device)
+        vp = torch.randn(shape, generator=gen, device=cuda_device)
+    pt = torch.arange(b * mp, device=cuda_device, dtype=torch.int32).reshape(b, mp)
+    pos = torch.tensor([9, 0, 27], device=cuda_device, dtype=torch.int32)
+    n_valid = torch.tensor([4, 2, 1], device=cuda_device, dtype=torch.int32)
+    x = torch.randn((b, w, 64), generator=gen, device=cuda_device)
+    outs, pages = {}, {}
+    for impl in ("cuda", "plain"):
+        k2, v2 = kp.clone(), vp.clone()
+        outs[impl] = TA.paged_verify_window(params, x, cfg, k2, v2, pt, pos,
+                                            n_valid, 2**30, attend_impl=impl)
+        pages[impl] = (k2[:-1], v2[:-1])
+    torch.cuda.synchronize()
+    assert torch.equal(pages["cuda"][0], pages["plain"][0])
+    assert torch.equal(pages["cuda"][1], pages["plain"][1])
+    for i in range(b):
+        nv = int(n_valid[i])
+        got, want = outs["cuda"][i, :nv], outs["plain"][i, :nv]
+        if kv_dtype == "int8":  # ≤ 2 int8 weight steps, through wo (|w| ≲ 1)
+            torch.testing.assert_close(got, want, rtol=0, atol=2 * 0.05 * 8)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_window_rejects_bad_inputs(cuda_device):
+    qt, kt, vt, ptt, post = _verify_inputs(cuda_device, VERIFY_CASES[3],
+                                           "float32")
+    with pytest.raises(ValueError):
+        FV.verify_window_attend_cuda(qt.to(torch.bfloat16), kt, vt, ptt, post,
+                                     None)
+    with pytest.raises(ValueError):
+        FV.verify_window_attend_cuda(qt, kt, vt, ptt, post.long(), None)
+    with pytest.raises(ValueError):
+        FV.verify_window_attend_cuda(qt, kt, vt.to(torch.bfloat16), ptt, post,
+                                     None)
+    with pytest.raises(ValueError):
+        FV.verify_window_attend_cuda(qt, kt, vt, ptt.cpu(), post, None)
+    assert FV.resolve_impl("auto", cuda_device) == "cuda"

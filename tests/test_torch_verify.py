@@ -1,0 +1,285 @@
+"""The port's verify-window pieces against the JAX package, on the CPU.
+
+Kernel module: the port's plain version (pages + page table) against JAX
+``verify_window_attend`` on the gathered view and against
+``verify_window_attend_pallas(..., interpret=True)``.  Attention: the int8
+``decode_attend`` and ``_quantize_kv_int8``.  Model: the port's
+``paged_verify_step`` ``fused`` against its ``scan`` oracle (bitwise, as
+``tests/test_fused_verify.py`` pins the JAX pair) and against JAX's, and
+``paged_draft_loop`` against JAX's.  Inputs are numpy arrays made from a
+seed and handed to both packages.
+
+Tolerances: float32 attention reads compare within rtol/atol 1e-5 (the
+same einsums and softmax in two libraries: a few float32 ulps on outputs
+of size ≈ 1).  On int8 KV the logits and both products are exact integers
+in both packages; only a softmax weight that the two libraries' float32
+softmax rounds to neighbouring int8 steps can differ, moving an output by
+at most 0.05 (``|v| · 0.05 / 127``) per weight — the tests allow two such
+weights and require ≥ 99 % of outputs bit-equal.  Model logits compare
+within rtol 1e-4 / atol 1e-4, as ``tests/test_torch_models.py`` does.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro.kernels import fused_verify as JFV
+from repro.models import attention as JA
+from repro.models import model as JMD
+from repro_torch.convert import config_from_jax, params_from_jax
+from repro_torch.kernels import fused_verify as TFV
+from repro_torch.models import attention as TA
+from repro_torch.models import model as TMD
+
+INT8_ATOL = 2 * 0.05
+INT8_MIN_EQUAL_SHARE = 0.99
+
+
+def _assert_int8_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=0, atol=INT8_ATOL)
+    assert np.mean(got == want) >= INT8_MIN_EQUAL_SHARE
+
+
+def _mk_paged(seed, *, b=2, max_pages=4, page_size=8, nkv=2, hd=8, w=3, g=2,
+              int8=False):
+    """numpy page pool + trash-padded table + in-range positions (the
+    shapes of ``tests/test_fused_verify.py``)."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * max_pages + 1
+    trash = n_pages - 1
+    if int8:
+        kp = rng.integers(-127, 128, (n_pages, page_size, nkv, hd)).astype(np.int8)
+        vp = rng.integers(-127, 128, (n_pages, page_size, nkv, hd)).astype(np.int8)
+    else:
+        kp = rng.normal(size=(n_pages, page_size, nkv, hd)).astype(np.float32)
+        vp = rng.normal(size=(n_pages, page_size, nkv, hd)).astype(np.float32)
+    pt = np.full((b, max_pages), trash, np.int32)
+    for i in range(b):
+        pt[i] = np.arange(i * max_pages, (i + 1) * max_pages)
+    pt[-1, -1] = trash  # a trash-padded table entry
+    s_len = max_pages * page_size
+    pos = rng.integers(0, s_len - page_size - w, b).astype(np.int32)
+    q = rng.normal(size=(b, w, nkv, g, hd)).astype(np.float32)
+    return q, kp, vp, pt, pos
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# kernel module
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [None, 7])
+def test_plain_verify_window_matches_jax(int8, window):
+    q, kp, vp, pt, pos = _mk_paged(0, int8=int8)
+    b, nkv, hd = pt.shape[0], kp.shape[2], kp.shape[3]
+    jk = jnp.asarray(kp)[jnp.asarray(pt)].reshape(b, -1, nkv, hd)
+    jv = jnp.asarray(vp)[jnp.asarray(pt)].reshape(b, -1, nkv, hd)
+    jwin = None if window is None else jnp.asarray(window, jnp.int32)
+    want = np.asarray(JFV.verify_window_attend(
+        jnp.asarray(q), jk, jv, jnp.asarray(pos), jwin))
+    got = TFV.verify_window_attend_plain(*_t(q, kp, vp, pt, pos), window).numpy()
+    if int8:
+        _assert_int8_close(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("block_s", [8, 16])
+def test_plain_verify_window_matches_pallas_interpret(int8, window, block_s):
+    q, kp, vp, pt, pos = _mk_paged(1, int8=int8)
+    jwin = jnp.asarray(2**30 if window is None else window, jnp.int32)
+    want = np.asarray(JFV.verify_window_attend_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(pos), jwin, block_s=block_s, interpret=True))
+    # the sentinel and None are the same global window in the port
+    got = TFV.verify_window_attend_plain(
+        *_t(q, kp, vp, pt, pos), 2**30 if window is None else window).numpy()
+    if int8:
+        _assert_int8_close(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_plain_verify_window_is_the_decode_oracle_bitwise(int8):
+    """The plain window is a loop of the exact ``decode_attend`` calls."""
+    q, kp, vp, pt, pos = _mk_paged(2, int8=int8)
+    qt, kt, vt, ptt, post = _t(q, kp, vp, pt, pos)
+    got = TFV.verify_window_attend_plain(qt, kt, vt, ptt, post, 5)
+    k_view, v_view = TFV.paged_view(kt, vt, ptt)
+    for j in range(q.shape[1]):
+        want = TFV.decode_attend(qt[:, j:j + 1], k_view, v_view,
+                                 post.long() + j, 5)
+        assert torch.equal(got[:, j:j + 1], want)
+
+
+def test_wrapper_takes_the_plain_version_on_cpu():
+    q, kp, vp, pt, pos = _mk_paged(3, int8=True)
+    args = _t(q, kp, vp, pt, pos)
+    launches, plain_cuda = TFV.LAUNCHES.n, TFV.PLAIN_ON_CUDA.n
+    got = TFV.verify_window_attend_cuda(*args, None)
+    assert torch.equal(got, TFV.verify_window_attend_plain(*args, None))
+    assert TFV.LAUNCHES.n == launches and TFV.PLAIN_ON_CUDA.n == plain_cuda
+
+
+def test_resolve_impl():
+    assert TFV.resolve_impl("auto", "cpu") == "plain"
+    assert TFV.resolve_impl("auto", torch.device("cuda")) == "cuda"
+    assert TFV.resolve_impl("plain", "cuda") == "plain"
+    assert TFV.resolve_impl("cuda") == "cuda"
+    with pytest.raises(ValueError, match="verify attend impl"):
+        TFV.resolve_impl("pallas")
+
+
+# ---------------------------------------------------------------------------
+# attention: the int8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def test_quantize_kv_int8_matches_jax_bitwise():
+    rng = np.random.default_rng(4)
+    k = (rng.normal(size=(3, 2, 2, 16)) * 4).astype(np.float32)
+    v = (rng.normal(size=(3, 2, 2, 16)) * 4).astype(np.float32)
+    k[0, 0, 0, :4] = [0.025, -0.075, 7.0, -9.0]  # ties and clipping
+    jk, jv = JA._quantize_kv_int8(jnp.asarray(k), jnp.asarray(v))
+    tk, tv = TA._quantize_kv_int8(*_t(k, v))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_int8_decode_attend_matches_jax(window):
+    rng = np.random.default_rng(5)
+    b, s, nkv, g, hd = 3, 24, 2, 2, 16
+    q = rng.normal(size=(b, 1, nkv, g, hd)).astype(np.float32)
+    ck = rng.integers(-127, 128, (b, s, nkv, hd)).astype(np.int8)
+    cv = rng.integers(-127, 128, (b, s, nkv, hd)).astype(np.int8)
+    pos = np.array([0, 11, 23], np.int32)
+    jwin = None if window is None else jnp.asarray(window, jnp.int32)
+    want = np.asarray(JFV.decode_attend(jnp.asarray(q), jnp.asarray(ck),
+                                        jnp.asarray(cv), jnp.asarray(pos), jwin))
+    qt, ckt, cvt, post = _t(q, ck, cv, pos)
+    got = TFV.decode_attend(qt, ckt, cvt, post.long(), window).numpy()
+    _assert_int8_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# model: paged_verify_step and paged_draft_loop
+# ---------------------------------------------------------------------------
+
+
+def _tiny_cfg(int8_kv):
+    cfg = get_config("qwen3-14b", reduced=True)
+    cfg = dataclasses.replace(cfg, num_layers=2, d_model=64, d_ff=128,
+                              vocab_size=64, num_heads=2, num_kv_heads=1,
+                              head_dim=32)
+    return dataclasses.replace(cfg, amm=dataclasses.replace(
+        cfg.amm, enabled=True, kv_int8=int8_kv))
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["f32kv", "int8kv"])
+def state(request):
+    """JAX LUT-MU serving params, a page pool warmed with real history by
+    JAX decode steps, and a verify window with an ``n_valid < W`` row."""
+    int8 = request.param
+    cfg = _tiny_cfg(int8)
+    jparams = jax.jit(lambda k: JMD.init_params(cfg, k, serving=True))(
+        jax.random.PRNGKey(0))
+    kv_dtype = jnp.int8 if int8 else jnp.float32
+    b, mp, ps, w = 2, 3, 8, 3
+    cache = JMD.init_paged_cache(cfg, b * mp + 1, ps, kv_dtype)
+    pt = np.arange(b * mp, dtype=np.int32).reshape(b, mp)
+    rng = np.random.default_rng(6)
+    pos = np.array([5, 2], np.int32)
+    warm = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    for p in range(int(pos.max())):
+        _, cache = JMD.paged_decode_step(
+            jparams, jnp.asarray(warm), jnp.minimum(p, jnp.asarray(pos)),
+            jnp.asarray(pt), cache, cfg, compute_dtype=jnp.float32,
+            write_ok=jnp.asarray(p < pos))
+    return dict(
+        int8=int8, cfg=cfg, tcfg=config_from_jax(cfg), jparams=jparams,
+        tparams=params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu"),
+        cache=jax.tree.map(np.asarray, cache), pt=pt, pos=pos,
+        n_valid=np.array([w, w - 1], np.int32),
+        tokens=rng.integers(0, cfg.vocab_size, (b, w)).astype(np.int32))
+
+
+def _port_cache(st):
+    return {k: torch.from_numpy(np.array(v)) for k, v in st["cache"].items()}
+
+
+def _port_verify(st, backend):
+    cache = _port_cache(st)
+    logits = TMD.paged_verify_step(
+        st["tparams"], *_t(st["tokens"], st["pos"], st["n_valid"], st["pt"]),
+        cache, st["tcfg"], compute_dtype=torch.float32, backend=backend)
+    return logits, cache
+
+
+def test_port_fused_verify_is_bitwise_the_scan_oracle(state):
+    ls, cs = _port_verify(state, "scan")
+    lf, cf = _port_verify(state, "fused")
+    for i, nv in enumerate(state["n_valid"]):
+        assert torch.equal(lf[i, :nv], ls[i, :nv]), i
+    for name in ("k", "v"):  # every non-trash page
+        assert torch.equal(cf[name][:, :-1], cs[name][:, :-1]), name
+
+
+@pytest.mark.parametrize("backend", ["scan", "fused"])
+def test_port_verify_step_matches_jax(state, backend):
+    st = state
+    cache = jax.tree.map(jnp.asarray, st["cache"])
+    want, jcache = JMD.paged_verify_step(
+        st["jparams"], jnp.asarray(st["tokens"]), jnp.asarray(st["pos"]),
+        jnp.asarray(st["n_valid"]), jnp.asarray(st["pt"]), cache, st["cfg"],
+        compute_dtype=jnp.float32, backend=backend)
+    got, tcache = _port_verify(st, backend)
+    for i, nv in enumerate(st["n_valid"]):
+        np.testing.assert_allclose(got[i, :nv].numpy(), np.asarray(want[i, :nv]),
+                                   rtol=1e-4, atol=1e-4)
+    for name in ("k", "v"):
+        g, w = tcache[name][:, :-1].numpy(), np.asarray(jcache[name][:, :-1])
+        if st["int8"]:  # a rounding tie of k/0.05 may land one step apart
+            np.testing.assert_allclose(g.astype(np.int32), w.astype(np.int32),
+                                       rtol=0, atol=1)
+            assert np.mean(g == w) >= INT8_MIN_EQUAL_SHARE
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_port_draft_loop_matches_jax(state):
+    st = state
+    k = 3
+    token, pos, n_valid = st["tokens"][:, :1], st["pos"], np.array([4, 2], np.int32)
+    want, _, _ = JMD.paged_draft_loop(
+        st["jparams"], jnp.asarray(token), jnp.asarray(pos),
+        jnp.asarray(n_valid), jnp.asarray(st["pt"]),
+        jax.tree.map(jnp.asarray, st["cache"]), st["cfg"], k,
+        compute_dtype=jnp.float32)
+    got, q = TMD.paged_draft_loop(
+        st["tparams"], *_t(token, pos, n_valid, st["pt"]), _port_cache(st),
+        st["tcfg"], k, compute_dtype=torch.float32)
+    assert q is None and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_resolve_verify_backend(monkeypatch):
+    monkeypatch.delenv("REPRO_VERIFY_BACKEND", raising=False)
+    assert TMD.resolve_verify_backend("auto") == "fused"
+    assert TMD.resolve_verify_backend("scan") == "scan"
+    monkeypatch.setenv("REPRO_VERIFY_BACKEND", "scan")
+    assert TMD.resolve_verify_backend("auto") == "scan"
+    with pytest.raises(ValueError, match="verify backend"):
+        TMD.resolve_verify_backend("jit")
