@@ -24,7 +24,8 @@ Phases, each fatal on failure:
    120 times per forward call and the ``ref`` path never; then a decode
    step's host time and device busy time (``torch.profiler``);
 6. unfused — the ``--amm-backend unfused`` path (encode + aggregate
-   kernels) at full width, depth cut to 4 layers, 2 requests;
+   kernels) at full width, depth cut to 4 layers, 2 requests, whose
+   streams must equal the same requests' through the plain ``ref`` path;
 7. verify-kernel (runs after 3) — the verify-window kernel against its
    plain version at the full-width shape (B=4, W=5, n_kv=8, g=5, hd=128,
    page_size 16, rows of S=128 and S=4096; bf16, float32 and int8 KV)
@@ -247,16 +248,6 @@ def kernel_checks(torch, timer, mods):
 # ---------------------------------------------------------------------------
 
 
-def _reach(pos: int, w: int, win: int, s_len: int):
-    """Cache positions ``[lo, hi)`` any of a row's W window masks can
-    reach (all of them when one row's mask is empty)."""
-    rows = [(max(0, pos + j - win + 1), min(s_len - 1, pos + j))
-            for j in range(w)]
-    if any(lo > hi for lo, hi in rows):
-        return 0, s_len
-    return rows[0][0], rows[-1][1] + 1
-
-
 def verify_inputs(torch, s_len: int, kv_name: str, gen):
     """Full-width verify-window inputs: B=4 rows whose windows end near the
     end of an S-position table, pages in random order."""
@@ -308,7 +299,8 @@ def verify_kernel_checks(torch, timer, FV):
                 ensure(share >= INT8_MIN_EQUAL_SHARE,
                        f"verify_window int8 S={s_len}: only {share:.4f} of the "
                        "outputs bit-equal")
-            reach = [_reach(int(p), w, FV.GLOBAL_WINDOW, s_len) for p in pos.tolist()]
+            reach = [FV.reach(int(p), w, FV.GLOBAL_WINDOW, s_len)
+                     for p in pos.tolist()]
             positions = sum(hi - lo for lo, hi in reach)
             item = kp.element_size()
             nbytes = (2 * positions * nkv * hd * item + 2 * q.numel() * 4
@@ -750,10 +742,18 @@ def main() -> int:
            f" for {ucalls} calls")
     launches["encode_onehot"] = ME.LAUNCHES.n
     launches["lut_aggregate"] = LA.LAUNCHES.n
+    # the same requests through the plain LUT-MU path: int8 sums are exact,
+    # so the streams must be equal
+    rcfg = dataclasses.replace(ucfg, amm=dataclasses.replace(ucfg.amm,
+                                                             backend="ref"))
+    rh, _, _, _ = serve(torch, rcfg, uparams, load_engine, 2, 4)
+    ensure([h.generated for h in uh] == [h.generated for h in rh],
+           "unfused streams differ from the plain LUT-MU path's")
     print(f"[unfused] 4 layers, 2 requests x 4 tokens in {udt:.3f}s; "
-          f"encode_onehot {ME.LAUNCHES.n} + lut_aggregate {LA.LAUNCHES.n} "
-          f"launches = 12 x {ucalls} calls", flush=True)
-    del ueng
+          f"encode_onehot {launches['encode_onehot']} + lut_aggregate "
+          f"{launches['lut_aggregate']} launches = 12 x {ucalls} calls; "
+          "streams equal to the plain LUT-MU path's", flush=True)
+    del ueng, rh
 
     # 10. speculative rounds with rejection and rollback, full width, depth
     # cut to 4 layers: a garbage draft (other LUT tables, same backbone) on

@@ -30,41 +30,15 @@ namespace {
 constexpr int kThreads = 64;  // threads per block
 constexpr int kRows = 4;      // output rows per block
 
-template <typename T> struct Acc;
-template <> struct Acc<int8_t> { using type = int; };
-template <> struct Acc<float> { using type = float; };
-template <> struct Acc<__nv_bfloat16> { using type = float; };
-
-__device__ __forceinline__ int widen(int8_t v) { return static_cast<int>(v); }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// V = 16 / sizeof(T) LUT entries starting at p, widened to the accumulator
-// type; `full` means all V are in range and p is 16-byte aligned.
-template <typename T, int V>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, bool full,
-                                         int n_left,
-                                         typename Acc<T>::type (&v)[V]) {
-  if (full) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = widen(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = i < n_left ? widen(p[i]) : 0;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_lutmu_kernel(const float* __restrict__ x, const float* __restrict__ thr,
                    const T* __restrict__ lut, const float* __restrict__ scale,
                    int scale_stride, const float* __restrict__ offset,
                    int offset_stride, float* __restrict__ out,
-                   typename Acc<T>::type* __restrict__ partial, int B, int C,
+                   typename LutAcc<T>::type* __restrict__ partial, int B, int C,
                    int N, int depth, int c_per_split, bool vec_ok) {
-  using A = typename Acc<T>::type;
+  using A = typename LutAcc<T>::type;
   constexpr int V = 16 / sizeof(T);
   extern __shared__ unsigned char leaf_s[];  // [kRows][c_per_split]
 
@@ -132,30 +106,12 @@ fused_lutmu_kernel(const float* __restrict__ x, const float* __restrict__ thr,
   }
 }
 
-// Sum the per-split partials in split order, then the epilogue.
-template <typename A>
-__global__ void reduce_epilogue_kernel(const A* __restrict__ partial,
-                                       int splits,
-                                       const float* __restrict__ scale,
-                                       int scale_stride,
-                                       const float* __restrict__ offset,
-                                       int offset_stride,
-                                       float* __restrict__ out, int B, int N) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(B) * N;
-  if (idx >= total) return;
-  const int n = static_cast<int>(idx % N);
-  A s = 0;
-  for (int k = 0; k < splits; ++k) s += partial[k * total + idx];
-  out[idx] = dequant(to_f32(s), scale[n * scale_stride], offset[n * offset_stride]);
-}
-
 template <typename T>
 void launch(const void* x, const void* thr, const void* lut, const void* scale,
             int scale_stride, const void* offset, int offset_stride, void* out,
             void* partial, int B, int C, int N, int depth, int c_per_split,
             int splits, cudaStream_t stream) {
-  using A = typename Acc<T>::type;
+  using A = typename LutAcc<T>::type;
   constexpr int V = 16 / sizeof(T);
   const int cols = kThreads * V;
   const bool vec_ok = (N % V == 0) &&
@@ -169,14 +125,10 @@ void launch(const void* x, const void* thr, const void* lut, const void* scale,
       static_cast<float*>(out), static_cast<A*>(partial), B, C, N, depth,
       c_per_split, vec_ok);
   if (splits > 1) {
-    const size_t total = static_cast<size_t>(B) * N;
-    const int threads = 256;
-    const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-    reduce_epilogue_kernel<A><<<blocks, threads, 0, stream>>>(
-        static_cast<const A*>(partial), splits,
-        static_cast<const float*>(scale), scale_stride,
-        static_cast<const float*>(offset), offset_stride,
-        static_cast<float*>(out), B, N);
+    launch_reduce_epilogue<A>(static_cast<const A*>(partial), splits,
+                              static_cast<const float*>(scale), scale_stride,
+                              static_cast<const float*>(offset), offset_stride,
+                              static_cast<float*>(out), B, N, stream);
   }
 }
 

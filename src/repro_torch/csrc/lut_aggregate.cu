@@ -1,135 +1,228 @@
-// LUT aggregation as a general product (B, K) × (K, N) + dequant epilogue,
-// for Hopper.
+// LUT aggregation (B, K) × (K, N) + dequant epilogue for Hopper, summed over
+// the left operand's nonzero entries only.
 //
 // Replaces: repro/kernels/lut_aggregate.py::lut_aggregate_pallas
 // (_matmul_kernel), the TPU kernel that tiles the one-hot × LUT contraction
 // over (B, N, K) on the MXU and accumulates over the K grid axis.
 //
-// What bounds it on this card: device-memory bytes for the batches the
-// serving path gives it (a few to a few tens of rows): the K×N right operand
-// is read once per 16-row tile and each of its bytes takes 2·16 operations at
-// most, far below the ~600 int8 operations per byte where the tensor cores
-// would become the limit.
+// What bounds it on this card: device-memory bytes.  The left operand of
+// the serving path is a one-hot (one nonzero per codebook and row), so a
+// row needs one LUT row of N entries per codebook: at most min(B, G)·C·N
+// LUT bytes, and B·C·N adds.  A dense product would read the whole C·G·N
+// table (G times the bytes at decode) and multiply by zeros, and its adds
+// are far below the tensor cores' rate anyway.
 //
-// What the design does about it: the TPU kernel's sequential K grid axis
-// becomes a loop inside the block.  A block owns a 16-row × 64-column output
-// tile; per 16-deep K step its 256 threads stage the left tile and the right
-// tile in shared memory (the right tile read by 64 neighbouring threads per
-// row, so coalesced) and each thread accumulates four outputs in int32
-// (int8 × int8) or float32 registers.  It takes any left operand, as the TPU
-// kernel does; a one-hot-aware or tensor-core (mma) version is later work.
+// What the design does about it: it does what the plain version does and
+// sums only the nonzero entries.  A block owns kRows rows, one N-tile of
+// kThreads·V columns (V = 16 bytes of LUT per thread) and a slice of K.  It
+// walks its slice kChunk entries at a time: each warp compacts one row's
+// nonzero entries (k, value) into shared memory, every lane loading its 16
+// entries at once and a warp prefix count placing them (in k order, so the
+// sums are deterministic).  Then every thread streams those LUT rows with
+// 16-byte loads (load_row_raw, shared with fused_lutmu.cu), the rows in
+// step along k with 8 loads in flight, kept raw and widened to int32 (int8
+// tables) or float32 (float32 / bfloat16 tables) only as each is added
+// with its value: widened in flight, the int8 instance needed 245
+// registers, which let too few blocks stay resident for one wave.
+// Skipping an exact zero never changes a finite sum, so any left operand
+// is taken, as the TPU kernel takes one: a dense one just has more
+// entries.  Decode batches leave few (row, N-tile) blocks, so K is split
+// over gridDim.z, and the splits' partial sums go through the fixed-order
+// reduce + epilogue pass shared with fused_lutmu.cu (common.cuh); with one
+// split the kernel applies the epilogue itself.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 16;  // output rows per block
-constexpr int BN = 64;  // output columns per block (blockDim.x)
-constexpr int BK = 16;  // K depth per shared-memory step
-constexpr int TY = 4;   // blockDim.y; each thread computes BM / TY rows
+constexpr int kThreads = 64;   // threads per block (kernels/lut_aggregate.py)
+constexpr int kRows = 4;       // output rows per block
+constexpr int kPerLane = 16;   // K entries a lane compacts per pass
+constexpr int kChunk = 32 * kPerLane;  // K entries compacted per pass
+constexpr int kStep = 2;       // entries per row loaded at once: kStep·kRows
+                               // LUT rows in flight per thread
 
-// Operand values in the accumulation type (int32 for int8 × int8, else
-// float32; a bf16 LUT widens exactly).
-__device__ __forceinline__ int widen(int8_t v) { return static_cast<int>(v); }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+// acc + w·x with two roundings in float, as the plain version's product
+// then index_add_; exact in int32
+__device__ __forceinline__ int madd(int acc, int w, int x) { return acc + w * x; }
+__device__ __forceinline__ float madd(float acc, float w, float x) {
+  return __fadd_rn(acc, __fmul_rn(w, x));
+}
 
-template <typename L> struct AccOf { using type = float; };
-template <> struct AccOf<int8_t> { using type = int; };
-
-template <typename L, typename R>
-__global__ void __launch_bounds__(BN * TY)
-lut_aggregate_kernel(const L* __restrict__ lhs, const R* __restrict__ rhs,
+template <typename L, typename T>
+__global__ void __launch_bounds__(kThreads)
+lut_aggregate_kernel(const L* __restrict__ lhs, const T* __restrict__ lut,
                      const float* __restrict__ scale, int scale_stride,
                      const float* __restrict__ offset, int offset_stride,
-                     float* __restrict__ out, int B, int K, int N) {
-  using A = typename AccOf<L>::type;
-  __shared__ A As[BM][BK];
-  __shared__ A Bs[BK][BN];
+                     float* __restrict__ out,
+                     typename LutAcc<T>::type* __restrict__ partial, int B,
+                     int K, int N, int k_per_split, bool vec_ok) {
+  using A = typename LutAcc<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  __shared__ int ks[kRows][kChunk];
+  __shared__ A vs[kRows][kChunk];
+  __shared__ int cnt[kRows];
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * BN + tx;
-  const int row0 = blockIdx.y * BM;
-  const int col = blockIdx.x * BN + tx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * kRows;
+  const int rows = min(kRows, B - b0);
+  const int k0 = blockIdx.z * k_per_split;
+  const int k1 = min(K, k0 + k_per_split);
+  const int n0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  const bool active = n0 < N;
+  const int n_left = N - n0;
+  const bool full = vec_ok && n_left >= V;
 
-  A acc[BM / TY];
+  A acc[kRows][V];
 #pragma unroll
-  for (int i = 0; i < BM / TY; ++i) acc[i] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // left tile: BM × BK = 256 entries, one per thread
-      const int r = tid / BK, k = tid % BK;
-      const int gr = row0 + r, gk = k0 + k;
-      As[r][k] = (gr < B && gk < K)
-                     ? widen(lhs[static_cast<size_t>(gr) * K + gk])
-                     : A(0);
-    }
+  for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int i = 0; i < BK / TY; ++i) {  // right tile: BK × BN
-      const int k = ty * (BK / TY) + i;
-      const int gk = k0 + k;
-      Bs[k][tx] = (gk < K && col < N)
-                      ? widen(rhs[static_cast<size_t>(gk) * N + col])
-                      : A(0);
+    for (int i = 0; i < V; ++i) acc[r][i] = 0;
+
+  for (int kc = k0; kc < k1; kc += kChunk) {
+    const int kc1 = min(k1, kc + kChunk);
+    // compact: one warp per row, entries in k order; lane i holds the 16
+    // entries [kc + 16·i, kc + 16·i + 16), all loaded before any is used,
+    // and a warp prefix count places them
+    for (int r = warp; r < kRows; r += kThreads / 32) {
+      int count = 0;
+      if (r < rows) {
+        const L* lr = lhs + static_cast<size_t>(b0 + r) * K;
+        const int kl = kc + kPerLane * lane;
+        L v[kPerLane];
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) v[i] = kl + i < kc1 ? lr[kl + i] : L(0);
+        int mine = 0;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) mine += v[i] != L(0);
+        int before = mine;  // inclusive prefix over the lanes
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int x = __shfl_up_sync(0xffffffffu, before, o);
+          if (lane >= o) before += x;
+        }
+        count = __shfl_sync(0xffffffffu, before, 31);
+        int at = before - mine;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          if (v[i] != L(0)) {
+            ks[r][at] = kl + i;
+            vs[r][at] = static_cast<A>(v[i]);
+            ++at;
+          }
+        }
+      }
+      if (lane == 0) cnt[r] = count;
     }
     __syncthreads();
+    if (active) {
+      // the rows walk their entries together, in step along k, so the
+      // blocks of one K slice fetch each LUT row while it is in L2; each
+      // row's sum runs in its own entry order
+      int c[kRows];
+      int most = 0;
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const A b = Bs[k][tx];
+      for (int r = 0; r < kRows; ++r) {
+        c[r] = r < rows ? cnt[r] : 0;
+        most = max(most, c[r]);
+      }
+      for (int e = 0; e < most; e += kStep) {
+        // raw 16-byte rows, widened only as they are added: 4 registers a
+        // load in flight instead of V
+        uint4 raw[kStep][kRows];
 #pragma unroll
-      for (int i = 0; i < BM / TY; ++i) acc[i] += As[ty * (BM / TY) + i][k] * b;
+        for (int u = 0; u < kStep; ++u)
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (e + u < c[r])
+              raw[u][r] = load_row_raw(lut + static_cast<size_t>(ks[r][e + u]) * N + n0,
+                                       full, n_left);
+#pragma unroll
+        for (int u = 0; u < kStep; ++u)
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (e + u < c[r]) {
+              const A w = vs[r][e + u];
+#pragma unroll
+              for (int i = 0; i < V; ++i)
+                acc[r][i] = madd(acc[r][i], w, lut_entry<T>(raw[u][r], i));
+            }
+      }
     }
     __syncthreads();
   }
 
-  if (col >= N) return;
+  if (!active) return;
+  const bool last = gridDim.z == 1;
 #pragma unroll
-  for (int i = 0; i < BM / TY; ++i) {
-    const int r = row0 + ty * (BM / TY) + i;
-    if (r < B) {
-      out[static_cast<size_t>(r) * N + col] =
-          dequant(to_f32(acc[i]), scale[col * scale_stride],
-                  offset[col * offset_stride]);
+  for (int r = 0; r < kRows; ++r) {
+    if (r >= rows) break;
+    const size_t row = static_cast<size_t>(b0 + r) * N;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int n = n0 + i;
+      if (n >= N) break;
+      if (last) {
+        out[row + n] = dequant(to_f32(acc[r][i]), scale[n * scale_stride],
+                               offset[n * offset_stride]);
+      } else {
+        partial[static_cast<size_t>(blockIdx.z) * B * N + row + n] = acc[r][i];
+      }
     }
   }
 }
 
-template <typename L, typename R>
-void launch(const void* lhs, const void* rhs, const void* scale,
+template <typename L, typename T>
+void launch(const void* lhs, const void* lut, const void* scale,
             int scale_stride, const void* offset, int offset_stride, void* out,
-            int B, int K, int N, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM);
-  dim3 block(BN, TY);
-  lut_aggregate_kernel<L, R><<<grid, block, 0, stream>>>(
-      static_cast<const L*>(lhs), static_cast<const R*>(rhs),
+            void* partial, int B, int K, int N, int k_per_split, int splits,
+            cudaStream_t stream) {
+  using A = typename LutAcc<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  const int cols = kThreads * V;
+  const bool vec_ok = (N % V == 0) &&
+                      (reinterpret_cast<uintptr_t>(lut) % 16 == 0);
+  dim3 grid((N + cols - 1) / cols, (B + kRows - 1) / kRows, splits);
+  lut_aggregate_kernel<L, T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const L*>(lhs), static_cast<const T*>(lut),
       static_cast<const float*>(scale), scale_stride,
       static_cast<const float*>(offset), offset_stride,
-      static_cast<float*>(out), B, K, N);
+      static_cast<float*>(out), static_cast<A*>(partial), B, K, N,
+      k_per_split, vec_ok);
+  if (splits > 1) {
+    launch_reduce_epilogue<A>(static_cast<const A*>(partial), splits,
+                              static_cast<const float*>(scale), scale_stride,
+                              static_cast<const float*>(offset), offset_stride,
+                              static_cast<float*>(out), B, N, stream);
+  }
 }
 
 }  // namespace
 
 REPRO_ERROR_STRING_FN
 
-// lhs (B, K) in lhs_dtype, rhs (K, N) in rhs_dtype, scale/offset f32 of N
-// entries (stride 1) or one (stride 0) → out (B, N) f32.  Pairs: int8 ×
-// int8 (int32 sums), and f32 × {f32, bf16} (float32 sums).  Returns
-// cudaGetLastError() after the launch.
+// lhs (B, K) in lhs_dtype, lut (K, N) in lut_dtype, scale/offset f32 of N
+// entries (stride 1) or one (stride 0) → out (B, N) f32; partial (splits,
+// B, N) int32 (int8 LUT) or f32, unused when splits == 1; split z sums
+// K entries [z·k_per_split, (z+1)·k_per_split).  Pairs: int8 × int8 (int32
+// sums), and f32 × {f32, bf16} (float32 sums).  Returns cudaGetLastError()
+// after the launches.
 extern "C" int lut_aggregate_launch(const void* lhs, int lhs_dtype,
-                                    const void* rhs, int rhs_dtype,
+                                    const void* lut, int lut_dtype,
                                     const void* scale, int scale_stride,
                                     const void* offset, int offset_stride,
-                                    void* out, int B, int K, int N,
+                                    void* out, void* partial, int B, int K,
+                                    int N, int k_per_split, int splits,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_AGG(L, R) \
-  launch<L, R>(lhs, rhs, scale, scale_stride, offset, offset_stride, out, B, K, N, s)
-  if (lhs_dtype == kI8 && rhs_dtype == kI8) {
+#define REPRO_AGG(L, T)                                                      \
+  launch<L, T>(lhs, lut, scale, scale_stride, offset, offset_stride, out,    \
+               partial, B, K, N, k_per_split, splits, s)
+  if (lhs_dtype == kI8 && lut_dtype == kI8) {
     REPRO_AGG(int8_t, int8_t);
-  } else if (lhs_dtype == kF32 && rhs_dtype == kF32) {
+  } else if (lhs_dtype == kF32 && lut_dtype == kF32) {
     REPRO_AGG(float, float);
-  } else if (lhs_dtype == kF32 && rhs_dtype == kBF16) {
+  } else if (lhs_dtype == kF32 && lut_dtype == kBF16) {
     REPRO_AGG(float, __nv_bfloat16);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

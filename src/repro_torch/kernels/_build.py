@@ -12,6 +12,9 @@ covers the sources and the flags, so an edit rebuilds.  A build that fails
 raises: there is no fallback.  Every C entry point returns
 ``cudaGetLastError()`` after its launches, and :func:`check` raises when it
 is not 0.  Nothing here runs at import: the CPU tests import every module.
+
+``python -m repro_torch.kernels._build`` builds every kernel with ptxas's
+report (registers, shared memory and spills of each kernel instance).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -46,11 +49,15 @@ ENTRY_POINTS = {
     "maddness_encode": ("encode_onehot_launch",
                         [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP]),
     "lut_aggregate": ("lut_aggregate_launch",
-                      [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _CI,
-                       _CI, _VP]),
+                      [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _CI,
+                       _CI, _CI, _CI, _CI, _VP]),
     "verify_window": ("verify_window_launch",
                       [_VP, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
-                       _CI, _CI, _CI, _CI, _CI, _CI, _VP]),
+                       _CI, _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP]),
+}
+# further C functions of a library: name and argument types
+QUERIES = {
+    "verify_window": ("verify_window_max_clusters", [_CI] * 8),
 }
 
 _LOCK = threading.Lock()
@@ -82,17 +89,20 @@ def nvcc_path() -> str:
                        "cannot be built")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(name: str, extra: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
     for src in (SRC_DIR / "common.cuh", SRC_DIR / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+def build(names: Iterable[str] = SOURCES, extra: Sequence[str] = (),
+          log: bool = False) -> Dict[str, Path]:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.  Returns name → library path."""
-    paths = {n: _lib_path(n) for n in names}
+    per source, all started together, with ``extra`` flags after the
+    standard ones; ``log`` prints each compiler's output.  Returns name →
+    library path."""
+    paths = {n: _lib_path(n, extra) for n in names}
     todo = {n: p for n, p in paths.items() if not p.is_file()}
     if not todo:
         return paths
@@ -101,7 +111,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(SRC_DIR), "-o", str(tmp),
                str(SRC_DIR / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
@@ -109,6 +119,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     failed = []
     for n, (proc, tmp) in procs.items():
         log_text, _ = proc.communicate()
+        if log:
+            print(f"--- {n} ---\n{log_text}", flush=True)
         if proc.returncode != 0:
             failed.append(f"--- {n} (nvcc rc {proc.returncode}) ---\n{log_text}")
             continue
@@ -131,6 +143,10 @@ def library(name: str) -> ctypes.CDLL:
                 fn_name, argtypes = ENTRY_POINTS[n]
                 fn = getattr(lib, fn_name)
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                if n in QUERIES:
+                    q_name, q_args = QUERIES[n]
+                    qfn = getattr(lib, q_name)
+                    qfn.argtypes, qfn.restype = q_args, ctypes.c_int
                 _LIBS[n] = lib
         return _LIBS[name]
 
@@ -181,3 +197,9 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 
 def sm_count(device: Optional[torch.device] = None) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels._build: build every kernel with ptxas's
+    # report (registers, shared memory, spills of each kernel instance)
+    build(extra=("-Xptxas", "-v"), log=True)

@@ -17,18 +17,24 @@ the JAX package's ``xla`` and ``pallas`` lowerings):
   makes, so it is bitwise the oracle for every cache dtype;
 * ``cuda`` — :func:`verify_window_attend_cuda`: one hand-written kernel
   (``csrc/verify_window.cu``) that reads each row's pages through the page
-  table and computes all W attends without materialising the view.  Its
-  int8 path sums in int32 (exact, any order); its float path sums in
-  float32 in another order than the plain version, so it is held
-  ``allclose``.
+  table and computes all W attends without materialising the view, the
+  reachable positions split over a cluster of blocks (:func:`verify_splits`,
+  :func:`split_slice`) that share one flat softmax per row.  Its int8 path
+  sums in int32 (exact, any order).  A float row one block holds whole is
+  summed in the plain version's order (each logit and each output one FMA
+  chain), so it matches the plain version bit for bit wherever the library
+  products sum that way too, as on the serve path; split rows, and bf16
+  rows on the tensor cores, sum in another order, so the float paths are
+  held ``allclose``.
 
 ``auto`` picks ``cuda`` for CUDA tensors and ``plain`` for CPU tensors;
 the plain version runs on a CUDA tensor only when asked for by name.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -47,10 +53,76 @@ LAUNCHES = _build.LaunchCount()
 # smoke run asserts the main path made none
 PLAIN_ON_CUDA = _build.LaunchCount()
 
-_MAX_ROWS = 64           # W·g query rows one block holds
+_MAX_ROWS = 64           # W·g query rows of one (row, kv head)
+_ROWS_PER_BLOCK = 32     # csrc/verify_window.cu kRowsBlk
 _MAX_HD = 256
+_TILE_S = 32             # csrc/verify_window.cu kTileS
+_MAX_SPLITS = 8          # blocks per cluster (the portable cluster size)
+_SPLIT_SPAN = 512        # positions per split
 _SMEM_LOGITS_MAX = 96 * 1024   # logits of a block above this go to scratch
 _KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def reach(pos: int, w: int, window: int, s_len: int) -> Tuple[int, int]:
+    """Cache positions ``[lo, hi)`` any of a row's W window masks can reach
+    (``kv_pos <= pos+j`` and ``kv_pos > pos+j-window``); all of ``[0, S)``
+    when one row's mask is empty, whose softmax is then uniform over the
+    whole row.  The kernel derives the same range from ``pos`` on the
+    device."""
+    rows = [(max(0, pos + j - window + 1), min(s_len - 1, pos + j))
+            for j in range(w)]
+    if any(lo > hi for lo, hi in rows):
+        return 0, s_len
+    return rows[0][0], rows[-1][1] + 1
+
+
+def verify_splits(s_len: int, one_wave: Optional[Callable[[int, int], bool]] = None
+                  ) -> Tuple[int, int]:
+    """``(splits, cap)`` for rows of ``s_len`` positions: a cluster of
+    ``splits`` ≤ 8 blocks per (row, kv head, 32 query rows), one per
+    ``_SPLIT_SPAN`` positions, each holding at most ``cap`` positions (a
+    multiple of ``_TILE_S``).  ``one_wave(splits, cap)`` says whether every
+    cluster of the grid runs at once; the count steps down (to half) to
+    the first that does, else stays.  Fixed from S and the grid shape, so
+    the host never reads ``pos``."""
+    want = max(1, min(_MAX_SPLITS, -(-s_len // _SPLIT_SPAN)))
+
+    def cap_of(splits):
+        return -(-(-(-s_len // splits)) // _TILE_S) * _TILE_S
+
+    if one_wave is not None:
+        for splits in range(want, max(1, want // 2) - 1, -1):
+            if one_wave(splits, cap_of(splits)):
+                return splits, cap_of(splits)
+    return want, cap_of(want)
+
+
+def split_slice(lo: int, hi: int, splits: int, i: int) -> Tuple[int, int]:
+    """Block ``i``'s positions ``[a, e)`` of the reach ``[lo, hi)``: slices
+    of ``ceil((hi-lo)/splits)`` rounded up to whole tiles, in order; the
+    last ones may be short or empty."""
+    chunk = -(-(-(-(hi - lo) // splits)) // _TILE_S) * _TILE_S
+    a = min(hi, lo + i * chunk)
+    return a, min(hi, a + chunk)
+
+
+def split_bf16_terms(q: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """float32 ``q`` as three bfloat16 terms ``hi + mid + lo`` that sum to
+    it exactly (each remainder fits the next term's 8 significant bits), as
+    the kernel feeds q to the bf16 tensor cores."""
+    hi = q.to(torch.bfloat16)
+    r1 = q - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(kv_code: int, w: int, g: int, hd: int, ps: int,
+                  splits: int, cap: int, in_smem: bool) -> int:
+    lib = _build.library("verify_window")
+    return lib.verify_window_max_clusters(kv_code, w, g, hd, ps, splits, cap,
+                                          int(in_smem))
 
 
 def resolve_impl(impl: str = "auto", device=None) -> str:
@@ -154,8 +226,9 @@ def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
     """Page gather + all W masked attends in one kernel.
 
     Args:
-      qg: (B, W, n_kv, g, hd) float32.
+      qg: (B, W, n_kv, g, hd) float32; hd a multiple of 16, at most 256.
       k_pages / v_pages: (P, page_size, n_kv, hd) float32, bfloat16 or int8.
+        qg and the pages 16-byte aligned (the kernel's 16-byte loads).
       page_table: (B, max_pages) int32, trash-padded.
       pos: (B,) int32 first window position per row.
       window: the layer's window (``None`` or ``2**30`` = global).
@@ -186,28 +259,43 @@ def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
                    f"pos must be int32 ({b},), got {pos.dtype} {tuple(pos.shape)}")
     _build.require(1 <= w * g <= _MAX_ROWS,
                    f"W·g = {w * g} query rows per block, must be in [1, {_MAX_ROWS}]")
-    _build.require(1 <= hd <= _MAX_HD, f"head_dim {hd} must be in [1, {_MAX_HD}]")
+    _build.require(1 <= hd <= _MAX_HD and hd % 16 == 0,
+                   f"head_dim {hd} must be a multiple of 16 in [16, {_MAX_HD}]")
     _build.require(win >= 1, f"window must be >= 1, got {win}")
     _build.require_contiguous(qg=qg, k_pages=k_pages, v_pages=v_pages,
                               page_table=page_table, pos=pos)
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (qg, k_pages, v_pages)),
+                   "qg and the pages must be 16-byte aligned (16-byte loads)")
     ps, max_pages = k_pages.shape[1], page_table.shape[1]
     s_len = ps * max_pages
     out = torch.empty((b, w, nkv, g, hd), dtype=torch.float32, device=qg.device)
     if out.numel() == 0:
         return out
-    # a block keeps its W·g × S float32 logits in shared memory when they
-    # fit the budget, else in a scratch allocated here
-    in_smem = w * g * s_len * 4 <= _SMEM_LOGITS_MAX
+    halves = -(-(w * g) // _ROWS_PER_BLOCK)
+    kv_code = _build.DTYPE_CODES[k_pages.dtype]
+    rows = min(w * g, _ROWS_PER_BLOCK)
+
+    def in_smem_at(cap):
+        # a block keeps its slice's logits (≤ 32 rows × cap) in shared
+        # memory when they fit the budget, else in a scratch allocated here
+        return rows * (cap + 4) * 4 <= _SMEM_LOGITS_MAX
+
+    def one_wave(splits, cap):  # with the logits in shared memory
+        return in_smem_at(cap) and b * nkv * halves <= _max_clusters(
+            kv_code, w, g, hd, ps, splits, cap, True)
+
+    splits, cap = verify_splits(s_len, one_wave)
+    in_smem = in_smem_at(cap)
     scratch = (None if in_smem else
-               torch.empty((b, nkv, w * g, s_len), dtype=torch.float32,
-                           device=qg.device))
+               torch.empty((b, nkv * halves, splits, _ROWS_PER_BLOCK, cap + 4),
+                           dtype=torch.float32, device=qg.device))
     lib = _build.library("verify_window")
     err = lib.verify_window_launch(
         qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _build.DTYPE_CODES[k_pages.dtype], page_table.data_ptr(),
+        kv_code, page_table.data_ptr(),
         pos.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        b, w, nkv, g, hd, ps, max_pages, win, int(in_smem),
+        b, w, nkv, g, hd, ps, max_pages, win, splits, cap, int(in_smem),
         _build.stream_of(qg))
     _build.check(lib, err, "verify_window")
     LAUNCHES.bump()

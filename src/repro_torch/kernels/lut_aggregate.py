@@ -1,23 +1,43 @@
 """LUT aggregation (left operand × LUT + epilogue) on Hopper.
 
 The port of ``repro/kernels/lut_aggregate.py::lut_aggregate_pallas``; the
-kernel is ``csrc/lut_aggregate.cu``, a tiled shared-memory product that
-takes any left operand, as the TPU kernel does.  CPU tensors take the plain
-version, :func:`lut_aggregate_plain`; CUDA tensors launch the kernel or
-raise.
+kernel is ``csrc/lut_aggregate.cu``, which sums only the left operand's
+nonzero entries (as the plain version does) with K split over the grid and
+a fixed-order partial-sum pass.  It takes any left operand, as the TPU
+kernel does.  CPU tensors take the plain version,
+:func:`lut_aggregate_plain`; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused_lutmu import block_cols
 from repro_torch.kernels.ref import lut_aggregate_ref as lut_aggregate_plain
 
-__all__ = ["lut_aggregate", "lut_aggregate_plain", "LAUNCHES"]
+__all__ = ["lut_aggregate", "lut_aggregate_plain", "LAUNCHES", "k_splits"]
 
 LAUNCHES = _build.LaunchCount()
 
+_ROWS = 4              # csrc/lut_aggregate.cu kRows
+_MIN_SPLIT_K = 256     # fewest K entries one block walks
+_MAX_GRID_Z = 65535
+_BLOCKS_PER_SM = 8     # K splits aim for this many blocks per SM
 _FLOAT_LUTS = (torch.float32, torch.bfloat16)
+
+
+def k_splits(b: int, k: int, n: int, lut_dtype, sms: int):
+    """K splits ``(splits, entries per split)``: enough blocks to fill
+    ``sms`` SMs a few times over, without a block walking fewer than
+    ``_MIN_SPLIT_K`` entries; split ``z`` sums entries
+    ``[z·per, min(k, (z+1)·per))``."""
+    tiles = math.ceil(n / block_cols(lut_dtype)) * math.ceil(b / _ROWS)
+    want = max(1, math.ceil(_BLOCKS_PER_SM * sms / tiles))
+    per = max(_MIN_SPLIT_K, math.ceil(k / want), math.ceil(k / _MAX_GRID_Z))
+    per = max(1, min(per, k))
+    return max(1, math.ceil(k / per)), per
 
 
 def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
@@ -28,7 +48,8 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
     int8 LUTs take the left operand as int8 and sum in int32; float32 or
     bfloat16 LUTs take a float32 left operand and sum in float32 (on the
     CPU the plain version also takes a bfloat16 one, rounding the LUT to
-    it as the TPU kernel does).
+    it as the TPU kernel does).  Only the left operand's nonzero entries
+    are summed, which for a one-hot is the LUT-row gather.
     """
     if _build.on_cpu(onehot, lut, lut_scale, lut_offset):
         return lut_aggregate_plain(onehot, lut, lut_scale, lut_offset)
@@ -48,11 +69,16 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     if out.numel() == 0:
         return out
+    splits, per = k_splits(b, k, n, lut.dtype, _build.sm_count(lut.device))
+    acc_dtype = torch.int32 if lut.dtype == torch.int8 else torch.float32
+    partial = (torch.empty((splits, b, n), dtype=acc_dtype, device=lut.device)
+               if splits > 1 else None)
     lib = _build.library("lut_aggregate")
     err = lib.lut_aggregate_launch(
         onehot.data_ptr(), _build.DTYPE_CODES[onehot.dtype], lut.data_ptr(),
         _build.DTYPE_CODES[lut.dtype], scale_p, scale_s, offset_p, offset_s,
-        out.data_ptr(), b, k, n, _build.stream_of(lut))
+        out.data_ptr(), partial.data_ptr() if partial is not None else None,
+        b, k, n, per, splits, _build.stream_of(lut))
     _build.check(lib, err, "lut_aggregate")
     LAUNCHES.bump()
     return out

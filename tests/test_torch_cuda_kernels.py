@@ -109,6 +109,36 @@ def test_cuda_lut_aggregate_matches_plain(cuda_device, case, lut_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "zero"])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_lut_aggregate_any_left_operand(cuda_device, kind, lut_dtype):
+    """Not only one-hots: a dense left operand (values in [-2, 2], so each
+    product is exact and only the float sums' order differs) and an
+    all-zero one (every output is the offset), with ragged N and enough K
+    to split it over the grid."""
+    b, c, n, depth = 6, 300, 1003, 4
+    _, _, lut, scale, offset = _inputs(b, c, n, depth, lut_dtype, seed=5)
+    rng = np.random.default_rng(6)
+    lhs = (rng.integers(-2, 3, size=(b, c, 2**depth)) if kind == "dense"
+           else np.zeros((b, c, 2**depth)))
+    lhs_dtype = "int8" if lut_dtype == "int8" else "float32"
+    (lt,) = _on(cuda_device, lut, dtype=lut_dtype)
+    (ht,) = _on(cuda_device, lhs, dtype=lhs_dtype)
+    st, ot = _on(cuda_device, scale, offset)
+    before = LA.LAUNCHES.n
+    got = LA.lut_aggregate(ht, lt, st, ot)
+    torch.cuda.synchronize()
+    assert LA.LAUNCHES.n == before + 1
+    if kind == "zero":
+        assert torch.equal(got, ot[None].expand(b, n))
+    want = LA.lut_aggregate_plain(ht, lt, st, ot)
+    if lut_dtype == "int8":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_bad_inputs(cuda_device):
     x, thr, lut, scale, offset = _inputs(4, 3, 32, 2, "int8")
     xt, tt, st, ot = _on(cuda_device, x, thr, scale, offset)
@@ -142,9 +172,14 @@ VERIFY_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
               "int8": dict(rtol=0, atol=2 * 0.05)}
 INT8_MIN_EQUAL_SHARE = 0.99
 # (page_size, max_pages, W, n_kv, g, hd): S up to 4096; the full-width
-# qwen3-14b heads (n_kv 8, g 5, hd 128, W 5) at S = 128 and S = 4096
+# qwen3-14b heads (n_kv 8, g 5, hd 128, W 5) at S = 128 and S = 4096; S = 201
+# (page size 3); S = 2096, which its 5 splits do not divide; S = 8320, whose
+# logits go to the device-memory scratch; W·g = 40 query rows, two blocks'
+# worth
 VERIFY_CASES = [(16, 8, 5, 8, 5, 128), (16, 256, 5, 8, 5, 128),
-                (16, 64, 3, 2, 3, 64), (8, 5, 2, 1, 2, 32)]
+                (16, 64, 3, 2, 3, 64), (8, 5, 2, 1, 2, 32),
+                (3, 67, 5, 8, 5, 128), (16, 520, 5, 8, 5, 128),
+                (16, 12, 8, 2, 5, 64), (16, 131, 5, 8, 5, 128)]
 
 
 def _verify_inputs(dev, case, kv_dtype, seed=0):

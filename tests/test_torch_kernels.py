@@ -103,3 +103,21 @@ def test_lut_aggregate_plain_takes_any_left_operand():
     exact = lhs.reshape(6, -1).astype(np.int64) @ lut.reshape(-1, 40)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
+
+
+@pytest.mark.parametrize("b,c,g,n", [(4, 640, 16, 8704), (4, 2176, 16, 5120),
+                                     (32, 640, 16, 8704), (32, 2176, 16, 5120),
+                                     (1, 3, 4, 33), (9, 1, 2, 7),
+                                     (2, 70000, 16, 64)])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_lut_aggregate_k_splits_cover_k(b, c, g, n, lut_dtype):
+    """The aggregate's K-split plan: split ``z`` sums entries
+    ``[z·per, (z+1)·per)``; the splits cover K exactly once, fit the grid's
+    z limit, and a block walks at least 256 entries unless K is smaller."""
+    k = c * g
+    for sms in (1, 132):
+        splits, per = LA.k_splits(b, k, n, _TORCH[lut_dtype], sms)
+        assert 1 <= splits <= 65535 and per >= 1
+        assert (splits - 1) * per < k <= splits * per
+        assert per >= min(256, k)
+    assert LA.k_splits(4, 2176 * 16, 5120, torch.int8, 132)[0] > 1

@@ -133,6 +133,90 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert TFV.LAUNCHES.n == launches and TFV.PLAIN_ON_CUDA.n == plain_cuda
 
 
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 7.5, 1e6, 1e30])
+def test_split_bf16_terms_reconstruct_q_exactly(scale):
+    """The kernel's three bf16 terms of float32 q sum to q exactly (so the
+    bf16 tensor-core products are exact) wherever q's last bit lies above
+    bf16's smallest subnormal, 2**-133 (|q| ≥ 2**-110); bf16-valued q (the
+    serve path's) has zero lower terms."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy((rng.normal(size=(4, 5, 2, 3, 64)) * scale)
+                         .astype(np.float32))
+    assert bool((q.abs() >= 2.0**-110).all())
+    hi, mid, lo = TFV.split_bf16_terms(q)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, q.double())
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), q)
+    qb = q.to(torch.bfloat16).float()
+    hb, mb, lb = TFV.split_bf16_terms(qb)
+    assert torch.equal(hb.float(), qb)
+    assert not mb.float().any() and not lb.float().any()
+
+
+def _masked_positions(pos, w, window, s_len):
+    """Positions some window row's mask admits (the plain version's
+    ``kv_pos <= pos+j`` and ``kv_pos > pos+j-window``)."""
+    return {t for j in range(w) for t in range(s_len)
+            if t <= pos + j and t > pos + j - window}
+
+
+@pytest.mark.parametrize("s_len", [1, 7, 32, 40, 128, 201, 600, 4096, 8320])
+@pytest.mark.parametrize("window", [1, 7, 37, 2**30])
+def test_verify_split_planner_covers_the_reach_once(s_len, window):
+    """The kernel's split plan: ``reach`` holds every position a window
+    row's mask admits (all of ``[0, S)`` when a row's mask is empty), and
+    the blocks' slices cover it exactly once, in order, each within the
+    cap — for the planner's own split count and for every count up to 8,
+    so slices left empty and reaches shorter than one split occur."""
+    own, own_cap = TFV.verify_splits(s_len)
+    assert 1 <= own <= 8 and own_cap % 32 == 0 and own * own_cap >= s_len
+    w = 5
+    empty_slices = 0
+    for pos in sorted({0, 1, 3, s_len // 2, max(0, s_len - w), s_len - 2,
+                       s_len - 1, s_len, s_len + window + 3}):
+        lo, hi = TFV.reach(pos, w, window, s_len)
+        rows_empty = any(
+            not _masked_positions(pos + j, 1, window, s_len) for j in range(w))
+        if rows_empty:
+            assert (lo, hi) == (0, s_len)
+        else:
+            admitted = _masked_positions(pos, w, window, s_len)
+            assert admitted <= set(range(lo, hi))
+            assert lo == min(admitted) and hi == max(admitted) + 1
+        for splits in range(1, 9):
+            cap = own_cap if splits == own else -(-(-(-s_len // splits)) // 32) * 32
+            covered = []
+            for i in range(splits):
+                a, e = TFV.split_slice(lo, hi, splits, i)
+                assert lo <= a <= e <= hi and e - a <= cap
+                empty_slices += a == e
+                covered.extend(range(a, e))
+            assert covered == list(range(lo, hi))
+    assert empty_slices > 0
+
+
+def test_verify_split_planner_empty_mask_row_takes_the_whole_row():
+    """A row whose window lies past the table has an empty mask: the reach
+    is all of [0, S), as the plain version's uniform softmax needs."""
+    assert TFV.reach(100, 5, 2**30, 64) == (0, 64)  # pos beyond S
+    assert TFV.reach(70, 3, 4, 64) == (0, 64)       # window past the end
+    assert TFV.reach(10, 3, 4, 64) == (7, 13)
+    assert TFV.verify_splits(64) == (1, 64)
+    splits, cap = TFV.verify_splits(1100)
+    assert (splits, cap) == (3, 384)
+    assert [TFV.split_slice(0, 1100, splits, i) for i in range(splits)] == \
+        [(0, 384), (384, 768), (768, 1100)]
+    # a reach shorter than one split: the first block takes it all
+    assert [TFV.split_slice(7, 13, splits, i) for i in range(splits)] == \
+        [(7, 13), (13, 13), (13, 13)]
+    # fewer splits when that lets every cluster run at once; never below half
+    assert TFV.verify_splits(4096) == (8, 512)
+    assert TFV.verify_splits(4096, lambda n, cap: n <= 7) == (7, 608)
+    assert TFV.verify_splits(4096, lambda n, cap: cap > 1000) == (4, 1024)
+    assert TFV.verify_splits(4096, lambda n, cap: False) == (8, 512)
+
+
 def test_resolve_impl():
     assert TFV.resolve_impl("auto", "cpu") == "plain"
     assert TFV.resolve_impl("auto", torch.device("cuda")) == "cuda"

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Time the port's verify-window and LUT-aggregate kernels of one source
+tree three ways, at the shapes ``chip_smoke.py`` uses:
+
+    python3 tools/kernel_timing.py [--src DIR] [--label NAME]
+
+``--src`` is a ``src`` directory holding ``repro_torch`` (default: this
+checkout's), so the kernels of another commit can be timed in the same
+call (unpack it with ``git archive`` into a directory ``.gitignore``
+lists).  Inputs and the event timer come from this checkout's
+``chip_smoke.py``, so both trees see the same data.  Per case it prints one
+JSON line with
+
+* ``event_ms`` — CUDA events around single calls queued behind a device
+  sleep, L2 flushed before each (``chip_smoke.Timer``);
+* ``device_ms`` — the kernels' own time per call from ``torch.profiler``
+  (only kernels of the wrapper's library, flush excluded);
+* ``host_blocked_ms`` — host time of one wrapper call issued while the
+  device still runs a 25 ms sleep: near 0 when the call only enqueues,
+  near the sleep when something in it waits for the device.
+
+Needs one CUDA card; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def device_ms(torch, fn, names, iters: int, flush) -> float:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(n in e.key for n in names))
+    return total / 1e3 / iters
+
+
+def host_blocked_ms(torch, fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms of device work ahead of the call
+    t0 = time.perf_counter()
+    fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_timing: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import chip_smoke as CS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_verify as FV
+    from repro_torch.kernels import lut_aggregate as LA
+    from repro_torch.kernels import maddness_encode as ME
+
+    _build.build()
+    timer = CS.Timer(torch)
+    kind = torch.cuda.get_device_name(0)
+
+    def report(**kw):
+        print(json.dumps(dict(label=args.label, device=kind, **kw)), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for s_len in CS.VERIFY_S:
+        for kv_name in ("bfloat16", "float32", "int8"):
+            q, kp, vp, pt, pos = CS.verify_inputs(torch, s_len, kv_name, gen)
+            fn = lambda: FV.verify_window_attend_cuda(q, kp, vp, pt, pos, None)  # noqa: E731
+            report(kernel="verify_window", case=f"S={s_len} {kv_name}",
+                   event_ms=timer.ms(fn, 20),
+                   device_ms=device_ms(torch, fn, ["verify_window"], 20,
+                                       timer.flush),
+                   host_blocked_ms=host_blocked_ms(torch, fn))
+            del q, kp, vp, pt, pos
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    g = 2**CS.DEPTH
+    for proj, b, lut_name in CS.CASES:
+        c, n = CS.SHAPES[proj]
+        dt = {"int8": torch.int8, "float32": torch.float32,
+              "bfloat16": torch.bfloat16}[lut_name]
+        x = torch.randn((b, c, CS.DEPTH), generator=gen, device="cuda")
+        thr = torch.randn((c, g - 1), generator=gen, device="cuda")
+        if dt == torch.int8:
+            lut = torch.randint(-128, 128, (c, g, n), generator=gen,
+                                dtype=torch.int8, device="cuda")
+        else:
+            lut = torch.randn((c, g, n), generator=gen, device="cuda").to(dt)
+        scale = torch.rand((n,), generator=gen, device="cuda") * 0.015 + 0.005
+        offset = torch.randn((n,), generator=gen, device="cuda")
+        onehot = ME.encode_onehot_plain(x, thr)
+        fn = lambda: LA.lut_aggregate(onehot, lut, scale, offset)  # noqa: E731
+        report(kernel="lut_aggregate", case=f"{proj} B={b} {lut_name}",
+               event_ms=timer.ms(fn, 10),
+               device_ms=device_ms(torch, fn, ["lut_aggregate", "reduce_epilogue"],
+                                   10, timer.flush),
+               host_blocked_ms=host_blocked_ms(torch, fn))
+        del x, thr, lut, onehot
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
