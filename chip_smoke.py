@@ -22,7 +22,8 @@ Phases, each fatal on failure:
    ``load_engine(None, ...)``: 6 greedy requests, 16 new tokens each, with
    every launch counter set to 0 just before; ``fused_lutmu`` must launch
    120 times per forward call and the ``ref`` path never; then a decode
-   step's host time and device busy time (``torch.profiler``);
+   step's host time and device busy time (``torch.profiler``), where
+   each ``fused_lutmu`` call must be one kernel launch;
 6. unfused — the ``--amm-backend unfused`` path (encode + aggregate
    kernels) at full width, depth cut to 4 layers, 2 requests, whose
    streams must equal the same requests' through the plain ``ref`` path;
@@ -573,6 +574,14 @@ def profile_phase(torch, cfg, params, load_engine, steps: int = 6):
           f"{wall * 1e3:.2f} ms/step unprofiled; device busy "
           f"{busy * 1e3:.2f} ms/step = {100 * busy / wall:.1f}% "
           f"(idle {100 - 100 * busy / wall:.1f}%)", flush=True)
+    lutmu = [e for e in kernels if "fused_lutmu" in e.key]
+    print(f"[profile] fused_lutmu: "
+          f"{sum(e.self_device_time_total for e in lutmu) / 1e3 / steps:.3f} "
+          f"ms/step over {sum(e.count for e in lutmu) / steps:.0f} launches",
+          flush=True)
+    # each fused_lutmu call is one launch: no second partial-sum pass
+    ensure(not any("reduce_epilogue" in e.key for e in kernels),
+           "a partial-sum pass ran on the decode path")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"x{e.count / steps:6.0f}  {e.key[:90]}")

@@ -1,6 +1,7 @@
 // Shared helpers of the port's kernels: dtype codes, value conversion by
-// the CUDA intrinsics only, the dequant epilogue, the 16-byte LUT row load
-// and the fixed-order partial-sum pass of the LUT kernels.
+// the CUDA intrinsics only, the dequant epilogue, the tree walk, the
+// 16-byte LUT row load and the fixed-order partial-sum pass of the
+// aggregate (lut_aggregate.cu).
 //
 // Each kernel source is built on its own into a shared library with a plain
 // C interface (kernels/_build.py); every entry point returns
@@ -67,17 +68,6 @@ __device__ __forceinline__ uint4 load_row_raw(const T* __restrict__ p, bool full
 template <typename T>
 __device__ __forceinline__ typename LutAcc<T>::type lut_entry(const uint4& raw, int i) {
   return lut_widen(reinterpret_cast<const T*>(&raw)[i]);
-}
-
-// V LUT entries starting at p, widened to the accumulator type (see
-// load_row_raw)
-template <typename T, int V>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, bool full,
-                                         int n_left,
-                                         typename LutAcc<T>::type (&v)[V]) {
-  const uint4 raw = load_row_raw(p, full, n_left);
-#pragma unroll
-  for (int i = 0; i < V; ++i) v[i] = lut_entry<T>(raw, i);
 }
 
 // Sum the per-split partials (splits, B, N) in split order, then the

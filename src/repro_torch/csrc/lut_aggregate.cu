@@ -19,7 +19,7 @@
 // nonzero entries (k, value) into shared memory, every lane loading its 16
 // entries at once and a warp prefix count placing them (in k order, so the
 // sums are deterministic).  Then every thread streams those LUT rows with
-// 16-byte loads (load_row_raw, shared with fused_lutmu.cu), the rows in
+// 16-byte loads (load_row_raw, common.cuh), the rows in
 // step along k with 8 loads in flight, kept raw and widened to int32 (int8
 // tables) or float32 (float32 / bfloat16 tables) only as each is added
 // with its value: widened in flight, the int8 instance needed 245
@@ -28,7 +28,7 @@
 // is taken, as the TPU kernel takes one: a dense one just has more
 // entries.  Decode batches leave few (row, N-tile) blocks, so K is split
 // over gridDim.z, and the splits' partial sums go through the fixed-order
-// reduce + epilogue pass shared with fused_lutmu.cu (common.cuh); with one
+// reduce + epilogue pass (common.cuh); with one
 // split the kernel applies the epilogue itself.
 
 #include "common.cuh"

@@ -44,8 +44,8 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # stream as c_void_p, so ctypes never cuts them to 32 bits)
 ENTRY_POINTS = {
     "fused_lutmu": ("fused_lutmu_launch",
-                    [_VP, _VP, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _CI,
-                     _CI, _CI, _CI, _CI, _CI, _VP]),
+                    [_VP, _VP, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _CI,
+                     _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP]),
     "maddness_encode": ("encode_onehot_launch",
                         [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP]),
     "lut_aggregate": ("lut_aggregate_launch",
@@ -57,6 +57,7 @@ ENTRY_POINTS = {
 }
 # further C functions of a library: name and argument types
 QUERIES = {
+    "fused_lutmu": ("fused_lutmu_max_clusters", [_CI] * 8),
     "verify_window": ("verify_window_max_clusters", [_CI] * 8),
 }
 

@@ -54,8 +54,10 @@ def set_profile_hook(hook) -> None:
 
 # N-tile count past which the fused kernel's per-N-tile encode recompute
 # outweighs the unfused path's one-hot round trip, for deep trees (G ≥ 64)
-# with float LUTs (the JAX dispatch's rule 4, in CUDA N-tiles).
+# with float LUTs (the JAX dispatch's rule 4), in fixed tiles of 256
+# columns: the rule does not move with the kernel's own tiling.
 _UNFUSED_N_TILES = 8
+_UNFUSED_TILE_COLS = 256
 _UNFUSED_MIN_G = 64
 
 
@@ -87,7 +89,7 @@ def select_backend(b: int, c: int, n: int, depth: int,
         return "ref"
     if lut_dtype == torch.int8:
         return "fused"
-    if (math.ceil(n / FL.block_cols(lut_dtype)) >= _UNFUSED_N_TILES
+    if (math.ceil(n / _UNFUSED_TILE_COLS) >= _UNFUSED_N_TILES
             and 2**depth >= _UNFUSED_MIN_G):
         return "unfused"
     return "fused"

@@ -14,18 +14,23 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_lutmu import block_cols
 from repro_torch.kernels.ref import lut_aggregate_ref as lut_aggregate_plain
 
 __all__ = ["lut_aggregate", "lut_aggregate_plain", "LAUNCHES", "k_splits"]
 
 LAUNCHES = _build.LaunchCount()
 
+_THREADS = 64          # csrc/lut_aggregate.cu kThreads
 _ROWS = 4              # csrc/lut_aggregate.cu kRows
 _MIN_SPLIT_K = 256     # fewest K entries one block walks
 _MAX_GRID_Z = 65535
 _BLOCKS_PER_SM = 8     # K splits aim for this many blocks per SM
 _FLOAT_LUTS = (torch.float32, torch.bfloat16)
+
+
+def block_cols(lut_dtype) -> int:
+    """Output columns one block covers: 16 bytes of LUT per thread."""
+    return _THREADS * (16 // torch.empty((), dtype=lut_dtype).element_size())
 
 
 def k_splits(b: int, k: int, n: int, lut_dtype, sms: int):

@@ -81,6 +81,155 @@ def test_cuda_fused_lutmu_matches_plain(cuda_device, case, lut_dtype):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+def _forced_plan(b, c, depth, lut_dtype, cluster, k_stage=None, thr_smem=None):
+    """A launch plan that ``FL.plan`` might not pick: every cluster size,
+    short ring stages, thresholds read from device memory."""
+    itemsize = torch.empty((), dtype=_TORCH[lut_dtype]).element_size()
+    p = FL.sized(b, c, depth, itemsize, cluster)
+    k_stage = k_stage or p.k_stage
+    thr_smem = p.thr_smem if thr_smem is None else thr_smem
+    smem = FL.smem_bytes(b, depth, itemsize, p.per, k_stage, thr_smem)
+    return FL.Plan(p.tile_bytes, cluster, p.per, k_stage, thr_smem, smem)
+
+
+def _lutmu_vs_plain(dev, arrays, lut_dtype, launch_plan=None):
+    """The kernel (one launch) against the plain version: int8 bit-equal,
+    float within rtol 1e-5 / atol 1e-4.  Returns the kernel's output."""
+    x, thr, lut, scale, offset = arrays
+    xt, tt, st, ot = _on(dev, x, thr, scale, offset)
+    (lt,) = _on(dev, lut, dtype=lut_dtype)
+    before = FL.LAUNCHES.n
+    if launch_plan is None:
+        got = FL.fused_lutmu(xt, tt, lt, st, ot)
+    else:
+        got = FL.launch(xt, tt, lt, st, ot, launch_plan)
+    torch.cuda.synchronize()
+    assert FL.LAUNCHES.n == before + 1
+    want = FL.fused_lutmu_plain(xt, tt, lt, st, ot)
+    if lut_dtype == "int8":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 31, 32, 33, 70])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_fused_lutmu_row_groups(cuda_device, b, lut_dtype):
+    """Batches of one row group (≤ 32 rows) and of two or three."""
+    _lutmu_vs_plain(cuda_device, _inputs(b, 37, 304, 4, lut_dtype, seed=b),
+                    lut_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 8])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_fused_lutmu_depths(cuda_device, depth, lut_dtype):
+    """Depth 1 (G = 2) and depth 8 (G = 256 leaves, 8 threshold registers
+    per lane, up to 32 distinct leaves per codebook)."""
+    _lutmu_vs_plain(cuda_device, _inputs(33, 20, 208, depth, lut_dtype, seed=2),
+                    lut_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 13])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_fused_lutmu_few_codebooks_in_a_cluster(cuda_device, c, lut_dtype):
+    """Clusters of 8 over fewer codebooks (blocks with empty slices) and
+    over a count that 8 does not divide; N = 257, rows not 16-byte
+    aligned."""
+    arrays = _inputs(6, c, 257, 4, lut_dtype, seed=c)
+    p = _forced_plan(6, c, 4, lut_dtype, 8)
+    _lutmu_vs_plain(cuda_device, arrays, lut_dtype, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 5, 8, 12, 16])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_fused_lutmu_every_cluster_size(cuda_device, cluster, lut_dtype):
+    """Every cluster size up to the non-portable 16, over 600 codebooks,
+    so a thread of a one-block cluster adds more than 256 (the int8 16-bit
+    lanes flush); stages of 3 codebooks (the last one short), and with one
+    block the thresholds read from device memory."""
+    b, c, n = 9, 600, 1104
+    arrays = _inputs(b, c, n, 4, lut_dtype, seed=cluster)
+    p = _forced_plan(b, c, 4, lut_dtype, cluster, k_stage=3,
+                     thr_smem=cluster > 1)
+    _lutmu_vs_plain(cuda_device, arrays, lut_dtype, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 1003, 1040])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_fused_lutmu_ragged_n(cuda_device, n, lut_dtype):
+    """Ragged last N-tiles: LUT rows that are not 16-byte aligned (N = 1,
+    33, 1003: copied entry by entry) and rows that are (N = 1040)."""
+    _lutmu_vs_plain(cuda_device, _inputs(7, 19, n, 3, lut_dtype, seed=n),
+                    lut_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["same", "distinct"])
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_cuda_fused_lutmu_shared_and_distinct_leaves(cuda_device, kind,
+                                                     lut_dtype):
+    """32 rows that all choose one leaf of each codebook (one segment read
+    for all), and 32 rows that choose 32 different leaves (depth 5, x the
+    bits of (row + codebook) mod 32 against zero thresholds)."""
+    b, c, n, depth = 32, 50, 704, 5
+    _, _, lut, scale, offset = _inputs(b, c, n, depth, lut_dtype, seed=11)
+    thr = np.zeros((c, 2**depth - 1), np.float32)
+    if kind == "same":
+        rng = np.random.default_rng(12)
+        x = np.broadcast_to(rng.normal(size=(1, c, depth)), (b, c, depth))
+        x = np.ascontiguousarray(x, dtype=np.float32)
+    else:
+        leaf = (np.arange(b)[:, None] + np.arange(c)[None]) % 32
+        bits = (leaf[..., None] >> (depth - 1 - np.arange(depth))) & 1
+        x = np.where(bits == 1, 1.0, -1.0).astype(np.float32)
+    _lutmu_vs_plain(cuda_device, (x, thr, lut, scale, offset), lut_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [-128, 127])
+def test_cuda_fused_lutmu_int8_extremes(cuda_device, value):
+    """Every entry at an end of the int8 range over 600 codebooks in one
+    block: the offset-binary 16-bit lanes at their fullest, exact."""
+    b, c, n = 5, 600, 96
+    x, thr, _, _, _ = _inputs(b, c, n, 4, "int8", seed=3)
+    lut = np.full((c, 16, n), value, np.int8)
+    one, zero = np.asarray(np.float32(1)), np.asarray(np.float32(0))
+    p = _forced_plan(b, c, 4, "int8", 1)
+    got = _lutmu_vs_plain(cuda_device, (x, thr, lut, one, zero), "int8", p)
+    assert bool((got == float(value * c)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
+def test_cuda_fused_lutmu_float_deterministic(cuda_device, lut_dtype):
+    """Float sums in a fixed order: two calls give the same bits."""
+    x, thr, lut, scale, offset = _inputs(32, 2176, 512, 4, lut_dtype, seed=4)
+    xt, tt, st, ot = _on(cuda_device, x, thr, scale, offset)
+    (lt,) = _on(cuda_device, lut, dtype=lut_dtype)
+    first = FL.fused_lutmu(xt, tt, lt, st, ot)
+    second = FL.fused_lutmu(xt, tt, lt, st, ot)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_lutmu_equals_unfused_int8(cuda_device):
+    """The fused kernel and the unfused pair (encode, then aggregate) give
+    the same bits on int8 tables."""
+    x, thr, lut, scale, offset = _inputs(33, 640, 1000, 4, "int8", seed=8)
+    xt, tt, st, ot = _on(cuda_device, x, thr, scale, offset)
+    (lt,) = _on(cuda_device, lut, dtype="int8")
+    fused = FL.fused_lutmu(xt, tt, lt, st, ot)
+    unfused = LA.lut_aggregate(ME.encode_onehot(xt, tt, out_dtype=torch.int8),
+                               lt, st, ot)
+    assert torch.equal(fused, unfused)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16", "int8"])

@@ -121,3 +121,66 @@ def test_lut_aggregate_k_splits_cover_k(b, c, g, n, lut_dtype):
         assert (splits - 1) * per < k <= splits * per
         assert per >= min(256, k)
     assert LA.k_splits(4, 2176 * 16, 5120, torch.int8, 132)[0] > 1
+
+
+# the six (B, C, N, LUT) cases of chip_smoke.py's kernel phase, depth 4
+CHIP_SMOKE_CASES = [(4, 640, 8704, "int8"), (4, 2176, 5120, "int8"),
+                    (32, 640, 8704, "int8"), (32, 2176, 5120, "int8"),
+                    (4, 640, 8704, "float32"), (32, 2176, 5120, "bfloat16")]
+
+
+def test_fused_lutmu_plan_cases_are_chip_smokes():
+    """The planner tests below include every shape chip_smoke.py runs."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.DEPTH == 4
+    assert sorted((b, *cs.SHAPES[p], lut) for p, b, lut in cs.CASES) == \
+        sorted(CHIP_SMOKE_CASES)
+
+
+@pytest.mark.parametrize("b,c,n,depth,lut_dtype",
+                         [(*case[:3], 4, case[3]) for case in CHIP_SMOKE_CASES]
+                         + [(1, 3, 33, 4, "int8"), (70, 2176, 5120, 4, "int8"),
+                            (33, 20, 208, 8, "bfloat16"), (9, 1, 7, 1, "float32"),
+                            (2, 70000, 64, 4, "int8"), (32, 600, 1104, 8, "int8")])
+def test_fused_lutmu_plan_covers_codebooks(b, c, n, depth, lut_dtype):
+    """The fused kernel's launch plan: block k of a cluster sums codebooks
+    [k·per, (k+1)·per), which cover C exactly once with no empty block;
+    the cluster is at most the kernel's 16 blocks; the shared memory the
+    kernel computes fits a block; a ring stage lies inside the slice and
+    gives each consumer thread at most one (codebook, row) to encode."""
+    itemsize = torch.empty((), dtype=_TORCH[lut_dtype]).element_size()
+    for sms, resident in ((1, None), (132, None), (132, lambda p: 3)):
+        p = FL.plan(b, c, n, depth, itemsize, sms, resident)
+        assert 1 <= p.cluster <= FL.MAX_CLUSTER == 16
+        assert p.tile_bytes == FL.tile_bytes(itemsize)
+        slices = [range(k * p.per, min(c, (k + 1) * p.per))
+                  for k in range(p.cluster)]
+        assert [cb for s in slices for cb in s] == list(range(c))
+        assert all(len(s) > 0 for s in slices)
+        assert 1 <= p.k_stage <= p.per
+        assert p.k_stage * (1 << (min(b, 32) - 1).bit_length()) <= 256
+        assert p.smem == FL.smem_bytes(b, depth, itemsize, p.per, p.k_stage,
+                                       p.thr_smem)
+        assert p.smem <= FL.MAX_SMEM
+
+
+def test_fused_lutmu_plan_fills_one_wave():
+    """The cluster sizes the planner picks for chip_smoke.py's shapes on a
+    132-SM card (the fastest of every plan in a sweep there): about 200
+    blocks, fewer when the card runs fewer clusters at once."""
+    picks = {(b, c, n, lut): FL.plan(b, c, n, 4, _TORCH[lut].itemsize, 132).cluster
+             for b, c, n, lut in CHIP_SMOKE_CASES}
+    assert picks == {(4, 640, 8704, "int8"): 6, (4, 2176, 5120, "int8"): 10,
+                     (32, 640, 8704, "int8"): 6, (32, 2176, 5120, "int8"): 10,
+                     (4, 640, 8704, "float32"): 3,
+                     (32, 2176, 5120, "bfloat16"): 10}
+    # a card that runs no cluster above 8 blocks, and 20 of 8 at once
+    assert FL.plan(4, 2176, 5120, 4, 1, 132,
+                   lambda p: 20 if p.cluster <= 8 else 0).cluster == 8
+    # one that runs too few clusters of any size for a wave: one block each
+    assert FL.plan(4, 2176, 5120, 4, 1, 132, lambda p: 16).cluster == 1

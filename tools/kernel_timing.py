@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's verify-window and LUT-aggregate kernels of one source
-tree three ways, at the shapes ``chip_smoke.py`` uses:
+"""Time the port's verify-window, fused LUT-MU and LUT-aggregate kernels
+of one source tree three ways, at the shapes ``chip_smoke.py`` uses:
 
-    python3 tools/kernel_timing.py [--src DIR] [--label NAME]
+    python3 tools/kernel_timing.py [--src DIR] [--label NAME] [--sweep]
 
 ``--src`` is a ``src`` directory holding ``repro_torch`` (default: this
 checkout's), so the kernels of another commit can be timed in the same
@@ -18,6 +18,10 @@ JSON line with
 * ``host_blocked_ms`` — host time of one wrapper call issued while the
   device still runs a 25 ms sleep: near 0 when the call only enqueues,
   near the sleep when something in it waits for the device.
+
+``--sweep`` times only ``fused_lutmu``, under every cluster size (of a
+tree whose wrapper has ``launch``), beside the plan ``fused_lutmu.plan``
+picks.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -59,42 +63,10 @@ def host_blocked_ms(torch, fn) -> float:
     return dt * 1e3
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--label", default="this tree")
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("kernel_timing: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(Path(args.src).resolve()))
-    import chip_smoke as CS
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import fused_verify as FV
-    from repro_torch.kernels import lut_aggregate as LA
-    from repro_torch.kernels import maddness_encode as ME
-
-    _build.build()
-    timer = CS.Timer(torch)
-    kind = torch.cuda.get_device_name(0)
-
-    def report(**kw):
-        print(json.dumps(dict(label=args.label, device=kind, **kw)), flush=True)
-
-    gen = torch.Generator(device="cuda").manual_seed(4321)
-    for s_len in CS.VERIFY_S:
-        for kv_name in ("bfloat16", "float32", "int8"):
-            q, kp, vp, pt, pos = CS.verify_inputs(torch, s_len, kv_name, gen)
-            fn = lambda: FV.verify_window_attend_cuda(q, kp, vp, pt, pos, None)  # noqa: E731
-            report(kernel="verify_window", case=f"S={s_len} {kv_name}",
-                   event_ms=timer.ms(fn, 20),
-                   device_ms=device_ms(torch, fn, ["verify_window"], 20,
-                                       timer.flush),
-                   host_blocked_ms=host_blocked_ms(torch, fn))
-            del q, kp, vp, pt, pos
-
+def lut_cases(torch, CS):
+    """``chip_smoke.CASES``' LUT-MU inputs, one case at a time, from one
+    seeded generator: (projection, B, LUT type, (x, thr, lut, scale,
+    offset))."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     g = 2**CS.DEPTH
     for proj, b, lut_name in CS.CASES:
@@ -110,6 +82,81 @@ def main() -> int:
             lut = torch.randn((c, g, n), generator=gen, device="cuda").to(dt)
         scale = torch.rand((n,), generator=gen, device="cuda") * 0.015 + 0.005
         offset = torch.randn((n,), generator=gen, device="cuda")
+        yield proj, b, lut_name, (x, thr, lut, scale, offset)
+        del x, thr, lut
+        torch.cuda.empty_cache()
+
+
+def sweep(torch, CS, FL, timer, report) -> int:
+    """Event ms of ``fused_lutmu`` under every cluster size, each output
+    checked against the picked plan's."""
+    for proj, b, lut_name, args in lut_cases(torch, CS):
+        lut = args[2]
+        c, n = lut.shape[0], lut.shape[-1]
+        itemsize = lut.element_size()
+        picked = FL._plan_for(b, c, n, CS.DEPTH, lut.dtype, 0)
+        want = FL.fused_lutmu(*args)
+        for cs in range(1, FL.MAX_CLUSTER + 1):
+            p = FL.sized(b, c, CS.DEPTH, itemsize, cs)
+            got = FL.launch(*args, launch_plan=p)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            report(kernel="fused_lutmu", case=f"{proj} B={b} {lut_name}",
+                   cluster=cs, k_stage=p.k_stage, picked=p == picked,
+                   max_abs_err=err,
+                   event_ms=timer.ms(lambda: FL.launch(*args, launch_plan=p), 10))
+        report(kernel="fused_lutmu", case=f"{proj} B={b} {lut_name}",
+               plan=str(picked), event_ms=timer.ms(lambda: FL.fused_lutmu(*args), 20))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_timing: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import chip_smoke as CS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_lutmu as FL
+    from repro_torch.kernels import fused_verify as FV
+    from repro_torch.kernels import lut_aggregate as LA
+    from repro_torch.kernels import maddness_encode as ME
+
+    _build.build()
+    timer = CS.Timer(torch)
+    kind = torch.cuda.get_device_name(0)
+
+    def report(**kw):
+        print(json.dumps(dict(label=args.label, device=kind, **kw)), flush=True)
+
+    if args.sweep:
+        return sweep(torch, CS, FL, timer, report)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for s_len in CS.VERIFY_S:
+        for kv_name in ("bfloat16", "float32", "int8"):
+            q, kp, vp, pt, pos = CS.verify_inputs(torch, s_len, kv_name, gen)
+            fn = lambda: FV.verify_window_attend_cuda(q, kp, vp, pt, pos, None)  # noqa: E731
+            report(kernel="verify_window", case=f"S={s_len} {kv_name}",
+                   event_ms=timer.ms(fn, 20),
+                   device_ms=device_ms(torch, fn, ["verify_window"], 20,
+                                       timer.flush),
+                   host_blocked_ms=host_blocked_ms(torch, fn))
+            del q, kp, vp, pt, pos
+
+    for proj, b, lut_name, (x, thr, lut, scale, offset) in lut_cases(torch, CS):
+        fn = lambda: FL.fused_lutmu(x, thr, lut, scale, offset)  # noqa: E731
+        report(kernel="fused_lutmu", case=f"{proj} B={b} {lut_name}",
+               event_ms=timer.ms(fn, 20),
+               device_ms=device_ms(torch, fn, ["fused_lutmu", "reduce_epilogue"],
+                                   20, timer.flush),
+               host_blocked_ms=host_blocked_ms(torch, fn))
         onehot = ME.encode_onehot_plain(x, thr)
         fn = lambda: LA.lut_aggregate(onehot, lut, scale, offset)  # noqa: E731
         report(kernel="lut_aggregate", case=f"{proj} B={b} {lut_name}",
@@ -117,8 +164,7 @@ def main() -> int:
                device_ms=device_ms(torch, fn, ["lut_aggregate", "reduce_epilogue"],
                                    10, timer.flush),
                host_blocked_ms=host_blocked_ms(torch, fn))
-        del x, thr, lut, onehot
-        torch.cuda.empty_cache()
+        del onehot
     return 0
 
 
