@@ -10,10 +10,11 @@ Phases, each fatal on failure:
    ``nvcc`` per source, all started together;
 3. kernels — each kernel against its plain PyTorch version at the main
    path's shapes (gate/up C=640 N=8704, down C=2176 N=5120; B=4 decode and
-   B=32 prefill chunk; int8, plus one float32 and one bfloat16 LUT case):
-   int8 bit for bit, float within the stated tolerance; kernel, plain,
-   bound and library (one ``torch.matmul`` of the float32 one-hot × LUT)
-   times;
+   B=32 prefill chunk; int8, plus one float32 and one bfloat16 LUT case;
+   int16 at gate/up B=4 and at the SFC chain's layer 0, C=98 N=128
+   B=256): int8 and int16 bit for bit, float within the stated tolerance;
+   kernel, plain, bound and library (one ``torch.matmul`` of the float32
+   one-hot × LUT) times;
 4. agree — at full width, a prefill chunk and a decode step through the
    kernels give bit-identical logits to the same calls through the plain
    ``ref`` LUT-MU path;
@@ -49,7 +50,23 @@ Phases, each fatal on failure:
 10. spec-4layer (after 6) — depth cut to 4 layers, a garbage draft (other
     LUT tables, same backbone) through rejection and rollback, on bf16 KV
     and on the int8 KV cache, held to the plain engine's streams by the
-    same rule.
+    same rule;
+11. artifact — full width, depth cut to ``ART_LAYERS``: seeded int8 target
+    tables and their int4 draft written as a bundle with ``save_bundle``;
+    its target half served from disk (``load_engine(dir, ...,
+    speculative=False)``) gives the streams of the same tables spliced in
+    memory, with ``fused_lutmu`` at 3 × layers launches per forward and the
+    ``ref`` path never; write and load seconds;
+12. bundle — ``load_engine(dir, ...)`` serves the bundle speculatively
+    (``fused`` verify, one launch per layer per round), held to the target
+    half's streams by the ``STREAM_MARGIN_TOL`` rule; acceptance, tok/s,
+    TTFT, peak memory;
+13. chain — the paper's SFC MLP (784 → 256 → 256 → 256 → 10, d_sub 8,
+    depth 4, pruned hand-off, ReLU) as an ``amm_chain`` artifact at int16
+    and int8, written with ``save_artifact`` and loaded with
+    ``AMMChain.load``, run at batch 256 on ``auto`` (int16 also
+    ``unfused``): every layer bit-equal, on the chain's own inputs, to the
+    same layer with ``backend="ref"``.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
@@ -71,16 +88,29 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
 PEAK_OPS = {"int8": 1979e12,             # tensor-core dense rates
             "bfloat16": 989e12,
-            "float32": 67e12}            # float32 outside the tensor cores
+            "float32": 67e12,            # float32 outside the tensor cores
+            "int16": 67e12}              # int16 tables: float32 sums on the
+                                         # CUDA cores (no int16 tensor core)
 ADD_OPS_PER_S = 67e12                    # gather-sum adds on the CUDA cores
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-3      # float32 sums of ≤ 2176 terms, in
                                          # another order, then ×≤0.02 scale
 DEPTH = 4
-SHAPES = {"gate_up": (640, 8704), "down": (2176, 5120)}
+# (C, N): qwen3-14b's projections, and layer 0 of the SFC chain
+# (784 → 256 pruned to the next layer's 4 · 32 split dims)
+SHAPES = {"gate_up": (640, 8704), "down": (2176, 5120), "chain": (98, 128)}
 CASES = [("gate_up", 4, "int8"), ("down", 4, "int8"),
          ("gate_up", 32, "int8"), ("down", 32, "int8"),
-         ("gate_up", 4, "float32"), ("down", 32, "bfloat16")]
+         ("gate_up", 4, "float32"), ("down", 32, "bfloat16"),
+         ("gate_up", 4, "int16"), ("chain", 256, "int16")]
 JSON_CASE = ("down", 4, "int8")          # the case each kernel's JSON entry reports
+INT16_JSON_CASE = ("chain", 256, "int16")  # ... and each int16 instance's
+# the SFC MLP of the paper's case study (src/repro/models/cnn.py): widths,
+# codebook length, tree depth, batch
+CHAIN_WIDTHS = (784, 256, 256, 256, 10)
+CHAIN_D_SUB, CHAIN_DEPTH, CHAIN_BATCH = 8, 4, 256
+# depth of the artifact phase's qwen3-14b (the writer is
+# np.savez_compressed, as the JAX package's: tens of MB/s on random tables)
+ART_LAYERS = 2
 VERIFY_SHAPE = (4, 5, 8, 5, 128, 16)     # B, W=k+1, n_kv, g, hd, page_size
 VERIFY_S = (128, 4096)                   # cache positions of a row's table
 VERIFY_JSON_CASE = ("bfloat16", 128)     # the serve path's verify call
@@ -159,7 +189,7 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float):
 
 def kernel_checks(torch, timer, mods):
     FL, ME, LA, ref = mods
-    dt = {"int8": torch.int8, "float32": torch.float32,
+    dt = {"int8": torch.int8, "int16": torch.int16, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     g = 2**DEPTH
@@ -172,6 +202,9 @@ def kernel_checks(torch, timer, mods):
         if lut_dtype == torch.int8:
             lut = torch.randint(-128, 128, (c, g, n), generator=gen,
                                 dtype=torch.int8, device="cuda")
+        elif lut_dtype == torch.int16:
+            lut = torch.randint(-2**15, 2**15, (c, g, n), generator=gen,
+                                dtype=torch.int16, device="cuda")
         else:
             lut = torch.randn((c, g, n), generator=gen, device="cuda").to(lut_dtype)
         scale = torch.rand((n,), generator=gen, device="cuda") * 0.015 + 0.005
@@ -186,7 +219,15 @@ def kernel_checks(torch, timer, mods):
         library = lambda: torch.matmul(lhs_f32, rhs_f32)  # noqa: E731
         library_ms = timer.ms(library, 5)
         io_bytes = 2 * n * 4 + b * n * 4  # epilogue vectors + output
-        exact = lut_dtype == torch.int8
+        exact = lut_dtype in (torch.int8, torch.int16)
+        if lut_dtype == torch.int16:
+            # the plain version sums int16 entries in float32: exact in any
+            # order while every row's sum of |entries| stays below 2**24
+            # (any table at C ≤ 512; this run's data at C = 640)
+            ar = torch.arange(c, device="cuda")
+            absum = lut[ar[None, :], codes].float().abs().sum(dim=1).max().item()
+            ensure(absum < 2**24, f"int16 case {proj} B={b}: sums of "
+                   f"{absum} reach 2**24, the plain version rounds")
 
         def compare(name, got, want, exact_):
             torch.cuda.synchronize()
@@ -587,6 +628,270 @@ def profile_phase(torch, cfg, params, load_engine, steps: int = 6):
               f"x{e.count / steps:6.0f}  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: an amm_lm bundle written to disk and served from it
+# ---------------------------------------------------------------------------
+
+
+def bundle_tables(np, cfg, gen):
+    """Seeded per-layer tables of a target+draft bundle: int8 target LUTs
+    (``init_amm_mlp_params``) and the draft as their int4 quantisation, as
+    the bundle compiler bakes one fit at two widths: codes ``q >> 4`` in
+    [-8, 7] on the same trees, scale × 16, and the dropped low nibble's
+    mean (7.5 per codebook) folded into the offset."""
+    from repro_torch.models.amm_mlp import init_amm_mlp_params
+    target, draft = [], []
+    for _ in range(cfg.num_layers):
+        t = {k: v.cpu().numpy()
+             for k, v in init_amm_mlp_params(cfg, gen).items()}
+        d = dict(t)
+        for proj in ("gate", "up", "down"):
+            q, sc = t[f"lut_{proj}"], t[f"lut_{proj}_scale"]
+            d[f"lut_{proj}"] = q >> 4
+            d[f"lut_{proj}_scale"] = sc * np.float32(16)
+            d[f"lut_{proj}_offset"] = (t[f"lut_{proj}_offset"]
+                                       + np.float32(7.5 * q.shape[0]) * sc)
+        target.append(t)
+        draft.append(d)
+    return target, draft
+
+
+def artifact_phase(torch, cfg, MD, mods, counters, load_engine,
+                   SpeculativeEngine):
+    """qwen3-14b at full width, depth cut to ART_LAYERS: a bundle (int8
+    target, int4 draft) written with ``save_bundle``; its target half
+    served from disk (``speculative=False``) must give the same streams as
+    the same tables spliced in memory, with ``fused_lutmu`` at 3 × layers
+    launches per forward and the ``ref`` path never; then the bundle
+    served speculatively (``fused`` verify) is held to those streams by
+    the ``STREAM_MARGIN_TOL`` rule, with one verify launch per layer per
+    round.  Returns the launches of the two runs."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.compiler import pack_amm_lm, save_bundle
+    FL, FV, dispatch = mods
+    acfg = dataclasses.replace(cfg, num_layers=ART_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dense = MD.init_params(acfg, gen, torch.bfloat16, serving=False)
+    t_layers, d_layers = bundle_tables(np, acfg, gen)
+    target = pack_amm_lm(t_layers, acfg, "int8", name="smoke-target")
+    draft = pack_amm_lm(d_layers, acfg, "int4", name="smoke-draft")
+    del t_layers, d_layers
+    opts = dict(compute_dtype=torch.bfloat16, device="cuda", **ENGINE_KNOBS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bundle"
+        t0 = time.perf_counter()
+        save_bundle(path, {"name": "smoke", "arch": acfg.name,
+                           "num_layers": acfg.num_layers, "spec_k": SPEC_K},
+                    target, draft)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+        print(f"[artifact] bundle of {acfg.num_layers} full-width layers "
+              f"(int8 target, int4 draft): {nbytes / 1e9:.3f} GB written in "
+              f"{write_s:.1f}s ({nbytes / 1e6 / write_s:.1f} MB/s)", flush=True)
+
+        # the same tables spliced in memory: the streams to match
+        mem_params = target.splice_lm_params(dense, device="cuda")
+        mem_cfg = dataclasses.replace(acfg, amm=dataclasses.replace(
+            acfg.amm, enabled=True, **target.manifest["amm"]))
+        want, _, _, _ = serve(torch, mem_cfg, mem_params, load_engine, 6, 16)
+        want = [list(h.generated) for h in want]
+
+        # the target half from disk, through the paged engine
+        t0 = time.perf_counter()
+        eng = load_engine(path, dense, acfg, speculative=False, **opts)
+        load_s = time.perf_counter() - t0
+        ensure(type(eng).__name__ == "ServeEngine", f"got {type(eng)}")
+        reset_counts(counters)
+        handles, dt, ttft, eng = drive(torch, eng, acfg, 6, 16)
+        calls = eng.stats["prefill_calls"] + eng.stats["decode_calls"]
+        t_launches = FL.LAUNCHES.n
+        ensure(t_launches == 3 * acfg.num_layers * calls,
+               f"artifact fused_lutmu launches {t_launches} != 3 x "
+               f"{acfg.num_layers} x {calls}")
+        ensure(dispatch.REF_ON_CUDA.n == 0,
+               f"{dispatch.REF_ON_CUDA.n} ref LUT-MU calls ran on CUDA")
+        got = [list(h.generated) for h in handles]
+        ensure(all(len(s) == 16 for s in got), f"artifact streams {got}")
+        ensure(got == want, "streams served from the artifact differ from "
+               "the in-memory splice's")
+        n_tok = sum(len(s) for s in got)
+        print(f"[artifact] target half from disk: load {load_s:.1f}s; 6 "
+              f"requests x 16 tokens in {dt:.3f}s = {n_tok / dt:.2f} tok/s; "
+              f"TTFT mean {sum(ttft) / len(ttft):.4f}s; fused_lutmu launches "
+              f"{t_launches} = 3 x {acfg.num_layers} x {calls} forward calls; "
+              "ref on CUDA 0; streams equal to the in-memory splice's",
+              flush=True)
+        del eng, handles
+
+        # the bundle, speculative, through the verify kernel
+        t0 = time.perf_counter()
+        seng = load_engine(path, dense, acfg, verify_backend="fused", **opts)
+        bundle_load_s = time.perf_counter() - t0
+    ensure(isinstance(seng, SpeculativeEngine) and seng.spec_k == SPEC_K,
+           f"bundle engine {type(seng).__name__}, spec_k {seng.spec_k}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    sh, sdt, sttft, seng = drive(torch, seng, acfg, 6, 16)
+    rounds = seng.stats["decode_calls"]
+    s_launches = {"fused_lutmu": FL.LAUNCHES.n, "verify_window": FV.LAUNCHES.n}
+    ensure(FV.LAUNCHES.n == acfg.num_layers * rounds,
+           f"bundle verify launches {FV.LAUNCHES.n} != {acfg.num_layers} x "
+           f"{rounds} rounds")
+    ensure(FV.PLAIN_ON_CUDA.n == 0 and dispatch.REF_ON_CUDA.n == 0,
+           f"plain verify on CUDA {FV.PLAIN_ON_CUDA.n}, ref LUT-MU "
+           f"{dispatch.REF_ON_CUDA.n}")
+    ensure(all(h.done and len(h.generated) == 16 for h in sh),
+           "bundle speculative requests did not finish")
+    differ = compare_streams(
+        torch, "bundle-spec", sh, want,
+        lambda: load_engine(None, mem_params, mem_cfg, **opts))
+    print(spec_line("bundle-spec", sh, sdt, sttft, seng,
+                    torch.cuda.max_memory_allocated()) +
+          f"; bundle load {bundle_load_s:.1f}s; verify_window launches "
+          f"{FV.LAUNCHES.n} = {acfg.num_layers} x {rounds} rounds; "
+          f"fused_lutmu launches {FL.LAUNCHES.n}; {differ} of {len(sh)} "
+          "streams differ from the target's", flush=True)
+    del seng, sh, mem_params, dense
+    torch.cuda.empty_cache()
+    return {"artifact_fused_lutmu": t_launches, **{
+        f"bundle_{k}": v for k, v in s_launches.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the paper's SFC MLP as an amm_chain artifact
+# ---------------------------------------------------------------------------
+
+
+def chain_artifact(np, res: str, rng, platform: str):
+    """A seeded ``amm_chain`` artifact at the SFC widths: d_sub 8, depth 4,
+    every hand-off pruned to the next layer's split dims, ReLU between
+    layers, ``res`` ("int16" or "int8") LUTs scaled so each output has
+    unit variance, recorded backends the port's dispatch picks at
+    ``CHAIN_BATCH`` rows."""
+    import torch
+
+    from repro_torch.compiler import ARTIFACT_FORMAT, ARTIFACT_VERSION, Artifact
+    from repro_torch.core.maddness import HashTree
+    from repro_torch.core.pruning import plan_from_consumer_tree
+    from repro_torch.kernels.dispatch import select_backend
+    g = 2**CHAIN_DEPTH
+    n_layers = len(CHAIN_WIDTHS) - 1
+    books = [w // CHAIN_D_SUB for w in CHAIN_WIDTHS[:-1]]
+    split = [rng.integers(0, CHAIN_D_SUB, (c, CHAIN_DEPTH)).astype(np.int32)
+             for c in books]
+    hi = {"int16": 2**15, "int8": 2**7}[res]
+    tensors, recs = {}, []
+    for i in range(n_layers):
+        c, full = books[i], CHAIN_WIDTHS[i + 1]
+        plan = None
+        if i < n_layers - 1:
+            nxt = HashTree(torch.from_numpy(split[i + 1]),
+                           torch.zeros((books[i + 1], g - 1)))
+            plan = plan_from_consumer_tree(nxt, consumer_in_dim=full)
+            tensors[f"layer{i}/keep_idx"] = plan.keep_idx.numpy().astype(np.int32)
+        cols = plan.num_kept if plan is not None else full
+        lut = rng.integers(-hi, hi, (c, g, cols)).astype(
+            np.int16 if res == "int16" else np.int8)
+        centre = 0.0 if i == 0 else 0.4  # ReLU'd inputs after layer 0
+        tensors.update({
+            f"layer{i}/split_dims": split[i],
+            f"layer{i}/thresholds": (centre + 0.5 * rng.standard_normal(
+                (c, g - 1))).astype(np.float32),
+            f"layer{i}/lut": lut,
+            f"layer{i}/lut_scale": np.full(
+                (cols,), 1.0 / (hi / np.sqrt(3) * np.sqrt(c)), np.float32),
+            f"layer{i}/lut_offset": (0.1 * rng.standard_normal(cols)).astype(
+                np.float32)})
+        recs.append({
+            "num_codebooks": c, "depth": CHAIN_DEPTH, "in_features":
+            CHAIN_WIDTHS[i], "out_features_full": full, "cols": cols,
+            "pruned": plan is not None,
+            "consumer_codebooks": plan.consumer_codebooks if plan else None,
+            "consumer_depth": plan.consumer_depth if plan else None,
+            "backend": select_backend(CHAIN_BATCH, c, cols, CHAIN_DEPTH,
+                                      getattr(torch, res), platform),
+            "tiles": None, "lut_dtype": res, "int4_packed": False})
+    manifest = {"format": ARTIFACT_FORMAT, "version": ARTIFACT_VERSION,
+                "kind": "amm_chain", "name": f"sfc-mlp-{res}",
+                "platform": platform, "resolution": res,
+                "activations": ["relu"] * (n_layers - 1), "layers": recs,
+                "resource_report": {"lut_bytes": int(sum(
+                    tensors[f"layer{i}/lut"].nbytes for i in range(n_layers)))}}
+    return Artifact(manifest=manifest, tensors=tensors)
+
+
+def chain_phase(torch, timer, mods, counters):
+    """The SFC chain at int16 and int8: written with ``save_artifact``,
+    loaded with ``AMMChain.load``, run at batch CHAIN_BATCH on ``auto``
+    (counts set to 0 just before, read just after); then each layer on the
+    chain's own inputs against the same layer with ``backend="ref"``:
+    bit-equal.  int16 also runs ``backend="unfused"`` (encode + aggregate
+    kernels), bit-equal to the fused run.  Returns the launches by run."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.compiler import PLATFORM, save_artifact
+    from repro_torch.core.lut_mu import AMMChain
+    FL, ME, LA, dispatch = mods
+    launches = {}
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal(
+        (CHAIN_BATCH, CHAIN_WIDTHS[0])).astype(np.float32)).cuda()
+    for res in ("int16", "int8"):
+        art = chain_artifact(np, res, rng, PLATFORM)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_artifact(Path(tmp) / res, art)
+            chain = AMMChain.load(Path(tmp) / res, device="cuda")
+        reset_counts(counters)
+        y = chain(x)
+        torch.cuda.synchronize()
+        n = len(chain.layers)
+        launches[f"{res}_fused_lutmu"] = FL.LAUNCHES.n
+        ensure(FL.LAUNCHES.n == n and dispatch.REF_ON_CUDA.n == 0,
+               f"{res} chain: fused_lutmu {FL.LAUNCHES.n}, ref "
+               f"{dispatch.REF_ON_CUDA.n} for {n} layers")
+        ensure(tuple(y.shape) == (CHAIN_BATCH, CHAIN_WIDTHS[-1])
+               and bool(torch.isfinite(y).all()), f"{res} chain output")
+        if res == "int16":
+            reset_counts(counters)
+            yu = chain(x, backend="unfused")
+            torch.cuda.synchronize()
+            launches["int16_lut_aggregate"] = LA.LAUNCHES.n
+            ensure(LA.LAUNCHES.n == n and ME.LAUNCHES.n == n
+                   and FL.LAUNCHES.n == 0,
+                   f"int16 unfused chain: aggregate {LA.LAUNCHES.n}, encode "
+                   f"{ME.LAUNCHES.n}, fused {FL.LAUNCHES.n}")
+            ensure(torch.equal(yu, y), "int16 chain: unfused != fused")
+        # layer by layer on the chain's own inputs, against backend="ref"
+        h = x
+        for i, layer in enumerate(chain.layers):
+            apply = layer.apply_package if i > 0 else layer.__call__
+            got = apply(h, backend=chain.backends[i])
+            want = apply(h, backend="ref")
+            if res == "int16":
+                ensure(torch.equal(apply(h, backend="unfused"), want),
+                       f"int16 layer {i}: unfused != ref")
+            torch.cuda.synchronize()
+            ensure(torch.equal(got, want), f"{res} layer {i}: "
+                   f"{chain.backends[i]} != ref (max err "
+                   f"{(got - want).abs().max().item()})")
+            h = torch.relu(got) if i < n - 1 else got
+        ensure(torch.equal(h, y), f"{res} chain: layer by layer != chain")
+        ms = timer.ms(lambda: chain(x), 20)
+        ref_ms = timer.ms(lambda: chain(x, backend="ref"), 3)
+        print(f"[chain] SFC {'-'.join(map(str, CHAIN_WIDTHS))} {res}, batch "
+              f"{CHAIN_BATCH}: backends {chain.backends}; {n} layers "
+              f"bit-equal to backend='ref' on shared inputs; forward "
+              f"{ms:.4f} ms (ref {ref_ms:.4f} ms); LUT {chain.lut_bytes()} "
+              f"bytes, {chain.workload_ops()} ops per row", flush=True)
+        del chain
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -801,12 +1106,32 @@ def main() -> int:
               f"{len(gh)} streams differ from the plain engine's", flush=True)
         del geng, gh
     del uparams, dparams
+    torch.cuda.empty_cache()
+
+    # 11. + 12. a bundle written to disk, its target half and the bundle
+    # served from it
+    alaunch = artifact_phase(torch, cfg, MD, (FL, FV, dispatch), counters,
+                             load_engine, SpeculativeEngine)
+    # 13. the SFC chain as an amm_chain artifact, int16 and int8
+    timer = Timer(torch)
+    claunch = chain_phase(torch, timer, (FL, ME, LA, dispatch), counters)
+    del timer
+    launches["fused_lutmu_int16"] = claunch["int16_fused_lutmu"]
+    launches["lut_aggregate_int16"] = claunch["int16_lut_aggregate"]
+    print(f"[launches] artifact/bundle/chain runs: {alaunch} {claunch}",
+          flush=True)
 
     lutmu_shape = "down C=2176 N=5120, B=4, int8"
+    int16_shape = "chain C=98 N=128, B=256, int16"
+
+    def by_lut(res, int16):
+        return {k: v for k, v in res.items() if (k[2] == "int16") == int16}
+
     # name: (source, TPU kernel, path, shape, results by case, reported case)
     sources = {"fused_lutmu": ("src/repro_torch/csrc/fused_lutmu.cu",
                                "src/repro/kernels/fused_lutmu.py:124", "auto",
-                               lutmu_shape, kres["fused_lutmu"], JSON_CASE),
+                               lutmu_shape,
+                               by_lut(kres["fused_lutmu"], False), JSON_CASE),
                "encode_onehot": ("src/repro_torch/csrc/maddness_encode.cu",
                                  "src/repro/kernels/maddness_encode.py:85",
                                  "unfused", lutmu_shape,
@@ -814,7 +1139,18 @@ def main() -> int:
                "lut_aggregate": ("src/repro_torch/csrc/lut_aggregate.cu",
                                  "src/repro/kernels/lut_aggregate.py:96",
                                  "unfused", lutmu_shape,
-                                 kres["lut_aggregate"], JSON_CASE),
+                                 by_lut(kres["lut_aggregate"], False),
+                                 JSON_CASE),
+               "fused_lutmu_int16": ("src/repro_torch/csrc/fused_lutmu.cu",
+                                     "src/repro/kernels/fused_lutmu.py:124",
+                                     "amm_chain auto", int16_shape,
+                                     by_lut(kres["fused_lutmu"], True),
+                                     INT16_JSON_CASE),
+               "lut_aggregate_int16": ("src/repro_torch/csrc/lut_aggregate.cu",
+                                       "src/repro/kernels/lut_aggregate.py:96",
+                                       "amm_chain unfused", int16_shape,
+                                       by_lut(kres["lut_aggregate"], True),
+                                       INT16_JSON_CASE),
                "verify_window": ("src/repro_torch/csrc/verify_window.cu",
                                  "src/repro/kernels/fused_verify.py:281",
                                  "speculative",

@@ -17,7 +17,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import AMMConfig, ModelConfig
 
 
-def _to_tensor(a, device: torch.device) -> torch.Tensor:
+def to_tensor(a, device: torch.device) -> torch.Tensor:
+    """An array (numpy, or anything ``np.asarray`` takes) → a tensor of the
+    same dtype on ``device``, owning its memory."""
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -32,7 +34,7 @@ def params_from_jax(tree, device="cuda"):
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
-    return _to_tensor(tree, dev)
+    return to_tensor(tree, dev)
 
 
 def config_from_jax(cfg) -> ModelConfig:

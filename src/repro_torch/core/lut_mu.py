@@ -1,0 +1,126 @@
+"""LUT-MU: the paper's pruned LUT-based approximate matmul unit (PyTorch).
+
+The serving half of ``repro.core.lut_mu``:
+
+  * :class:`AMMLinear` — one LUT-MU (allocator → encoder → aggregator), a
+    drop-in replacement for ``x @ W + b`` with optional *parameter-pruned*
+    output (when the consumer is another AMMLinear);
+  * :class:`AMMChain`  — a cascade of AMMLinears with *data-pruned* hand-off
+    between them (the paper's Fig. 4 dataflow), with optional elementwise
+    non-linear ops between stages (dimension-preserving, so pruning
+    commutes).
+
+Every forward goes through ``kernels.dispatch.lutmu_matmul``; the
+``backend`` keyword threads straight to it (default ``"auto"``).  The
+offline fitting functions come with the compiler (ROADMAP A12), the quality
+probe tap with ``serving/quality.py`` (A9).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import maddness as M
+from repro_torch.core import pruning as P
+from repro_torch.kernels import dispatch as D
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class AMMLinear:
+    """One LUT-MU.  ``out_plan`` present ⇒ this unit emits the pruned,
+    cluster-ordered package for the next unit instead of the full output."""
+
+    params: M.MaddnessParams
+    out_plan: Optional[P.PruningPlan]  # pruning of *our output*
+    full_out_features: int  # D_out before parameter pruning
+
+    @property
+    def num_codebooks(self) -> int:
+        return self.params.tree.num_codebooks
+
+    @property
+    def depth(self) -> int:
+        return self.params.tree.depth
+
+    @property
+    def is_pruned(self) -> bool:
+        return self.out_plan is not None
+
+    def __call__(self, x: Tensor, *, backend: str = "auto") -> Tensor:
+        """Full-width input path."""
+        return D.lutmu_matmul(x, self.params, backend=backend,
+                              input_kind="full")
+
+    def apply_package(self, x_pruned: Tensor, *,
+                      backend: str = "auto") -> Tensor:
+        """Pruned-package input path (chained mode)."""
+        return D.lutmu_matmul(x_pruned, self.params, backend=backend,
+                              input_kind="package")
+
+    # -- resource accounting (paper Figs. 11/12) -----------------------------
+    def lut_bytes(self) -> int:
+        return self.params.lut.numel() * self.params.lut.element_size()
+
+    def workload_ops(self) -> int:
+        return P.workload_ops(self.num_codebooks, self.depth,
+                              self.params.lut.shape[-1])
+
+
+@dataclasses.dataclass
+class AMMChain:
+    """Cascaded LUT-MUs with pruned hand-off (paper Fig. 4).
+
+    ``activation_names[i]`` is the elementwise function applied between
+    stage *i* and *i+1* (identity if None); it acts on the *pruned package*,
+    which is valid because elementwise ops neither hide nor move split dims
+    (Section V-A1).  ``"gelu"`` is the tanh approximation, as
+    ``jax.nn.gelu``'s default.
+    """
+
+    layers: List[AMMLinear]
+    activation_names: Tuple[Optional[str], ...]  # len == len(layers) - 1
+    # per-layer engine backends recorded by the offline compiler's planner;
+    # None ⇒ every layer follows the ``backend`` keyword (default "auto")
+    backends: Optional[Tuple[str, ...]] = None
+
+    _ACTS = {
+        None: lambda x: x,
+        "relu": F.relu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "silu": F.silu,
+    }
+
+    def _layer_backend(self, i: int, backend: str) -> str:
+        if backend == "auto" and self.backends is not None:
+            return self.backends[i]
+        return backend
+
+    def __call__(self, x: Tensor, *, backend: str = "auto") -> Tensor:
+        h = self.layers[0](x, backend=self._layer_backend(0, backend))
+        for i, layer in enumerate(self.layers[1:]):
+            h = self._ACTS[self.activation_names[i]](h)
+            be = self._layer_backend(i + 1, backend)
+            if self.layers[i].is_pruned:
+                # the producer emitted the cluster-ordered pruned package
+                h = layer.apply_package(h, backend=be)
+            else:
+                h = layer(h, backend=be)  # unpruned hand-off: full width
+        return h
+
+    @classmethod
+    def load(cls, path, device="cuda") -> "AMMChain":
+        """Load a compiled chain from an offline-compiler artifact dir."""
+        from repro_torch.compiler.artifact import load_artifact  # no cycle
+
+        return load_artifact(path).to_chain(device=device)
+
+    def lut_bytes(self) -> int:
+        return sum(l.lut_bytes() for l in self.layers)
+
+    def workload_ops(self) -> int:
+        return sum(l.workload_ops() for l in self.layers)

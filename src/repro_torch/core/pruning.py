@@ -78,3 +78,12 @@ def pruned_to_split_values(x_pruned: Tensor, plan: PruningPlan) -> Tensor:
     b = x_pruned.shape[0]
     x = x_pruned.reshape(b, plan.consumer_depth, plan.consumer_codebooks)
     return x.transpose(1, 2)
+
+
+def workload_ops(num_codebooks: int, depth: int, out_cols: int) -> int:
+    """Online op count of one LUT-MU call per input row (paper Fig. 9
+    'MOPs'): I comparisons per codebook to encode, C-1 adds per output
+    column to aggregate."""
+    encode_ops = num_codebooks * depth
+    agg_ops = (num_codebooks - 1) * out_cols
+    return encode_ops + agg_ops

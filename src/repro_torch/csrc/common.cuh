@@ -13,7 +13,7 @@
 #include <stdint.h>
 
 // dtype codes shared with kernels/_build.py::DTYPE_CODES
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kI16 = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -40,12 +40,16 @@ __device__ __forceinline__ int tree_leaf(const float* __restrict__ x,
 // LUT row sums (fused_lutmu.cu, lut_aggregate.cu)
 // ---------------------------------------------------------------------------
 
-// Accumulator of a LUT type: int32 for int8 tables (exact in any order),
-// float32 for float32 and bfloat16 tables.
+// Accumulator of a LUT type: int32 for int8 and int16 tables (exact in any
+// order: |sum| ≤ C·2^15 < 2^31), float32 for float32 and bfloat16 tables.
+// The aggregate keys it on its left operand's type instead, so a float32
+// left operand sums any table in float32.
 template <typename T> struct LutAcc { using type = float; };
 template <> struct LutAcc<int8_t> { using type = int; };
+template <> struct LutAcc<int16_t> { using type = int; };
 
 __device__ __forceinline__ int lut_widen(int8_t v) { return static_cast<int>(v); }
+__device__ __forceinline__ int lut_widen(int16_t v) { return static_cast<int>(v); }
 __device__ __forceinline__ float lut_widen(float v) { return v; }
 __device__ __forceinline__ float lut_widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 

@@ -24,7 +24,8 @@
 //   each block leaves its partial sums in shared memory, and after a
 //   cluster barrier block k adds every cs-th output over the ranks in rank
 //   order through distributed shared memory and applies the dequant
-//   epilogue.  Exact on int32; a fixed order on float32.
+//   epilogue.  Exact on int32 (int8 and int16 tables); a fixed order on
+//   float32.
 // * Each LUT row segment a block needs is read once.  The codebooks go by
 //   stages of k_stage.  Eight consumer warps encode a stage kStages stages
 //   before they sum it, one thread per (codebook, row) walking the tree
@@ -48,7 +49,10 @@
 //   take other codebooks of the stage (phases), and the phases' sums are
 //   added in phase order before the cluster's; every thread adds at most
 //   four chunks per stage, their loads issued together.  Values stay raw
-//   until added: bf16 widens by a shift, and int8 is added four at a time
+//   until added: bf16 widens by a shift, int16 by a sign extension into
+//   int32 sums (the plain version's float32 sums of integers agree bit for
+//   bit while |sum| ≤ 2^24, which C ≤ 512 guarantees), and int8 is added
+//   four at a time
 //   as offset-binary bytes (v + 128) into two 16-bit lanes per 32-bit
 //   register, flushed to int32 at most every 256 codebooks (256 · 255 <
 //   2^16) and corrected by 128 per codebook at the end: exact.  At most
@@ -151,31 +155,33 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Bytes of a row segment, the N-tile of a block: 256 int8 columns, 256
-// bfloat16 or 128 float32 ones (the fastest of 128, 256 and 512 bytes in
-// every kernel-phase case of chip_smoke.py; 512-byte int8 tiles need more
-// registers than two blocks per SM leave).
+// Bytes of a row segment, the N-tile of a block: 256 for int8 tables, 512
+// for wider entries (256 bfloat16 or int16 columns, 128 float32 ones): the
+// fastest of 128, 256 and 512 bytes in every int8, float32 and bfloat16
+// kernel-phase case of chip_smoke.py; 512-byte int8 tiles need more
+// registers than two blocks per SM leave.
 template <typename T> constexpr int kTileBytes = sizeof(T) == 1 ? 256 : 512;
 
 // Per-thread sums of R rows × one 16-byte column chunk.
 template <typename T, int R> struct Acc;
 
-// float32 and bfloat16 tables: float32 sums, each added in codebook order
-template <int R, int V_> struct FloatAcc {
+// float32 and bfloat16 tables: float32 sums, each added in codebook order;
+// int16 tables: int32 sums, exact in any order
+template <typename E, int R, int V_> struct PlainAcc {
   static constexpr int V = V_;
-  float v[R][V];
+  E v[R][V];
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int j = 0; j < R; ++j)
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[j][e] = 0.f;
+      for (int e = 0; e < V; ++e) v[j][e] = 0;
   }
   __device__ __forceinline__ void reserve(int) {}
   __device__ __forceinline__ void finish() {}
-  __device__ __forceinline__ float value(int j, int e) const { return v[j][e]; }
+  __device__ __forceinline__ E value(int j, int e) const { return v[j][e]; }
 };
 
-template <int R> struct Acc<float, R> : FloatAcc<R, 4> {
+template <int R> struct Acc<float, R> : PlainAcc<float, R, 4> {
   __device__ __forceinline__ void add(int j, const uint4& raw) {
     this->v[j][0] += __uint_as_float(raw.x);
     this->v[j][1] += __uint_as_float(raw.y);
@@ -184,13 +190,24 @@ template <int R> struct Acc<float, R> : FloatAcc<R, 4> {
   }
 };
 
-template <int R> struct Acc<__nv_bfloat16, R> : FloatAcc<R, 8> {
+template <int R> struct Acc<__nv_bfloat16, R> : PlainAcc<float, R, 8> {
   __device__ __forceinline__ void add(int j, const uint4& raw) {
     const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {  // entry 2q in the low half, 2q+1 high
       this->v[j][2 * q] += __uint_as_float(w[q] << 16);
       this->v[j][2 * q + 1] += __uint_as_float(w[q] & 0xffff0000u);
+    }
+  }
+};
+
+template <int R> struct Acc<int16_t, R> : PlainAcc<int, R, 8> {
+  __device__ __forceinline__ void add(int j, const uint4& raw) {
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // entry 2q in the low half, 2q+1 high
+      this->v[j][2 * q] += static_cast<int16_t>(w[q] & 0xffffu);
+      this->v[j][2 * q + 1] += static_cast<int16_t>(w[q] >> 16);
     }
   }
 };
@@ -635,6 +652,8 @@ int dispatch(int lut_dtype, const Args& a, cudaStream_t stream, bool occupancy) 
       return REPRO_FL(float);
     case kBF16:
       return REPRO_FL(__nv_bfloat16);
+    case kI16:
+      return REPRO_FL(int16_t);
     default:
       return occupancy ? -bad : bad;
   }

@@ -21,8 +21,9 @@
 // sums are deterministic).  Then every thread streams those LUT rows with
 // 16-byte loads (load_row_raw, common.cuh), the rows in
 // step along k with 8 loads in flight, kept raw and widened to int32 (int8
-// tables) or float32 (float32 / bfloat16 tables) only as each is added
-// with its value: widened in flight, the int8 instance needed 245
+// tables with an int8 left operand) or float32 (a float32 left operand
+// with float32, bfloat16 or int16 tables) only as each is added with its
+// value: widened in flight, the int8 instance needed 245
 // registers, which let too few blocks stay resident for one wave.
 // Skipping an exact zero never changes a finite sum, so any left operand
 // is taken, as the TPU kernel takes one: a dense one just has more
@@ -55,9 +56,9 @@ lut_aggregate_kernel(const L* __restrict__ lhs, const T* __restrict__ lut,
                      const float* __restrict__ scale, int scale_stride,
                      const float* __restrict__ offset, int offset_stride,
                      float* __restrict__ out,
-                     typename LutAcc<T>::type* __restrict__ partial, int B,
+                     typename LutAcc<L>::type* __restrict__ partial, int B,
                      int K, int N, int k_per_split, bool vec_ok) {
-  using A = typename LutAcc<T>::type;
+  using A = typename LutAcc<L>::type;  // int32 for int8 × int8, else float32
   constexpr int V = 16 / sizeof(T);
   __shared__ int ks[kRows][kChunk];
   __shared__ A vs[kRows][kChunk];
@@ -145,7 +146,8 @@ lut_aggregate_kernel(const L* __restrict__ lhs, const T* __restrict__ lut,
               const A w = vs[r][e + u];
 #pragma unroll
               for (int i = 0; i < V; ++i)
-                acc[r][i] = madd(acc[r][i], w, lut_entry<T>(raw[u][r], i));
+                acc[r][i] = madd(acc[r][i], w,
+                                 static_cast<A>(lut_entry<T>(raw[u][r], i)));
             }
       }
     }
@@ -177,7 +179,7 @@ void launch(const void* lhs, const void* lut, const void* scale,
             int scale_stride, const void* offset, int offset_stride, void* out,
             void* partial, int B, int K, int N, int k_per_split, int splits,
             cudaStream_t stream) {
-  using A = typename LutAcc<T>::type;
+  using A = typename LutAcc<L>::type;
   constexpr int V = 16 / sizeof(T);
   const int cols = kThreads * V;
   const bool vec_ok = (N % V == 0) &&
@@ -205,7 +207,9 @@ REPRO_ERROR_STRING_FN
 // entries (stride 1) or one (stride 0) → out (B, N) f32; partial (splits,
 // B, N) int32 (int8 LUT) or f32, unused when splits == 1; split z sums
 // K entries [z·k_per_split, (z+1)·k_per_split).  Pairs: int8 × int8 (int32
-// sums), and f32 × {f32, bf16} (float32 sums).  Returns cudaGetLastError()
+// sums), and f32 × {f32, bf16, int16} (float32 sums; with a one-hot and an
+// int16 table every partial sum is an integer, exact while |sum| ≤ 2^24,
+// so bit-equal to the plain version wherever C ≤ 512).  Returns cudaGetLastError()
 // after the launches.
 extern "C" int lut_aggregate_launch(const void* lhs, int lhs_dtype,
                                     const void* lut, int lut_dtype,
@@ -224,6 +228,8 @@ extern "C" int lut_aggregate_launch(const void* lhs, int lhs_dtype,
     REPRO_AGG(float, float);
   } else if (lhs_dtype == kF32 && lut_dtype == kBF16) {
     REPRO_AGG(float, __nv_bfloat16);
+  } else if (lhs_dtype == kF32 && lut_dtype == kI16) {
+    REPRO_AGG(float, int16_t);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

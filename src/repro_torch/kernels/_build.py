@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # dtype codes shared with csrc/common.cuh::DType
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.int16: 3}
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # each library's C entry point: name and argument types (pointers and the

@@ -77,7 +77,8 @@ def select_backend(b: int, c: int, n: int, depth: int,
          for correctness, never for speed);
       2. int8 LUTs → ``fused``: int32 sums of gathered LUT rows, no one-hot;
       3. many N-tiles × deep trees → ``unfused``: encode once, spill the
-         one-hot, instead of re-encoding per N-tile;
+         one-hot, instead of re-encoding per N-tile (float32, bfloat16 and
+         int16 LUTs, as the JAX dispatch treats int16 like the float ones);
       4. otherwise → ``fused``.
 
     The TPU dispatch's minimum tile sizes (8 rows, 128 columns) describe

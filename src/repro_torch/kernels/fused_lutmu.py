@@ -41,11 +41,12 @@ _BLOCKS_PER_SM = 1.6       # blocks of one wave the cluster size aims for:
                            # the fastest of every (tile, cluster) plan in
                            # each kernel-phase case of chip_smoke.py had
                            # 200-204 blocks on the 132-SM H100
-_LUT_DTYPES = (torch.int8, torch.float32, torch.bfloat16)
+_LUT_DTYPES = (torch.int8, torch.int16, torch.float32, torch.bfloat16)
 
 
 def tile_bytes(itemsize: int) -> int:
-    """Bytes of a block's N-tile (csrc/fused_lutmu.cu kTileBytes)."""
+    """Bytes of a block's N-tile (csrc/fused_lutmu.cu kTileBytes): 256 for
+    int8 tables, 512 for 2- and 4-byte entries."""
     return 256 if itemsize == 1 else 512
 
 
@@ -160,7 +161,10 @@ def fused_lutmu(x_split: torch.Tensor, thresholds: torch.Tensor,
     Args:
       x_split: (B, C, I) float32 gathered split-dim values.
       thresholds: (C, 2**I - 1) float32, heap order.
-      lut: (C, 2**I, N) int8 (int32 sums) or float32/bfloat16 (float32 sums).
+      lut: (C, 2**I, N) int8 or int16 (int32 sums), or float32/bfloat16
+        (float32 sums).  The plain version sums int16 entries in float32,
+        which is exact, and so bit-equal to the kernel, while every sum
+        stays within 2**24: for any table when C ≤ 512.
       lut_scale / lut_offset: float32 epilogue, () or (N,).
 
     Returns:
@@ -186,6 +190,9 @@ def launch(x_split: torch.Tensor, thresholds: torch.Tensor, lut: torch.Tensor,
                    "x_split and thresholds must be float32")
     _build.require(lut.dtype in _LUT_DTYPES,
                    f"lut dtype must be one of {_LUT_DTYPES}, got {lut.dtype}")
+    _build.require(lut.dtype != torch.int16 or c <= 2**16,
+                   f"int16 tables of {c} > 65536 codebooks overflow the "
+                   "kernel's int32 sums")
     _build.require(tuple(thresholds.shape) == (c, g - 1),
                    f"thresholds shape {tuple(thresholds.shape)} != {(c, g - 1)}")
     _build.require(lut.dim() == 3 and tuple(lut.shape[:2]) == (c, g),

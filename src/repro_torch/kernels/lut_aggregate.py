@@ -25,7 +25,7 @@ _ROWS = 4              # csrc/lut_aggregate.cu kRows
 _MIN_SPLIT_K = 256     # fewest K entries one block walks
 _MAX_GRID_Z = 65535
 _BLOCKS_PER_SM = 8     # K splits aim for this many blocks per SM
-_FLOAT_LUTS = (torch.float32, torch.bfloat16)
+_F32_LHS_LUTS = (torch.float32, torch.bfloat16, torch.int16)
 
 
 def block_cols(lut_dtype) -> int:
@@ -50,10 +50,12 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
                   lut_offset: torch.Tensor) -> torch.Tensor:
     """``onehot (B, C, G)`` × ``lut (C, G, N)`` → (B, N) float32.
 
-    int8 LUTs take the left operand as int8 and sum in int32; float32 or
-    bfloat16 LUTs take a float32 left operand and sum in float32 (on the
-    CPU the plain version also takes a bfloat16 one, rounding the LUT to
-    it as the TPU kernel does).  Only the left operand's nonzero entries
+    int8 LUTs take the left operand as int8 and sum in int32; float32,
+    bfloat16 or int16 LUTs take a float32 left operand and sum in float32
+    (on the CPU the plain version also takes a bfloat16 one, rounding the
+    LUT to it as the TPU kernel does).  With a one-hot and an int16 table
+    every sum is an integer, exact while it stays within 2**24: bit-equal
+    to the plain version for any table when C ≤ 512.  Only the left operand's nonzero entries
     are summed, which for a one-hot is the LUT-row gather.
     """
     if _build.on_cpu(onehot, lut, lut_scale, lut_offset):
@@ -64,7 +66,8 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
     if lut.dtype == torch.int8:
         onehot = onehot.to(torch.int8)
     else:
-        _build.require(lut.dtype in _FLOAT_LUTS and onehot.dtype == torch.float32,
+        _build.require(lut.dtype in _F32_LHS_LUTS
+                       and onehot.dtype == torch.float32,
                        f"unsupported operand types {onehot.dtype} × {lut.dtype}")
     _build.require_contiguous(onehot=onehot, lut=lut)
     n = lut.shape[-1]

@@ -4,7 +4,8 @@ contract).
 Each function is the semantic twin of one CUDA kernel, written with the
 plainest torch possible (sequential tree walks, gathers, integer sums) so
 that CPU tensors can take it and the card can hold each kernel against it.
-Integer paths sum in int32 by gather-and-sum, never through a float matmul.
+Integer paths sum in int32 by gather-and-sum, never through a float matmul;
+int16 tables sum in float32, as the TPU kernel and the JAX reference do.
 """
 from __future__ import annotations
 

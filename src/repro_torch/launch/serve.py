@@ -2,7 +2,10 @@
 
 Random-initialises serving params from a seeded ``torch.Generator`` on the
 device and drives the paged continuous-batching engine over a synthetic
-request stream; with ``--amm`` the MLPs run through the LUT-MU path.
+request stream; with ``--amm`` the MLPs run through the LUT-MU path, and
+with ``--artifact`` the compiled tables of an ``amm_lm`` artifact or of a
+target+draft bundle are spliced into the dense params (both packages'
+artifacts load; ``--speculative`` serves a bundle's two halves).
 
 Examples:
   # on the card, full width
@@ -11,6 +14,12 @@ Examples:
   # on the CPU, reduced widths (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --reduced --amm --device cpu
+
+  # a bundle the JAX compiler wrote, served speculatively on the CPU
+  PYTHONPATH=src python -m repro.compiler bundle --arch qwen3-14b \\
+      --reduced --out /tmp/lm_bundle
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --reduced --artifact /tmp/lm_bundle --speculative --device cpu
 """
 from __future__ import annotations
 
@@ -20,11 +29,12 @@ import time
 
 import torch
 
+from repro_torch.compiler.artifact import ArtifactError, peek_manifest
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.models import model as MD
-from repro_torch.serving import load_engine
+from repro_torch.serving import SamplingParams, load_engine, log
 
 
 def cli_prompts(prompt_specs, n_requests: int, vocab_size: int):
@@ -42,6 +52,13 @@ def cli_prompts(prompt_specs, n_requests: int, vocab_size: int):
     stream = TokenStream(vocab_size=vocab_size, batch_size=1, seq_len=16)
     return [[int(t) for t in stream.batch(i)["tokens"][0][:8]]
             for i in range(n_requests)]
+
+
+def _artifact_kind(path):
+    try:
+        return peek_manifest(path).get("kind")
+    except (ArtifactError, OSError) as e:
+        raise SystemExit(f"cannot read artifact {path!r}: {e}")
 
 
 def main(argv=None) -> None:
@@ -67,6 +84,42 @@ def main(argv=None) -> None:
                     help="KV page-pool size; smaller than "
                          "max_batch*ceil(max_len/page_size) turns on "
                          "eviction (host swap) under pressure")
+    ap.add_argument("--engine", choices=("paged", "fixed"), default=None,
+                    help="force an engine; only the paged engine is ported "
+                         "(fixed slots: ROADMAP A10)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable radix prefix reuse: every request "
+                         "prefills from scratch")
+    ap.add_argument("--verify-backend", default="auto",
+                    choices=("auto", "scan", "fused"),
+                    help="speculative verify-window implementation: 'scan' "
+                         "replays the window token by token (oracle), "
+                         "'fused' runs the verify-window kernel per layer; "
+                         "'auto' honours REPRO_VERIFY_BACKEND then fused")
+    ap.add_argument("--artifact",
+                    help="amm_lm artifact dir: serve its compiled LUT-MU "
+                         "tables instead of the dense MLPs.  A bundle dir "
+                         "serves its target half, or both halves with "
+                         "--speculative")
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-propose / target-verify serving of a bundle "
+                         "--artifact (greedy streams equal the target's)")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft tokens proposed per verify step (default: "
+                         "the bundle manifest's recorded value, else 4)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 (default) = greedy argmax "
+                         "(above 0: ROADMAP A8)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k most likely tokens (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = off)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base sampling seed; request i uses seed+i")
+    ap.add_argument("--mesh",
+                    help="sharded serving on a 'DxM' mesh (ROADMAP A11)")
+    ap.add_argument("--ckpt", help="restore params from a checkpoint "
+                                   "(ROADMAP A13)")
     ap.add_argument("--prompt", action="append", metavar="TOKENS",
                     help="explicit prompt as space/comma-separated token ids "
                          "(repeatable); replaces the synthetic requests")
@@ -74,6 +127,15 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    if args.mesh:
+        raise SystemExit("--mesh: multi-device serving is not ported yet "
+                         "(ROADMAP A11)")
+    if args.ckpt:
+        raise SystemExit("--ckpt: checkpoint restore is not ported yet "
+                         "(ROADMAP A13)")
+    if args.engine == "fixed":
+        raise SystemExit("--engine fixed: the fixed-slot engine is not "
+                         "ported yet (ROADMAP A10)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -83,20 +145,53 @@ def main(argv=None) -> None:
                                          backend=args.amm_backend))
     dtype = torch.float32 if args.reduced else torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(0)
-    params = MD.init_params(cfg, gen, dtype, serving=args.amm)
-    engine = load_engine(None, params, cfg, max_batch=args.max_batch,
-                         max_len=args.max_len, page_size=args.page_size,
-                         prefill_chunk=args.prefill_chunk,
-                         num_pages=args.num_pages, compute_dtype=dtype,
-                         device=device)
-    for prompt in cli_prompts(args.prompt, args.requests, cfg.vocab_size):
-        engine.submit(prompt, max_new_tokens=args.max_new)
+    # --artifact serves compiled tables spliced into a *dense* params tree
+    params = MD.init_params(cfg, gen, dtype,
+                            serving=args.amm and not args.artifact)
+    art_kind = _artifact_kind(args.artifact) if args.artifact else None
+    kwargs = dict(max_batch=args.max_batch, max_len=args.max_len,
+                  page_size=args.page_size, prefill_chunk=args.prefill_chunk,
+                  num_pages=args.num_pages,
+                  prefix_cache=not args.no_prefix_cache,
+                  verify_backend=args.verify_backend, compute_dtype=dtype,
+                  device=device)
+    if args.speculative:
+        if args.spec_k is not None:
+            kwargs["spec_k"] = args.spec_k
+        if art_kind == "bundle":
+            engine = load_engine(args.artifact, params, cfg, **kwargs)
+        elif art_kind is not None:
+            raise SystemExit(
+                f"--speculative needs a target+draft bundle artifact, got "
+                f"kind {art_kind!r} — compile one with `python -m "
+                "repro.compiler bundle`")
+        else:
+            raise SystemExit(
+                "--speculative without a bundle --artifact compiles a bundle "
+                "in-process, and the compiler is not ported yet (ROADMAP "
+                "A12) — pass --artifact with a bundle from `python -m "
+                "repro.compiler bundle`")
+    else:
+        # a bundle without --speculative serves its full-resolution target
+        # half, the stream-defining model
+        engine = load_engine(args.artifact, params, cfg,
+                             engine=args.engine or "auto", speculative=False,
+                             **kwargs)
+    for i, prompt in enumerate(cli_prompts(args.prompt, args.requests,
+                                           cfg.vocab_size)):
+        engine.submit(prompt, SamplingParams(
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            seed=args.seed + i), max_new_tokens=args.max_new)
     t0 = time.time()
     done = engine.run_until_drained()
     dt = time.time() - t0
     n_tok = sum(len(r.generated) for r in done)
     print(f"{len(done)} requests, {n_tok} tokens, {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s) on {device}")
+    if args.speculative:
+        log("spec", f"k={engine.spec_k} rounds={engine.stats['rounds']} "
+            f"acceptance={engine.acceptance_rate:.3f} "
+            f"tokens/round={engine.mean_emitted_per_round:.2f}")
     for r in done:
         print(f"  req {r.uid}: {r.prompt} → {r.generated}")
 

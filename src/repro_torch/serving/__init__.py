@@ -1,7 +1,8 @@
 """Public serving surface of the port: :func:`load_engine` builds the
-paged :class:`ServeEngine`; :class:`SpeculativeEngine` adds draft-propose /
-target-verify rounds on top of it; ``submit()`` returns a
-:class:`RequestHandle`.
+paged :class:`ServeEngine` from params, an ``amm_lm`` artifact or a bundle's
+target half, or a :class:`SpeculativeEngine` (draft-propose / target-verify
+rounds on top of it) from a bundle or an artifact pair; ``submit()`` returns
+a :class:`RequestHandle`.
 """
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: F401
 from repro_torch.serving.handle import RequestHandle  # noqa: F401

@@ -8,18 +8,22 @@ fixed-width chunk per step and interleave with the batched decode.  Each
 step runs at most one prefill chunk and one decode of ``max_batch`` rows
 through ``models/model.py``; the model writes the K/V pages in place.
 Greedy requests only for now (``sampling.py``).  ``cfg.amm.kv_int8`` serves
-from an int8-quantised KV cache.  ``speculative.py`` subclasses the engine
+from an int8-quantised KV cache.  :meth:`ServeEngine._from_artifact` serves
+a compiled ``amm_lm`` artifact (``compiler/artifact.py``) spliced into the
+dense params.  ``speculative.py`` subclasses the engine
 through its per-step hooks: ``_swap_out``/``_swap_in``, ``_clone_pages``,
 ``_prefill_call`` and ``_run_decode``.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.compiler.artifact import ArtifactError, load_artifact
 from repro_torch.device import resolve_device
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
@@ -27,6 +31,7 @@ from repro_torch.serving import sampling as S
 from repro_torch.serving import scheduler as SCH
 from repro_torch.serving.handle import RequestHandle, _step_engine_async
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.obs import log
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -36,6 +41,47 @@ def _sample_batch(logits: torch.Tensor, rows_reqs, batch: int) -> np.ndarray:
     tokens on the host; rows not listed are greedy and discarded."""
     _, _, temp, _, _ = S.batch_rows(rows_reqs, batch)
     return S.sample_tokens(logits, temp)
+
+
+def _splice_artifact(art, params: dict, cfg: ModelConfig, device="cuda"):
+    """Validate a loaded ``amm_lm`` artifact against ``cfg``, splice its
+    LUT-MU tables into the dense params tree on ``device``, and enable the
+    AMM path with the artifact's recorded settings (the speculative engine
+    calls it once per bundle half).  A recorded serving mesh is reported
+    and ignored: multi-device serving is not ported yet (ROADMAP A11)."""
+    if art.kind != "amm_lm":
+        raise ArtifactError(
+            f"ServeEngine needs an amm_lm artifact, got {art.kind!r}")
+    if art.manifest.get("arch") != cfg.name:
+        raise ArtifactError(
+            f"artifact was compiled for arch {art.manifest.get('arch')!r}"
+            f", engine config is {cfg.name!r}")
+    # the arch name alone doesn't pin geometry (reduced configs share it)
+    if art.manifest.get("num_layers") != cfg.num_layers:
+        raise ArtifactError(
+            f"artifact has {art.manifest.get('num_layers')} layers, "
+            f"config expects {cfg.num_layers} (reduced vs full?)")
+    # int4 artifacts pack two LUT columns per stored byte; the manifest
+    # records the true column count
+    d_out = art.manifest.get("int4_cols", {}).get(
+        "layer0/lut_down", art.tensors["layer0/lut_down"].shape[-1])
+    if d_out != cfg.d_model:
+        raise ArtifactError(
+            f"artifact d_model {d_out} != config d_model {cfg.d_model}")
+    cfg = dataclasses.replace(
+        cfg, amm=dataclasses.replace(cfg.amm, enabled=True,
+                                     **art.manifest["amm"]))
+    if art.manifest.get("mesh"):
+        log("serve", f"note: artifact was compiled for mesh "
+            f"{art.manifest['mesh']}, serving on one device (ROADMAP A11)")
+    return art.splice_lm_params(params, device=device), cfg
+
+
+def _artifact_params_cfg(artifact_path, params: dict, cfg: ModelConfig,
+                         device="cuda"):
+    """Load an ``amm_lm`` artifact from disk and splice it (see
+    :func:`_splice_artifact`)."""
+    return _splice_artifact(load_artifact(artifact_path), params, cfg, device)
 
 
 class ServeEngine:
@@ -81,6 +127,18 @@ class ServeEngine:
         self._driver = None  # a server driver that owns the loop, if any
         # model calls made, for callers that check per-call kernel counts
         self.stats = {"prefill_calls": 0, "decode_calls": 0}
+
+    @classmethod
+    def _from_artifact(cls, artifact_path, params: dict, cfg: ModelConfig,
+                       **kwargs) -> "ServeEngine":
+        """Serve a compiled ``amm_lm`` artifact: splice its LUT-MU tables
+        into ``params`` (replacing the dense MLPs) and enable the AMM path
+        with the artifact's recorded settings.  ``params`` is the dense
+        params tree the artifact was compiled against; the arch name, depth
+        and width must match."""
+        params, cfg = _artifact_params_cfg(artifact_path, params, cfg,
+                                           kwargs.get("device", "cuda"))
+        return cls(params, cfg, **kwargs)
 
     # -- API -------------------------------------------------------------
     def submit(self, prompt: List[int],

@@ -1,41 +1,115 @@
-"""``load_engine`` — the serving factory (``source=None`` for now).
+"""``load_engine`` — the one serving factory (``repro.serving.loader``).
 
-The port of ``repro.serving.loader.load_engine``: with no source it serves
-``params`` as given — dense MLPs, or LUT-MU MLPs when ``cfg.amm.enabled``
-— through the paged :class:`ServeEngine`.  Artifact and bundle sources,
-speculative ones included, need the artifact reader (ROADMAP A4) and raise
-until it is ported.
+Sniffs what ``source`` is and picks the engine:
+
+====================================  =====================================
+``source``                            engine
+====================================  =====================================
+``None``                              the paged :class:`ServeEngine` over
+                                      ``params`` as given (dense MLPs, or
+                                      LUT-MU ones when ``cfg.amm.enabled``)
+path to an ``amm_lm`` artifact        paged engine serving the artifact's
+                                      LUT-MU tables
+path to a target+draft bundle         :class:`SpeculativeEngine` (or the
+                                      bundle's target half with
+                                      ``speculative=False``)
+a loaded ``Artifact`` object          same as an ``amm_lm`` path
+``(target_art, draft_art)`` pair      :class:`SpeculativeEngine` from
+                                      in-memory artifacts
+====================================  =====================================
+
+``engine`` is ``"auto"`` or ``"paged"``: the fixed-slot engine is not
+ported yet (ROADMAP A10).  Every other keyword goes to the engine
+(``max_batch``, ``max_len``, ``page_size``, ``prefill_chunk``,
+``num_pages``, ``prefix_cache``, ``compute_dtype``, ``device``,
+``verify_backend``, ``spec_k``).
 """
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Optional
 
+from repro_torch.compiler.artifact import peek_manifest
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, _splice_artifact
+from repro_torch.serving.speculative import SpeculativeEngine
 
-_ENGINE_CHOICES = ("auto", "paged")
+_ENGINE_CHOICES = ("auto", "paged", "fixed")
+
+
+def _is_pathlike(source) -> bool:
+    return isinstance(source, (str, os.PathLike))
+
+
+def _is_artifact(source) -> bool:
+    # a loaded Artifact, of either package's reader (duck-typed)
+    return hasattr(source, "kind") and hasattr(source, "manifest")
 
 
 def load_engine(source, params: dict, cfg: ModelConfig, *,
                 engine: str = "auto", speculative: Optional[bool] = None,
-                **opts) -> ServeEngine:
-    """Build a serving engine; every keyword in ``opts`` goes to
-    :class:`ServeEngine` (``max_batch``, ``max_len``, ``page_size``,
-    ``prefill_chunk``, ``num_pages``, ``prefix_cache``, ``compute_dtype``,
-    ``device``)."""
-    if engine == "fixed":
-        raise NotImplementedError(
-            "the fixed-slot engine is not ported yet (ROADMAP A10)")
+                **opts):
+    """Build a serving engine from ``source`` (see module docstring).
+
+    ``speculative`` controls what a bundle becomes (default True →
+    :class:`SpeculativeEngine`; False → the bundle's target half through
+    the paged engine).  ``params`` is always the dense-model tree that
+    artifacts were compiled against.
+    """
     if engine not in _ENGINE_CHOICES:
         raise ValueError(
             f"engine must be one of {_ENGINE_CHOICES}, got {engine!r}")
-    if speculative:
+    if engine == "fixed":
         raise NotImplementedError(
-            "speculative serving from load_engine takes a (target, draft) "
-            "artifact pair or a bundle, which needs the artifact reader "
-            "(ROADMAP A4); build a SpeculativeEngine from params directly")
-    if source is not None:
-        raise NotImplementedError(
-            f"serving from an artifact or bundle ({source!r}) needs the "
-            "artifact reader, which is not ported yet (ROADMAP A4)")
-    return ServeEngine(params, cfg, **opts)
+            "the fixed-slot engine is not ported yet (ROADMAP A10)")
+    device = opts.get("device", "cuda")
+
+    # (target, draft) in-memory artifact pair → speculative
+    if isinstance(source, (tuple, list)):
+        if len(source) != 2:
+            raise ValueError(
+                f"artifact-pair source must be (target, draft), got "
+                f"{len(source)} elements")
+        if speculative is False:
+            t_params, t_cfg = _splice_artifact(source[0], params, cfg, device)
+            return ServeEngine(t_params, t_cfg, **opts)
+        return SpeculativeEngine._from_artifacts(source[0], source[1],
+                                                 params, cfg, **opts)
+
+    # a single loaded artifact object → splice
+    if _is_artifact(source):
+        s_params, s_cfg = _splice_artifact(source, params, cfg, device)
+        return ServeEngine(s_params, s_cfg, **opts)
+
+    # a path → sniff the manifest kind
+    if _is_pathlike(source):
+        kind = peek_manifest(source).get("kind")
+        if kind == "bundle":
+            if speculative is False:
+                return ServeEngine._from_artifact(Path(source) / "target",
+                                                  params, cfg, **opts)
+            return SpeculativeEngine._from_bundle(source, params, cfg, **opts)
+        if kind == "amm_lm":
+            if speculative:
+                raise ValueError(
+                    "speculative=True needs a target+draft bundle source, "
+                    f"got an {kind!r} artifact — the bundle compiler is not "
+                    "ported yet (ROADMAP A12): write one with "
+                    "repro_torch.compiler.save_bundle, or compile it with "
+                    "`python -m repro.compiler bundle`")
+            return ServeEngine._from_artifact(source, params, cfg, **opts)
+        raise ValueError(
+            f"cannot serve artifact kind {kind!r} from {source!r}")
+
+    # no source → serve params as given
+    if source is None:
+        if speculative:
+            raise ValueError(
+                "speculative=True needs a bundle path or an artifact pair "
+                "as source")
+        return ServeEngine(params, cfg, **opts)
+
+    raise TypeError(
+        f"unsupported source {type(source).__name__!r}: expected None, a "
+        "path, a loaded Artifact, or a (target, draft) pair")

@@ -29,6 +29,12 @@ so admission, chunked prefill, eviction with host swap, copy-on-write
 prefix sharing and cancellation all come from the plain engine, applied to
 both caches.  Sampled rounds (temperature > 0) need the counter-derived
 sampling streams (ROADMAP A8): ``submit`` raises for them.
+
+A compiled target+draft bundle (``compiler/artifact.py::load_bundle``) or a
+pair of ``amm_lm`` artifacts is served through :meth:`_from_bundle` /
+:meth:`_from_artifacts`: both halves are spliced into the one dense tree
+they were compiled against (they share the backbone; only the LUT tables
+differ).
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ import torch
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import scheduler as SCH
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.compiler.artifact import load_bundle
+from repro_torch.serving.engine import ServeEngine, _splice_artifact
 from repro_torch.serving.kv_cache import HostKV, PagedKVCache
 from repro_torch.serving.scheduler import Request
 
@@ -94,6 +101,26 @@ class SpeculativeEngine(ServeEngine):
         assert self.kv_draft.trash == self.kv.trash
         self._draft_host: Dict[int, HostKV] = {}  # uid → swapped draft KV
         self.stats.update({k: 0 for k in _SPEC_KEYS})
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def _from_artifacts(cls, target_art, draft_art, params: dict,
+                        cfg: ModelConfig, **kwargs) -> "SpeculativeEngine":
+        """Build from two loaded ``amm_lm`` artifacts, both spliced into
+        the same dense params tree."""
+        device = kwargs.get("device", "cuda")
+        params_t, cfg_t = _splice_artifact(target_art, params, cfg, device)
+        params_d, cfg_d = _splice_artifact(draft_art, params, cfg, device)
+        return cls(params_t, cfg_t, params_d, draft_cfg=cfg_d, **kwargs)
+
+    @classmethod
+    def _from_bundle(cls, bundle_path, params: dict, cfg: ModelConfig,
+                     **kwargs) -> "SpeculativeEngine":
+        """Serve a compiled target+draft bundle; ``spec_k`` defaults to the
+        bundle manifest's recorded value, else 4."""
+        target, draft, manifest = load_bundle(bundle_path)
+        kwargs.setdefault("spec_k", int(manifest.get("spec_k", 4)))
+        return cls._from_artifacts(target, draft, params, cfg, **kwargs)
 
     # -- telemetry ---------------------------------------------------------
     @property

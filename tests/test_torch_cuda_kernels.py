@@ -3,10 +3,15 @@
 The kernels need a card: these tests carry the ``cuda`` marker and skip
 without one.  The module imports no JAX, so it runs on the card as
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py``.
-LUT-MU: int8 results must be bit-equal; float32/bfloat16 LUT sums within
-rtol 1e-5, atol 1e-4 (float32 sums taken in another order).  Verify window:
+LUT-MU: int8 results must be bit-equal; int16 results bit-equal wherever
+C ≤ 512 (the plain version sums int16 entries in float32, exact while every
+partial sum stays within 2**24 = 512 · 2**15), else within ``_int16_tol``;
+float32/bfloat16 LUT sums within rtol 1e-5, atol 1e-4 (float32 sums taken
+in another order).  Verify window:
 tolerances at ``VERIFY_TOL`` below, each with its reason.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +25,8 @@ from repro_torch.models.config import ModelConfig
 
 # (B, C, N, depth): ragged B, C and N at each depth
 CASES = [(5, 7, 130, 2), (16, 3, 33, 3), (1, 12, 257, 4), (9, 5, 64, 4)]
-LUT_DTYPES = ["int8", "float32", "bfloat16"]
-_TORCH = {"int8": torch.int8, "float32": torch.float32,
+LUT_DTYPES = ["int8", "int16", "float32", "bfloat16"]
+_TORCH = {"int8": torch.int8, "int16": torch.int16, "float32": torch.float32,
           "bfloat16": torch.bfloat16}
 
 
@@ -34,6 +39,8 @@ def _inputs(b, c, n, depth, lut_dtype, seed=0, unit_epilogue=False):
     thr = rng.normal(size=(c, g - 1)).astype(np.float32)
     if lut_dtype == "int8":
         lut = rng.integers(-128, 128, size=(c, g, n)).astype(np.int8)
+    elif lut_dtype == "int16":
+        lut = rng.integers(-2**15, 2**15, size=(c, g, n)).astype(np.int16)
     else:
         lut = rng.normal(size=(c, g, n)).astype(np.float32)
         if lut_dtype == "bfloat16":
@@ -50,6 +57,25 @@ def _inputs(b, c, n, depth, lut_dtype, seed=0, unit_epilogue=False):
 def _torch(a, dtype=None):
     out = torch.from_numpy(np.array(a))
     return out.to(_TORCH[dtype]) if dtype else out
+
+
+def _int16_tol(c: int, scale: torch.Tensor) -> dict:
+    """int16 tables above 512 codebooks: each of the plain version's C - 1
+    float32 additions may round by half an ulp of the largest possible sum
+    (C · 2**15), and the epilogue scales that."""
+    ulp = 2.0 ** (math.ceil(math.log2(c * 2**15)) - 23)
+    return dict(rtol=1e-6, atol=(c - 1) * ulp / 2 * scale.abs().max().item())
+
+
+def assert_lut_sums(got, want, lut_dtype: str, c: int, scale):
+    """int8 bit-equal, int16 bit-equal at C ≤ 512 (else ``_int16_tol``),
+    float within rtol 1e-5 / atol 1e-4."""
+    if lut_dtype == "int8" or (lut_dtype == "int16" and c <= 512):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    elif lut_dtype == "int16":
+        torch.testing.assert_close(got, want, **_int16_tol(c, scale))
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.fixture
@@ -75,10 +101,7 @@ def test_cuda_fused_lutmu_matches_plain(cuda_device, case, lut_dtype):
     torch.cuda.synchronize()
     assert FL.LAUNCHES.n == before + 1
     want = FL.fused_lutmu_plain(xt, tt, lt, st, ot)
-    if lut_dtype == "int8":
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert_lut_sums(got, want, lut_dtype, case[1], st)
 
 
 def _forced_plan(b, c, depth, lut_dtype, cluster, k_stage=None, thr_smem=None):
@@ -93,8 +116,8 @@ def _forced_plan(b, c, depth, lut_dtype, cluster, k_stage=None, thr_smem=None):
 
 
 def _lutmu_vs_plain(dev, arrays, lut_dtype, launch_plan=None):
-    """The kernel (one launch) against the plain version: int8 bit-equal,
-    float within rtol 1e-5 / atol 1e-4.  Returns the kernel's output."""
+    """The kernel (one launch) against the plain version (see
+    :func:`assert_lut_sums`).  Returns the kernel's output."""
     x, thr, lut, scale, offset = arrays
     xt, tt, st, ot = _on(dev, x, thr, scale, offset)
     (lt,) = _on(dev, lut, dtype=lut_dtype)
@@ -106,10 +129,7 @@ def _lutmu_vs_plain(dev, arrays, lut_dtype, launch_plan=None):
     torch.cuda.synchronize()
     assert FL.LAUNCHES.n == before + 1
     want = FL.fused_lutmu_plain(xt, tt, lt, st, ot)
-    if lut_dtype == "int8":
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert_lut_sums(got, want, lut_dtype, x.shape[1], st)
     return got
 
 
@@ -206,6 +226,32 @@ def test_cuda_fused_lutmu_int8_extremes(cuda_device, value):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, FL.MAX_CLUSTER + 1))
+def test_cuda_fused_lutmu_int16_every_cluster_size(cuda_device, cluster):
+    """int16 tables at every cluster size ``plan`` can pick, over 512
+    codebooks (the most at which the plain version's float32 sums are
+    exact for any table): bit-equal."""
+    b, c, n = 9, 512, 1104
+    arrays = _inputs(b, c, n, 4, "int16", seed=100 + cluster)
+    _lutmu_vs_plain(cuda_device, arrays, "int16",
+                    _forced_plan(b, c, 4, "int16", cluster))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [-2**15, 2**15 - 1])
+def test_cuda_fused_lutmu_int16_extremes(cuda_device, value):
+    """Every entry at an end of the int16 range over 512 codebooks in one
+    block: sums of ±2**24, exact in both versions."""
+    b, c, n = 5, 512, 96
+    x, thr, _, _, _ = _inputs(b, c, n, 4, "int16", seed=3)
+    lut = np.full((c, 16, n), value, np.int16)
+    one, zero = np.asarray(np.float32(1)), np.asarray(np.float32(0))
+    p = _forced_plan(b, c, 4, "int16", 1)
+    got = _lutmu_vs_plain(cuda_device, (x, thr, lut, one, zero), "int16", p)
+    assert bool((got == float(value * c)).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
 def test_cuda_fused_lutmu_float_deterministic(cuda_device, lut_dtype):
     """Float sums in a fixed order: two calls give the same bits."""
@@ -249,12 +295,12 @@ def test_cuda_lut_aggregate_matches_plain(cuda_device, case, lut_dtype):
     xt, tt, st, ot = _on(cuda_device, x, thr, scale, offset)
     (lt,) = _on(cuda_device, lut, dtype=lut_dtype)
     onehot = ME.encode_onehot_plain(xt, tt)
+    before = LA.LAUNCHES.n
     got = LA.lut_aggregate(onehot, lt, st, ot)
+    torch.cuda.synchronize()
+    assert LA.LAUNCHES.n == before + 1
     want = LA.lut_aggregate_plain(onehot, lt, st, ot)
-    if lut_dtype == "int8":
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert_lut_sums(got, want, lut_dtype, case[1], st)
 
 
 @pytest.mark.cuda
@@ -262,7 +308,8 @@ def test_cuda_lut_aggregate_matches_plain(cuda_device, case, lut_dtype):
 @pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
 def test_cuda_lut_aggregate_any_left_operand(cuda_device, kind, lut_dtype):
     """Not only one-hots: a dense left operand (values in [-2, 2], so each
-    product is exact and only the float sums' order differs) and an
+    product is exact and only the float sums' order differs; int16 tables
+    then sum past 2**24, so they are held to the float tolerance) and an
     all-zero one (every output is the offset), with ragged N and enough K
     to split it over the grid."""
     b, c, n, depth = 6, 300, 1003, 4
@@ -299,6 +346,13 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
                        lt, st, ot)  # same shape, not contiguous
     with pytest.raises(ValueError):
         FL.fused_lutmu(xt.cpu(), tt, lt, st, ot)
+    # no fallback for a LUT type without a kernel instance, or an operand
+    # pair without one
+    with pytest.raises(ValueError, match="lut dtype"):
+        FL.fused_lutmu(xt, tt, lt.to(torch.int32), st, ot)
+    onehot = ME.encode_onehot(xt, tt, out_dtype=torch.int8)
+    with pytest.raises(ValueError, match="unsupported operand types"):
+        LA.lut_aggregate(onehot, lt.to(torch.int16), st, ot)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -30,7 +30,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 25, proc.stdout
+    assert n_modules >= 29, proc.stdout
+    # the artifact slice's modules are among those imported
+    for name in ("repro_torch.compiler", "repro_torch.compiler.artifact",
+                 "repro_torch.compiler.quantize", "repro_torch.core.lut_mu",
+                 "repro_torch.serving.loader", "repro_torch.launch.serve"):
+        assert name in proc.stdout.split(), name
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

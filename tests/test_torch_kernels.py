@@ -4,9 +4,10 @@ kernels (the CUDA kernels against the plain versions are in
 
 On the CPU every port wrapper runs its plain version; the same numpy inputs
 go through the JAX Pallas kernel in interpret mode.  Tree codes, one-hots
-and int32 LUT sums (unit epilogue) must match bit for bit; float LUT sums
-match within rtol 1e-5 (float32 sums of at most a few tens of terms, taken
-in another order).
+and int8 and int16 LUT sums (unit epilogue; integer sums, exact in float32
+at these few codebooks) must match bit for bit; float LUT sums match
+within rtol 1e-5 (float32 sums of at most a few tens of terms, taken in
+another order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +24,8 @@ from repro_torch.kernels import maddness_encode as ME
 from repro_torch.kernels import ref as tref
 from test_torch_cuda_kernels import CASES, LUT_DTYPES, _TORCH, _inputs, _torch
 
-_JNP = {"int8": jnp.int8, "float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_JNP = {"int8": jnp.int8, "int16": jnp.int16, "float32": jnp.float32,
+        "bfloat16": jnp.bfloat16}
 
 
 def _jax(a, dtype=None):
@@ -57,8 +59,8 @@ def test_encode_onehot_plain_matches_pallas(case, out_dtype):
 def _check(got: torch.Tensor, want, lut_dtype: str, unit: bool):
     got, want = got.numpy(), np.asarray(want)
     assert got.dtype == np.float32 and got.shape == want.shape
-    if lut_dtype == "int8" and unit:
-        np.testing.assert_array_equal(got, want)  # the int32 sums, exactly
+    if lut_dtype in ("int8", "int16") and unit:
+        np.testing.assert_array_equal(got, want)  # the integer sums, exactly
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -123,10 +125,12 @@ def test_lut_aggregate_k_splits_cover_k(b, c, g, n, lut_dtype):
     assert LA.k_splits(4, 2176 * 16, 5120, torch.int8, 132)[0] > 1
 
 
-# the six (B, C, N, LUT) cases of chip_smoke.py's kernel phase, depth 4
+# the eight (B, C, N, LUT) cases of chip_smoke.py's kernel phase, depth 4
+# (the last two: int16 tables at gate/up and at the SFC chain's layer 0)
 CHIP_SMOKE_CASES = [(4, 640, 8704, "int8"), (4, 2176, 5120, "int8"),
                     (32, 640, 8704, "int8"), (32, 2176, 5120, "int8"),
-                    (4, 640, 8704, "float32"), (32, 2176, 5120, "bfloat16")]
+                    (4, 640, 8704, "float32"), (32, 2176, 5120, "bfloat16"),
+                    (4, 640, 8704, "int16"), (256, 98, 128, "int16")]
 
 
 def test_fused_lutmu_plan_cases_are_chip_smokes():
@@ -178,7 +182,12 @@ def test_fused_lutmu_plan_fills_one_wave():
     assert picks == {(4, 640, 8704, "int8"): 6, (4, 2176, 5120, "int8"): 10,
                      (32, 640, 8704, "int8"): 6, (32, 2176, 5120, "int8"): 10,
                      (4, 640, 8704, "float32"): 3,
-                     (32, 2176, 5120, "bfloat16"): 10}
+                     (32, 2176, 5120, "bfloat16"): 10,
+                     # 2-byte entries take bfloat16's 512-byte tiles: 34
+                     # N-tiles → clusters of 6; the chain's 8 row groups
+                     # × 1 N-tile → 14 of 7 codebooks each
+                     (4, 640, 8704, "int16"): 6,
+                     (256, 98, 128, "int16"): 14}
     # a card that runs no cluster above 8 blocks, and 20 of 8 at once
     assert FL.plan(4, 2176, 5120, 4, 1, 132,
                    lambda p: 20 if p.cluster <= 8 else 0).cluster == 8

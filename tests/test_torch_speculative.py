@@ -9,6 +9,12 @@ copy-on-write, eos inside the window and cancellation: the port's greedy
 streams equal the JAX engine's and the plain engine's, its ``stats`` equal
 JAX's counters, the pool drains to 0 and the scheduler invariants hold.
 Streams are token ids: compared exactly.
+
+A target+draft bundle the JAX compiler writes (int8 target, int4 draft) is
+read from disk by the port's ``load_engine``: its speculative streams and
+``stats`` equal JAX's on the same directory, ``speculative=False`` serves
+the target half, and loaded artifacts or a ``(target, draft)`` pair serve
+as sources too.
 """
 import dataclasses
 
@@ -17,10 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.compiler import compile_lm_bundle
 from repro.configs import get_config
 from repro.models import model as JMD
 from repro.serving import ServeEngine as JServeEngine
 from repro.serving import SpeculativeEngine as JSpeculativeEngine
+from repro.serving import load_engine as jax_load_engine
+from repro_torch.compiler import load_bundle
 from repro_torch.convert import config_from_jax, params_from_jax
 from repro_torch.serving import (SamplingParams, ServeEngine,
                                  SpeculativeEngine, load_engine)
@@ -209,7 +218,8 @@ def test_guards(setup):
     with pytest.raises(ValueError, match="verify backend"):
         SpeculativeEngine(st["tparams"], st["tcfg"], st["tparams"],
                           verify_backend="nope", device="cpu", **KNOBS)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="needs a bundle path or an artifact "
+                       "pair"):
         load_engine(None, st["tparams"], st["tcfg"], speculative=True)
     assert eng.sched.lookahead == 3
     assert eng.kv_draft.allocator is eng.kv.allocator
@@ -226,3 +236,62 @@ def test_port_spec_verify_backends_equal_plain(setup, backend):
     assert eng.verify_backend == backend
     assert _drain(eng, PROMPTS) == [st["oracle"][tuple(p)] for p in PROMPTS]
     _check_pool(eng)
+
+
+# ---------------------------------------------------------------------------
+# a compiled bundle from disk
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    """A JAX-compiled int8 target + int4 draft bundle of the tiny config
+    (spec_k 3 recorded), with the dense params both halves splice into."""
+    cfg = _tiny_cfg(False)
+    params = jax.jit(lambda k: JMD.init_params(cfg, k))(jax.random.PRNGKey(0))
+    calib = np.random.default_rng(0).integers(0, 64, (4, 16))
+    path = tmp_path_factory.mktemp("torch_spec_bundle") / "bundle"
+    compile_lm_bundle(params, cfg, calib, target_resolution="int8",
+                      draft_resolution="int4", spec_k=3, out=str(path))
+    return dict(path=path, cfg=cfg, params=params, tparams=_to_port(params),
+                tcfg=config_from_jax(cfg))
+
+
+def _port_bundle_engine(bd, source=None, **kw):
+    return load_engine(bd["path"] if source is None else source,
+                       bd["tparams"], bd["tcfg"], device="cpu",
+                       **{**KNOBS, **kw})
+
+
+def test_port_serves_jax_bundle_streams_and_stats_equal_jax(bundle):
+    jeng = jax_load_engine(bundle["path"], bundle["params"], bundle["cfg"],
+                           **KNOBS)
+    teng = _port_bundle_engine(bundle)
+    assert type(teng) is SpeculativeEngine and teng.spec_k == jeng.spec_k == 3
+    assert teng.draft_params["layers"]["amm_mlp"]["lut_gate"].dtype == torch.int8
+    want, got = _drain(jeng, PROMPTS), _drain(teng, PROMPTS)
+    assert got == want
+    _same_counters(teng, jeng)
+    assert 0 < teng.stats["accepted"] < teng.stats["proposed"]
+    _check_pool(teng)
+
+
+def test_port_bundle_target_half_and_other_sources(bundle):
+    """``speculative=False`` is the target half through the plain engine;
+    a loaded (target, draft) pair and ``spec_k`` given explicitly serve
+    the same greedy streams."""
+    want = _drain(jax_load_engine(bundle["path"], bundle["params"],
+                                  bundle["cfg"], speculative=False, **KNOBS),
+                  PROMPTS)
+    plain = _port_bundle_engine(bundle, speculative=False)
+    assert type(plain) is ServeEngine
+    assert _drain(plain, PROMPTS) == want
+    target, draft, manifest = load_bundle(bundle["path"])
+    assert manifest["spec_k"] == 3
+    pair = _port_bundle_engine(bundle, (target, draft), spec_k=2)
+    assert type(pair) is SpeculativeEngine and pair.spec_k == 2
+    assert _drain(pair, PROMPTS) == want
+    half = _port_bundle_engine(bundle, (target, draft), speculative=False)
+    assert type(half) is ServeEngine
+    assert _drain(half, PROMPTS) == want
+    assert _drain(_port_bundle_engine(bundle, target), PROMPTS) == want
