@@ -14,7 +14,9 @@ Phases, each fatal on failure:
    int16 at gate/up B=4 and at the SFC chain's layer 0, C=98 N=128
    B=256): int8 and int16 bit for bit, float within the stated tolerance;
    kernel, plain, bound and library (one ``torch.matmul`` of the float32
-   one-hot × LUT) times;
+   one-hot × LUT) times; the encode with float32 and (int8 cases) int8
+   output, each also with its profiler device time per call, beside the
+   launch floor (one ``zero_()`` of a 4-byte tensor under the same timer);
 4. agree — at full width, a prefill chunk and a decode step through the
    kernels give bit-identical logits to the same calls through the plain
    ``ref`` LUT-MU path;
@@ -176,6 +178,24 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def device_ms(torch, fn, names, iters: int, flush) -> float:
+    """The device time per call of the kernels whose names contain one of
+    ``names`` (``torch.profiler``), L2 flushed before each call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(n in e.key for n in names))
+    return total / 1e3 / iters
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / ops_per_s
@@ -193,7 +213,13 @@ def kernel_checks(torch, timer, mods):
           "bfloat16": torch.bfloat16}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     g = 2**DEPTH
-    results = {"fused_lutmu": {}, "encode_onehot": {}, "lut_aggregate": {}}
+    results = {"fused_lutmu": {}, "encode_onehot": {},
+               "encode_onehot_int8": {}, "lut_aggregate": {}}
+    tiny = torch.zeros(1, device="cuda")
+    timer.ms(tiny.zero_, 20)  # the process's first timed calls read high
+    floor_ms = timer.ms(tiny.zero_, 20)  # what any launch costs here
+    print(f"[kernel] launch floor (zero_ of 4 bytes) {floor_ms:.4f} ms",
+          flush=True)
     for proj, b, lut_name in CASES:
         c, n = SHAPES[proj]
         lut_dtype = dt[lut_name]
@@ -254,14 +280,25 @@ def kernel_checks(torch, timer, mods):
             max_abs_err=err, ms=timer.ms(lambda: FL.fused_lutmu(*args), 20),
             plain_ms=timer.ms(lambda: FL.fused_lutmu_plain(*args), 3),
             bound_ms=bms, bound_by=by, library_ms=library_ms)
-        # kernel 2: encode to a one-hot (float32 out, as the unfused path)
-        err = compare("encode_onehot", ME.encode_onehot(x, thr), onehot, True)
-        nbytes = x.numel() * 4 + thr.numel() * 4 + onehot.numel() * 4
-        bms, by = bound_ms(nbytes, b * c * (g - 1), ADD_OPS_PER_S)
-        results["encode_onehot"][key] = dict(
-            max_abs_err=err, ms=timer.ms(lambda: ME.encode_onehot(x, thr), 20),
-            plain_ms=timer.ms(lambda: ME.encode_onehot_plain(x, thr), 3),
-            bound_ms=bms, bound_by=by, library_ms=None)
+        # kernel 2: encode to a one-hot, float32 out (float and int16
+        # tables on the unfused path) and int8 out (int8 tables)
+        outs = ("float32", "int8") if lut_dtype == torch.int8 else ("float32",)
+        for out_name in outs:
+            od = dt[out_name]
+            want = (onehot if od == torch.float32
+                    else ME.encode_onehot_plain(x, thr, od))
+            enc = lambda od=od: ME.encode_onehot(x, thr, out_dtype=od)  # noqa: E731
+            err = compare(f"encode_onehot {out_name}", enc(), want, True)
+            nbytes = (x.numel() * 4 + thr.numel() * 4
+                      + want.numel() * want.element_size())
+            bms, by = bound_ms(nbytes, b * c * (g - 1), ADD_OPS_PER_S)
+            res = "encode_onehot" if out_name == "float32" else "encode_onehot_int8"
+            results[res][key] = dict(
+                max_abs_err=err, ms=timer.ms(enc, 20),
+                plain_ms=timer.ms(lambda od=od: ME.encode_onehot_plain(x, thr, od), 3),
+                bound_ms=bms, bound_by=by, library_ms=None, floor_ms=floor_ms,
+                device_ms=device_ms(torch, enc, ["encode_onehot"], 20, timer.flush))
+            del want
         # kernel 3: one-hot × LUT product (one LUT row per nonzero is needed)
         agg = (onehot, lut, scale, offset)
         err = compare("lut_aggregate", LA.lut_aggregate(*agg),
@@ -273,13 +310,17 @@ def kernel_checks(torch, timer, mods):
             plain_ms=timer.ms(lambda: LA.lut_aggregate_plain(*agg), 3),
             bound_ms=bms, bound_by=by, library_ms=library_ms)
         for name in results:
-            r = results[name][key]
+            r = results[name].get(key)
+            if r is None:
+                continue
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            extra = (f" floor_ms={r['floor_ms']:.4f} device_ms="
+                     f"{r['device_ms']:.4f}" if "floor_ms" in r else "")
             print(f"[kernel] {name:13s} {proj:7s} B={b:<2d} {lut_name:8s} "
                   f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-                  f"library_ms={lib} max_abs_err={r['max_abs_err']:.3g}",
-                  flush=True)
+                  f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+                  f"library_ms={lib} max_abs_err={r['max_abs_err']:.3g}"
+                  + extra, flush=True)
         del x, thr, lut, onehot, lhs_f32, rhs_f32, codes
         torch.cuda.empty_cache()
     return results
@@ -1134,8 +1175,8 @@ def main() -> int:
                                by_lut(kres["fused_lutmu"], False), JSON_CASE),
                "encode_onehot": ("src/repro_torch/csrc/maddness_encode.cu",
                                  "src/repro/kernels/maddness_encode.py:85",
-                                 "unfused", lutmu_shape,
-                                 kres["encode_onehot"], JSON_CASE),
+                                 "unfused", lutmu_shape + " one-hot",
+                                 kres["encode_onehot_int8"], JSON_CASE),
                "lut_aggregate": ("src/repro_torch/csrc/lut_aggregate.cu",
                                  "src/repro/kernels/lut_aggregate.py:96",
                                  "unfused", lutmu_shape,
@@ -1165,7 +1206,8 @@ def main() -> int:
             "shape": shape,
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("floor_ms", "device_ms") if k in r}})
     ensure(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries),
            "a kernel has no time or no launches")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -48,7 +48,8 @@ ENTRY_POINTS = {
                     [_VP, _VP, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _CI,
                      _CI, _CI, _CI, _CI, _CI, _CI, _CI, _VP]),
     "maddness_encode": ("encode_onehot_launch",
-                        [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _VP]),
+                        [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CI,
+                         _CI, _VP]),
     "lut_aggregate": ("lut_aggregate_launch",
                       [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _CI,
                        _CI, _CI, _CI, _CI, _VP]),

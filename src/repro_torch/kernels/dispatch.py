@@ -125,7 +125,12 @@ def _run_ref(xs: Tensor, params: MaddnessParams) -> Tensor:
 
 
 def _run_unfused(xs: Tensor, params: MaddnessParams) -> Tensor:
-    onehot = encode_onehot_cuda(xs, params.tree.thresholds)
+    # int8 tables take an int8 one-hot as it is; float and int16 tables
+    # a float32 one (the same 0/1 bits either way)
+    out_dtype = (torch.int8 if params.lut.dtype == torch.int8
+                 else torch.float32)
+    onehot = encode_onehot_cuda(xs, params.tree.thresholds,
+                                out_dtype=out_dtype)
     return lut_aggregate(onehot, params.lut, params.lut_scale,
                          params.lut_offset)
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels import lut_aggregate as LA
 from repro_torch.kernels import fused_verify as FV
 from repro_torch.kernels import maddness_encode as ME
+from repro_torch.kernels.ref import encode_codes_ref
 from repro_torch.models import attention as TA
 from repro_torch.models.config import ModelConfig
 
@@ -332,6 +333,182 @@ def test_cuda_lut_aggregate_any_left_operand(cuda_device, kind, lut_dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# MADDNESS encode: csrc/maddness_encode.cu against the plain version, bit
+# for bit (the same x >= thr comparisons: ties go right, NaN goes left)
+# ---------------------------------------------------------------------------
+
+OUT_DTYPES = ["float32", "bfloat16", "int8"]
+
+
+def _encode_inputs(b, c, depth, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, c, depth)).astype(np.float32),
+            rng.normal(size=(c, 2**depth - 1)).astype(np.float32))
+
+
+def _special_inputs(seed=0):
+    """Split values that tie their thresholds (x == thr), ±inf and NaN,
+    against thresholds of 0.5 in most codebooks and of ±inf and NaN in
+    the rest: (B=6, C=40, I=4).  Row 0 takes NaN at every level of
+    codebook 0 (leaf 0) and ties at every level of codebook 1 (leaf 15)."""
+    rng = np.random.default_rng(seed)
+    b, c, depth = 6, 40, 4
+    vals = np.array([0.5, -np.inf, np.inf, np.nan, 0.25, 0.75], np.float32)
+    x = rng.choice(vals, size=(b, c, depth)).astype(np.float32)
+    x[0, 0], x[0, 1] = np.nan, 0.5
+    thr = np.full((c, 2**depth - 1), 0.5, np.float32)
+    odd = rng.choice(np.array([np.inf, -np.inf, np.nan, 0.5], np.float32),
+                     size=(c // 4, 2**depth - 1))
+    thr[-(c // 4):] = odd
+    return x, thr
+
+
+def _encode_vs_plain(dev, x, thr, out_dtype, launch_plan=None):
+    """The kernel (one launch) bit-equal to the plain version; numpy or
+    CUDA-tensor inputs."""
+    xt, tt = (a if isinstance(a, torch.Tensor) else _torch(a).to(dev)
+              for a in (x, thr))
+    dt = _TORCH[out_dtype]
+    before = ME.LAUNCHES.n
+    if launch_plan is None:
+        got = ME.encode_onehot(xt, tt, out_dtype=dt)
+    else:
+        got = ME.launch(xt, tt, dt, launch_plan)
+    torch.cuda.synchronize()
+    assert ME.LAUNCHES.n == before + 1
+    want = ME.encode_onehot_plain(xt, tt, dt)
+    assert got.dtype == want.dtype == dt and got.shape == want.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", range(1, ME.MAX_DEPTH + 1))
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_cuda_encode_onehot_every_depth(cuda_device, depth, out_dtype):
+    """Every depth the wrapper takes, at a small C: thresholds staged
+    (above 48 KB of shared memory at depth 14) and, at depths 15 and 16,
+    read from device memory."""
+    x, thr = _encode_inputs(5, 3, depth, seed=depth)
+    assert ME.plan(5, 3, depth, 4, 132).thr_smem == (depth <= 14)
+    _encode_vs_plain(cuda_device, x, thr, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4, 8, 13])
+@pytest.mark.parametrize("thr_smem", [True, False])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_cuda_encode_onehot_forced_tiles(cuda_device, depth, thr_smem,
+                                         out_dtype):
+    """Both threshold instances at depths where either fits, under tiles
+    the plan would not pick (3 rows × 5 codebooks over ragged B and C)."""
+    b, c = 11, 13
+    x, thr = _encode_inputs(b, c, depth, seed=20 + depth)
+    p = ME.sized(b, c, depth, 3, 5, thr_smem)
+    _encode_vs_plain(cuda_device, x, thr, out_dtype, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(1, 1), (1, 7), (5, 1), (33, 31), (31, 129),
+                                 (64, 65)])
+@pytest.mark.parametrize("depth", [1, 3, 4])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_cuda_encode_onehot_ragged(cuda_device, b, c, depth, out_dtype):
+    """Ragged B and C around the tile sizes, B=1 and C=1; at depths 1 and
+    3 a 16-byte chunk spans several codebooks (int8, bfloat16) and rows'
+    runs start off a 16-byte boundary."""
+    x, thr = _encode_inputs(b, c, depth, seed=b * 1000 + c)
+    _encode_vs_plain(cuda_device, x, thr, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_cuda_encode_onehot_unaligned_inputs(cuda_device, offset, out_dtype):
+    """Split values and thresholds that start 4, 8 or 12 bytes past a
+    16-byte boundary (contiguous views into a larger buffer)."""
+    b, c, depth = 9, 37, 4
+    x, thr = _encode_inputs(b, c, depth, seed=offset)
+    xt, tt = (torch.empty(a.size + offset, device=cuda_device)[offset:]
+              .view(a.shape).copy_(_torch(a)) for a in (x, thr))
+    assert xt.data_ptr() % 16 == 4 * offset
+    _encode_vs_plain(cuda_device, xt, tt, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(4, 640), (4, 2176), (32, 640), (32, 2176)])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_cuda_encode_onehot_main_path_shapes(cuda_device, b, c, out_dtype):
+    """qwen3-14b's gate/up (C=640) and down (C=2176) at a decode batch and
+    a prefill chunk, depth 4."""
+    x, thr = _encode_inputs(b, c, 4, seed=b + c)
+    _encode_vs_plain(cuda_device, x, thr, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_cuda_encode_onehot_ties_inf_nan(cuda_device, out_dtype):
+    """Ties go right, NaN goes left, ±inf compare as numbers."""
+    x, thr = _special_inputs()
+    _encode_vs_plain(cuda_device, x, thr, out_dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_encode_onehot_rejects_a_wrong_plan(cuda_device):
+    """The kernel checks the plan's shared memory against its own layout:
+    a launch that would not fit raises, and nothing is counted."""
+    x, thr = _encode_inputs(4, 9, 4)
+    xt, tt = _on(cuda_device, x, thr)
+    p = ME.sized(4, 9, 4, 2, 3)
+    before = ME.LAUNCHES.n
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ME.launch(xt, tt, torch.float32,
+                  ME.Plan(p.c_t, p.b_t, p.thr_smem, p.smem + 16, p.grid))
+    assert ME.LAUNCHES.n == before
+
+
+# ROADMAP C5: int16 tables whose sums pass 2**24, where the plain
+# version's float32 sums round and the fused kernel's int32 sums do not.
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [640, 2176])
+@pytest.mark.parametrize("fill", ["max", "alternating"])
+def test_cuda_int16_worst_case_sums(cuda_device, c, fill):
+    """Every entry 2**15 - 1, or 2**15 - 1 and 2**15 - 3 alternating (odd
+    sums past 2**24 are not float32 numbers): ``fused`` equals the exact
+    integer sum rounded once, and both ``fused`` and ``unfused`` (the
+    encode kernel, then the aggregate's float32 sums) stay within
+    ``_int16_tol`` of the plain version."""
+    b, n, depth = 32, 256, 4
+    x, thr = _encode_inputs(b, c, depth, seed=c)
+    g = 2**depth
+    if fill == "max":
+        lut = np.full((c, g, n), 2**15 - 1, np.int16)
+    else:
+        parity = np.add.outer(np.add.outer(np.arange(c), np.arange(g)),
+                              np.arange(n)) % 2
+        lut = np.where(parity == 0, 2**15 - 1, 2**15 - 3).astype(np.int16)
+    one, zero = np.asarray(np.float32(1)), np.asarray(np.float32(0))
+    xt, tt, st, ot = _on(cuda_device, x, thr, one, zero)
+    (lt,) = _on(cuda_device, lut, dtype="int16")
+    fused = FL.fused_lutmu(xt, tt, lt, st, ot)
+    unfused = LA.lut_aggregate(ME.encode_onehot(xt, tt), lt, st, ot)
+    plain = FL.fused_lutmu_plain(xt, tt, lt, st, ot)
+    codes = encode_codes_ref(xt, tt).long()
+    exact = lt[torch.arange(c, device=cuda_device)[None], codes].long().sum(1)
+    torch.cuda.synchronize()
+    assert int(exact.max()) > 2**24
+    assert torch.equal(fused, exact.double().float())
+    d_fused = (fused - plain).abs().max().item()
+    d_unfused = (unfused - plain).abs().max().item()
+    d_exact = (unfused.double() - exact.double()).abs().max().item()
+    print(f"int16 C={c} {fill}: max |fused - plain| {d_fused}, "
+          f"|unfused - plain| {d_unfused}, |unfused - exact| {d_exact}, "
+          f"tolerance {_int16_tol(c, st)['atol']}")
+    torch.testing.assert_close(fused, plain, **_int16_tol(c, st))
+    torch.testing.assert_close(unfused, plain, **_int16_tol(c, st))
 
 
 @pytest.mark.cuda

@@ -14,15 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import dispatch as JD
 from repro.kernels import ref as jref
 from repro.kernels.fused_lutmu import fused_lutmu_pallas
 from repro.kernels.lut_aggregate import lut_aggregate_pallas
 from repro.kernels.maddness_encode import encode_onehot_pallas
+from repro_torch.kernels import dispatch as TD
 from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels import lut_aggregate as LA
 from repro_torch.kernels import maddness_encode as ME
 from repro_torch.kernels import ref as tref
-from test_torch_cuda_kernels import CASES, LUT_DTYPES, _TORCH, _inputs, _torch
+from test_torch_cuda_kernels import (CASES, LUT_DTYPES, OUT_DTYPES, _TORCH,
+                                     _inputs, _special_inputs, _torch)
 
 _JNP = {"int8": jnp.int8, "int16": jnp.int16, "float32": jnp.float32,
         "bfloat16": jnp.bfloat16}
@@ -193,3 +196,135 @@ def test_fused_lutmu_plan_fills_one_wave():
                    lambda p: 20 if p.cluster <= 8 else 0).cluster == 8
     # one that runs too few clusters of any size for a wave: one block each
     assert FL.plan(4, 2176, 5120, 4, 1, 132, lambda p: 16).cluster == 1
+
+
+# ---------------------------------------------------------------------------
+# MADDNESS encode: the tile plan, edge inputs, the unfused path's one-hot
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("depth", range(1, ME.MAX_DEPTH + 1))
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_encode_plan_fits_and_covers(depth, out_dtype):
+    """At every depth and output type: the plan's shared memory is the
+    kernel's layout and stays within ``SMEM_BUDGET``, its staged
+    thresholds within ``THR_BUDGET``; a tile holds at most ``PAIRS``
+    (row, codebook) pairs and ``ROWS`` rows; the grid's tiles cover every
+    (row, codebook) exactly once at ragged B and C; depths whose one
+    codebook's thresholds do not fit (15, 16) read them from device
+    memory."""
+    itemsize = _TORCH[out_dtype].itemsize
+    assert ME.SMEM_BUDGET <= FL.MAX_SMEM
+    for b, c in [(1, 1), (4, 640), (32, 2176), (33, 7), (7, 130), (70, 97)]:
+        for sms in (1, 132):
+            p = ME.plan(b, c, depth, itemsize, sms)
+            assert p.thr_smem == (depth <= 14)
+            assert p.smem == ME.smem_bytes(p.b_t, p.c_t, depth, p.thr_smem)
+            assert p.smem <= ME.SMEM_BUDGET
+            staged = p.smem - ME.smem_bytes(p.b_t, p.c_t, depth, False)
+            assert staged <= ME.THR_BUDGET
+            assert 1 <= p.b_t <= min(b, ME.ROWS) and 1 <= p.c_t <= c
+            assert p.b_t * p.c_t <= ME.PAIRS
+            tiles_c = -(-c // p.c_t)
+            assert p.grid == tiles_c * -(-b // p.b_t)
+            seen = np.zeros((b, c), np.int64)
+            for blk in range(p.grid):  # csrc/maddness_encode.cu's tile order
+                tb, tc = divmod(blk, tiles_c)
+                seen[tb * p.b_t:(tb + 1) * p.b_t,
+                     tc * p.c_t:(tc + 1) * p.c_t] += 1
+            assert (seen == 1).all()
+
+
+def test_encode_plan_main_path_shapes():
+    """The tiles the plan picks at chip_smoke.py's encode shapes on a
+    132-SM card: a prefill chunk of the down projection fills the card
+    (272 blocks of 32 rows × 8 codebooks), a decode call stays at 20–68
+    blocks of 128 pairs, whatever the output type."""
+    for itemsize in (4, 2, 1):
+        picks = {(b, c): (p.b_t, p.c_t, p.grid) for b, c in
+                 [(4, 640), (4, 2176), (32, 640), (32, 2176), (256, 98)]
+                 for p in [ME.plan(b, c, 4, itemsize, 132)]}
+        assert picks == {(4, 640): (4, 32, 20), (4, 2176): (4, 32, 68),
+                         (32, 640): (32, 4, 160), (32, 2176): (32, 8, 272),
+                         (256, 98): (32, 4, 200)}
+
+
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
+def test_encode_onehot_plain_ties_inf_nan_match_pallas(out_dtype):
+    """Ties (x == thr) go right, NaN goes left, ±inf compare as numbers:
+    the plain encode equals the Pallas kernel bit for bit."""
+    x, thr = _special_inputs()
+    want = encode_onehot_pallas(_jax(x), _jax(thr), depth=4,
+                                out_dtype=_JNP[out_dtype], interpret=True)
+    got = ME.encode_onehot(_torch(x), _torch(thr),
+                           out_dtype=_TORCH[out_dtype])
+    assert got.dtype == _TORCH[out_dtype]
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want).astype(np.float32))
+    codes = tref.encode_codes_ref(_torch(x), _torch(thr)).numpy()
+    assert codes[0, 0] == 0 and codes[0, 1] == 15  # all NaN; all ties
+
+
+@pytest.mark.parametrize("lut_dtype", LUT_DTYPES)
+def test_unfused_asks_for_an_int8_onehot_only_for_int8_tables(monkeypatch,
+                                                               lut_dtype):
+    """``backend="unfused"`` asks the encode for an int8 one-hot when the
+    tables are int8 (the aggregate takes it as it is) and for float32
+    otherwise (the aggregate's left operand for float and int16 tables)."""
+    asked = []
+    real = TD.encode_onehot_cuda
+
+    def spy(xs, thresholds, *, out_dtype=torch.float32):
+        asked.append(out_dtype)
+        return real(xs, thresholds, out_dtype=out_dtype)
+
+    monkeypatch.setattr(TD, "encode_onehot_cuda", spy)
+    x, thr, lut, scale, offset = _inputs(5, 7, 40, 3, lut_dtype)
+    split = np.zeros((7, 3), np.int32)
+    params = TD.params_from_arrays(_torch(split), _torch(thr),
+                                   _torch(lut, lut_dtype), _torch(scale),
+                                   _torch(offset))
+    out = TD.lutmu_matmul(_torch(x), params, backend="unfused",
+                          input_kind="split")
+    assert out.shape == (5, 40)
+    assert asked == [torch.int8 if lut_dtype == "int8" else torch.float32]
+
+
+@pytest.mark.parametrize("input_kind", ["split", "full"])
+@pytest.mark.parametrize("unit", [True, False])
+def test_unfused_int8_matches_jax_unfused(input_kind, unit):
+    """On int8 tables the port's ``backend="unfused"`` (an int8 one-hot)
+    equals the JAX package's (a float32 one-hot through the Pallas
+    kernels, interpret mode) bit for bit in the integer sums (unit
+    epilogue).  With a real epilogue the Pallas aggregate contracts
+    acc·scale + offset into one FMA in interpret mode, while the port
+    rounds twice, as JAX's ``ref`` backend does: the port equals that
+    backend bit for bit, and the Pallas path within the product's
+    rounding plus the sum's (half an ulp of values below 32 each: |acc| ≤
+    9 · 128, scale ≤ 0.02, |offset| < 8)."""
+    rng = np.random.default_rng(17)
+    b, c, depth, n, d_sub = 6, 9, 4, 72, 4
+    split = rng.integers(0, d_sub, size=(c, depth)).astype(np.int32)
+    thr = rng.normal(size=(c, 2**depth - 1)).astype(np.float32) * 0.5
+    lut = rng.integers(-128, 128, size=(c, 2**depth, n)).astype(np.int8)
+    if unit:
+        scale, offset = np.asarray(np.float32(1)), np.asarray(np.float32(0))
+    else:
+        scale = rng.uniform(0.005, 0.02, size=(n,)).astype(np.float32)
+        offset = rng.normal(size=(n,)).astype(np.float32)
+    arrays = (split, thr, lut, scale, offset)
+    jp = JD.params_from_arrays(*map(jnp.asarray, arrays))
+    tp = TD.params_from_arrays(*map(torch.from_numpy, arrays))
+    shape = (b, c, depth) if input_kind == "split" else (b, c * d_sub)
+    x = rng.normal(size=shape).astype(np.float32)
+    want = np.asarray(JD.lutmu_matmul(jnp.asarray(x), jp, backend="unfused",
+                                      input_kind=input_kind))
+    got = TD.lutmu_matmul(torch.from_numpy(x), tp, backend="unfused",
+                          input_kind=input_kind).numpy()
+    if unit:
+        np.testing.assert_array_equal(got, want)
+        return
+    two_roundings = np.asarray(JD.lutmu_matmul(
+        jnp.asarray(x), jp, backend="ref", input_kind=input_kind))
+    np.testing.assert_array_equal(got, two_roundings)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 * 2.0**-20)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's verify-window, fused LUT-MU and LUT-aggregate kernels
-of one source tree three ways, at the shapes ``chip_smoke.py`` uses:
+"""Time the port's verify-window, fused LUT-MU, encode and LUT-aggregate
+kernels of one source tree three ways, at the shapes ``chip_smoke.py``
+uses:
 
     python3 tools/kernel_timing.py [--src DIR] [--label NAME] [--sweep]
+                                   [--kernels NAME,...]
 
 ``--src`` is a ``src`` directory holding ``repro_torch`` (default: this
 checkout's), so the kernels of another commit can be timed in the same
@@ -19,6 +21,13 @@ JSON line with
   device still runs a 25 ms sleep: near 0 when the call only enqueues,
   near the sleep when something in it waits for the device.
 
+``encode_onehot`` is timed with float32 output and, in the int8 cases,
+int8 output (what the unfused path asks for with int8 tables); its line
+also names the launch plan where the tree's wrapper has ``plan``.  A first
+``encode_onehot`` line at B=1, C=1 is the kernel's fixed cost.
+``--kernels`` times only the named kernels (``verify_window``,
+``fused_lutmu``, ``encode_onehot``, ``lut_aggregate``).
+
 ``--sweep`` times only ``fused_lutmu``, under every cluster size (of a
 tree whose wrapper has ``launch``), beside the plan ``fused_lutmu.plan``
 picks.
@@ -34,22 +43,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-
-
-def device_ms(torch, fn, names, iters: int, flush) -> float:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and any(n in e.key for n in names))
-    return total / 1e3 / iters
 
 
 def host_blocked_ms(torch, fn) -> float:
@@ -71,13 +64,16 @@ def lut_cases(torch, CS):
     g = 2**CS.DEPTH
     for proj, b, lut_name in CS.CASES:
         c, n = CS.SHAPES[proj]
-        dt = {"int8": torch.int8, "float32": torch.float32,
-              "bfloat16": torch.bfloat16}[lut_name]
+        dt = {"int8": torch.int8, "int16": torch.int16,
+              "float32": torch.float32, "bfloat16": torch.bfloat16}[lut_name]
         x = torch.randn((b, c, CS.DEPTH), generator=gen, device="cuda")
         thr = torch.randn((c, g - 1), generator=gen, device="cuda")
         if dt == torch.int8:
             lut = torch.randint(-128, 128, (c, g, n), generator=gen,
                                 dtype=torch.int8, device="cuda")
+        elif dt == torch.int16:
+            lut = torch.randint(-2**15, 2**15, (c, g, n), generator=gen,
+                                dtype=torch.int16, device="cuda")
         else:
             lut = torch.randn((c, g, n), generator=gen, device="cuda").to(dt)
         scale = torch.rand((n,), generator=gen, device="cuda") * 0.015 + 0.005
@@ -115,7 +111,10 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--kernels", default="verify_window,fused_lutmu,"
+                    "encode_onehot,lut_aggregate")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
     import torch
     if not torch.cuda.is_available():
         print("kernel_timing: CUDA is not available", file=sys.stderr)
@@ -131,6 +130,8 @@ def main() -> int:
 
     _build.build()
     timer = CS.Timer(torch)
+    tiny = torch.zeros(1, device="cuda")
+    timer.ms(tiny.zero_, 20)  # the process's first timed calls read high
     kind = torch.cuda.get_device_name(0)
 
     def report(**kw):
@@ -138,8 +139,9 @@ def main() -> int:
 
     if args.sweep:
         return sweep(torch, CS, FL, timer, report)
+    device_ms = CS.device_ms
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    for s_len in CS.VERIFY_S:
+    for s_len in CS.VERIFY_S if "verify_window" in kernels else ():
         for kv_name in ("bfloat16", "float32", "int8"):
             q, kp, vp, pt, pos = CS.verify_inputs(torch, s_len, kv_name, gen)
             fn = lambda: FV.verify_window_attend_cuda(q, kp, vp, pt, pos, None)  # noqa: E731
@@ -150,21 +152,43 @@ def main() -> int:
                    host_blocked_ms=host_blocked_ms(torch, fn))
             del q, kp, vp, pt, pos
 
+    sms = _build.sm_count()
+    if "encode_onehot" in kernels:
+        x1 = torch.zeros((1, 1, CS.DEPTH), device="cuda")
+        t1 = torch.zeros((1, 2**CS.DEPTH - 1), device="cuda")
+        fn = lambda: ME.encode_onehot(x1, t1)  # noqa: E731
+        report(kernel="encode_onehot", case="B=1 C=1 (fixed cost)",
+               out=str(torch.float32), event_ms=timer.ms(fn, 20),
+               device_ms=device_ms(torch, fn, ["encode_onehot"], 20,
+                                   timer.flush),
+               host_blocked_ms=host_blocked_ms(torch, fn))
     for proj, b, lut_name, (x, thr, lut, scale, offset) in lut_cases(torch, CS):
-        fn = lambda: FL.fused_lutmu(x, thr, lut, scale, offset)  # noqa: E731
-        report(kernel="fused_lutmu", case=f"{proj} B={b} {lut_name}",
-               event_ms=timer.ms(fn, 20),
-               device_ms=device_ms(torch, fn, ["fused_lutmu", "reduce_epilogue"],
-                                   20, timer.flush),
-               host_blocked_ms=host_blocked_ms(torch, fn))
-        onehot = ME.encode_onehot_plain(x, thr)
-        fn = lambda: LA.lut_aggregate(onehot, lut, scale, offset)  # noqa: E731
-        report(kernel="lut_aggregate", case=f"{proj} B={b} {lut_name}",
-               event_ms=timer.ms(fn, 10),
-               device_ms=device_ms(torch, fn, ["lut_aggregate", "reduce_epilogue"],
-                                   10, timer.flush),
-               host_blocked_ms=host_blocked_ms(torch, fn))
-        del onehot
+        case = f"{proj} B={b} {lut_name}"
+        if "fused_lutmu" in kernels:
+            fn = lambda: FL.fused_lutmu(x, thr, lut, scale, offset)  # noqa: E731
+            report(kernel="fused_lutmu", case=case, event_ms=timer.ms(fn, 20),
+                   device_ms=device_ms(torch, fn, ["fused_lutmu", "reduce_epilogue"],
+                                       20, timer.flush),
+                   host_blocked_ms=host_blocked_ms(torch, fn))
+        outs = (torch.float32, torch.int8) if lut.dtype == torch.int8 else (torch.float32,)
+        for od in outs if "encode_onehot" in kernels else ():
+            fn = lambda od=od: ME.encode_onehot(x, thr, out_dtype=od)  # noqa: E731
+            plan = getattr(ME, "plan", None)
+            extra = ({"plan": str(plan(b, lut.shape[0], CS.DEPTH,
+                                       od.itemsize, sms))} if plan else {})
+            report(kernel="encode_onehot", case=case, out=str(od),
+                   event_ms=timer.ms(fn, 20),
+                   device_ms=device_ms(torch, fn, ["encode_onehot"], 20,
+                                       timer.flush),
+                   host_blocked_ms=host_blocked_ms(torch, fn), **extra)
+        if "lut_aggregate" in kernels:
+            onehot = ME.encode_onehot_plain(x, thr)
+            fn = lambda: LA.lut_aggregate(onehot, lut, scale, offset)  # noqa: E731
+            report(kernel="lut_aggregate", case=case, event_ms=timer.ms(fn, 10),
+                   device_ms=device_ms(torch, fn, ["lut_aggregate", "reduce_epilogue"],
+                                       10, timer.flush),
+                   host_blocked_ms=host_blocked_ms(torch, fn))
+            del onehot
     return 0
 
 
