@@ -22,11 +22,17 @@ Phases, each fatal on failure:
    ``ref`` LUT-MU path;
 5. serve — qwen3-14b at full width and depth (40 layers, bf16, random int8
    LUTs from a seeded generator on the card) through
-   ``load_engine(None, ...)``: 6 greedy requests, 16 new tokens each, with
-   every launch counter set to 0 just before; ``fused_lutmu`` must launch
-   120 times per forward call and the ``ref`` path never; then a decode
-   step's host time and device busy time (``torch.profiler``), where
-   each ``fused_lutmu`` call must be one kernel launch;
+   ``load_engine(None, ...)``: one short request captures the engine's
+   step programs (CUDA graphs; capture seconds and graph nodes printed on
+   their own line), then 6 greedy requests, 16 new tokens each, with every
+   launch counter set to 0 just before (every engine run below starts the
+   same way); ``fused_lutmu`` must launch 120 times per forward call,
+   replays counted, and the ``ref`` path never; then a decode step's host
+   time and device busy time (``torch.profiler``), where each
+   ``fused_lutmu`` call must be one kernel launch, and the decode program
+   replayed against its eager twin (``MD.paged_decode_step`` on a copy of
+   the cache, the same inputs): host enqueue and wall ms, device ms from
+   CUDA events and from the profiler;
 6. unfused — the ``--amm-backend unfused`` path (encode + aggregate
    kernels) at full width, depth cut to 4 layers, 2 requests, whose
    streams must equal the same requests' through the plain ``ref`` path;
@@ -68,7 +74,13 @@ Phases, each fatal on failure:
     and int8, written with ``save_artifact`` and loaded with
     ``AMMChain.load``, run at batch 256 on ``auto`` (int16 also
     ``unfused``): every layer bit-equal, on the chain's own inputs, to the
-    same layer with ``backend="ref"``.
+    same layer with ``backend="ref"``;
+14. graphs (after 5) — the graph gate at the serve configuration: every
+    call of a live engine's decode and prefill programs (3 or more
+    consecutive decode steps; a chunk at start 32 with 8 of 32 valid), then
+    of the speculative engine's greedy round and prefill pair on ``fused`` and
+    on ``scan``, bit-equal to its model function called eagerly on a copy
+    of the caches: outputs, and every KV page but the trash page.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
@@ -482,8 +494,18 @@ def serve(torch, cfg, params, load_engine, n_requests: int, max_new: int):
 
 
 def drive(torch, engine, cfg, n_requests: int, max_new: int):
-    """Submit the CLI prompts and step ``engine`` until it drains; returns
+    """One short request first, which captures ``engine``'s step programs;
+    then, with its call counters, every launch count and the peak memory
+    set to 0, submit the CLI prompts and step until it drains.  Returns
     (requests, seconds, ttft list, engine)."""
+    from repro_torch.kernels import _build
+    engine.submit(prompts(cfg.vocab_size, 1)[0], max_new_tokens=2)
+    engine.run_until_drained()
+    for k, v in engine.stats.items():
+        if isinstance(v, int):
+            engine.stats[k] = 0
+    reset_counts(_build.launch_counts())
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [engine.submit(p, max_new_tokens=max_new)
@@ -498,6 +520,43 @@ def drive(torch, engine, cfg, n_requests: int, max_new: int):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     return handles, dt, [ttft[h.request_id] for h in handles], engine
+
+
+def eager_streams(torch, MD, params, cfg, reqs, max_new: int):
+    """Greedy streams of ``reqs``, each request alone through the model
+    functions called eagerly, at the engine's shapes (ENGINE_KNOBS): prompt
+    chunks of ``prefill_chunk`` tokens, then decode steps of ``max_batch``
+    rows, the other rows on the trash page.  A row's logits do not depend
+    on the other rows, so these are the engine's streams.  The ``ref``
+    LUT-MU path takes this way on the card: its plain contraction reads
+    ``nonzero`` on the host, which no captured program may."""
+    ps, cs, mb = (ENGINE_KNOBS["page_size"], ENGINE_KNOBS["prefill_chunk"],
+                  ENGINE_KNOBS["max_batch"])
+    mp = -(-ENGINE_KNOBS["max_len"] // ps)
+    dev, cd = "cuda", torch.bfloat16
+    out = []
+    for prompt in reqs:
+        cache = MD.init_paged_cache(cfg, mp + 1, ps, cd, dev)
+        table = torch.full((mb, mp), mp, dtype=torch.int32, device=dev)
+        table[0] = torch.arange(mp, dtype=torch.int32, device=dev)
+        for start in range(0, len(prompt), cs):
+            chunk = prompt[start:start + cs]
+            toks = torch.tensor([chunk + [0] * (cs - len(chunk))],
+                                dtype=torch.int32, device=dev)
+            logits = MD.paged_prefill_chunk(params, toks, start, len(chunk),
+                                            table[0], cache, cfg,
+                                            compute_dtype=cd)
+        gen = [int(logits[0, -1].argmax())]
+        while len(gen) < max_new:
+            token = torch.zeros((mb, 1), dtype=torch.int32, device=dev)
+            token[0, 0] = gen[-1]
+            pos = torch.zeros((mb,), dtype=torch.int32, device=dev)
+            pos[0] = len(prompt) + len(gen) - 1
+            logits = MD.paged_decode_step(params, token, pos, table, cache,
+                                          cfg, compute_dtype=cd)
+            gen.append(int(logits[0, 0].argmax()))
+        out.append(gen)
+    return out
 
 
 def plain_margin(torch, make_plain, prompt, at: int) -> float:
@@ -622,18 +681,32 @@ def spec_line(label, handles, dt, ttft, engine, peak) -> str:
             f"peak memory {peak / 1e9:.2f} GB")
 
 
-def profile_phase(torch, cfg, params, load_engine, steps: int = 6):
-    """Where a decode step's time goes: host-clock step time without the
-    profiler, then device busy time per step from ``torch.profiler`` kernel
-    events over the same number of steps (4 rows decoding)."""
+def kernel_busy_ms(torch, prof, steps: int):
+    """Device kernel time per step from a ``torch.profiler`` run, and the
+    kernel events (none when the profiler saw no device time)."""
     from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / steps, kernels
+
+
+def profile_phase(torch, cfg, params, MD, load_engine, steps: int = 6):
+    """Where a decode step's time goes (4 rows decoding): the engine's step
+    on the host clock (scheduler, staging, one replay, sampling); the
+    decode program alone, replayed with one step's inputs, against the
+    eager twin (``MD.paged_decode_step`` on a copy of the cache, the same
+    inputs): host enqueue and wall ms per call, device ms per call from
+    ``torch.profiler`` kernel time and from CUDA events around the call;
+    then device busy per engine step and the idle share.  Replaying one
+    step's inputs rewrites the same K/V at the same position, so the
+    engine's state does not move."""
     from torch.profiler import ProfilerActivity, profile
 
     engine = load_engine(None, params, cfg, max_batch=4, max_len=128,
                          page_size=16, prefill_chunk=32,
                          compute_dtype=torch.bfloat16, device="cuda")
     for p in prompts(cfg.vocab_size, 4):
-        engine.submit(p, max_new_tokens=4 + 2 * steps + 2)
+        engine.submit(p, max_new_tokens=4 + 3 * steps + 2)
     for _ in range(4):  # one prefill chunk per step: all 4 rows admitted
         engine.step()
     torch.cuda.synchronize()
@@ -646,16 +719,73 @@ def profile_phase(torch, cfg, params, load_engine, steps: int = 6):
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy, kernels = kernel_busy_ms(torch, prof, steps)
+
+    prog, seen = engine._decode, []
+    engine._decode = lambda **a: seen.append(a) or prog(**a)
+    engine.step()
+    engine._decode = prog
+    arrays = seen[0]
+    dev_in = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    twin_cache = {n: b.clone() for n, b in engine.kv.buffers.items()}
+
+    def replay():
+        return prog(**arrays)
+
+    def eager():
+        return MD.paged_decode_step(params, dev_in["token"], dev_in["pos"],
+                                    dev_in["table"], twin_cache, cfg,
+                                    compute_dtype=torch.bfloat16)
+
+    times = {}
+    for name, fn in (("replay", replay), ("eager", eager)):
+        fn()
+        torch.cuda.synchronize()
+        enq, walls, events = [], [], []
+        for _ in range(steps):
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            s.record()
+            fn()
+            e.record()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enq.append(t1 - t0)
+            walls.append(time.perf_counter() - t0)
+            events.append(s.elapsed_time(e))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p2:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        dev, _ = kernel_busy_ms(torch, p2, steps)
+        times[name] = dict(enqueue=1e3 * sum(enq) / steps,
+                           wall=1e3 * sum(walls) / steps,
+                           events=sum(events) / steps, profiler=dev)
+    same = torch.equal(replay()[:, 0], eager()[:, 0])
+    ensure(same, "decode replay logits != eager twin's from the same state")
+    for name, t in times.items():
+        label = ("decode program replayed" if name == "replay" else
+                 "eager twin (MD.paged_decode_step)")
+        prof_s = ("not measured (the profiler saw no kernels)"
+                  if t["profiler"] == 0 else f"{t['profiler']:.2f} ms")
+        print(f"[profile] {label}: host enqueue {t['enqueue']:.3f} ms, wall "
+              f"{t['wall']:.3f} ms per call; device {t['events']:.3f} ms (CUDA"
+              f" events around the call), kernel time {prof_s} (profiler)",
+              flush=True)
+    source = "profiler kernel time"
+    if not kernels:  # the profiler saw nothing inside the graph
+        busy, source = times["replay"]["events"], "CUDA events around the replay"
+    print(f"[profile] decode step (4 rows, {cfg.num_layers} layers, engine."
+          f"step()): {wall * 1e3:.2f} ms/step host clock unprofiled; device "
+          f"busy {busy:.2f} ms/step ({source}) = {100 * busy / (wall * 1e3):.1f}%"
+          f" (idle {100 - 100 * busy / (wall * 1e3):.1f}%); eager twin idle "
+          f"{100 - 100 * times['eager']['profiler'] / times['eager']['wall']:.1f}"
+          f"% of its wall; graph nodes {engine.stats['graph_nodes']}",
+          flush=True)
     if not kernels:
-        print("[profile] the profiler recorded no device time: not measured")
         return
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6 / steps
-    print(f"[profile] decode step (4 rows, {cfg.num_layers} layers): "
-          f"{wall * 1e3:.2f} ms/step unprofiled; device busy "
-          f"{busy * 1e3:.2f} ms/step = {100 * busy / wall:.1f}% "
-          f"(idle {100 - 100 * busy / wall:.1f}%)", flush=True)
     lutmu = [e for e in kernels if "fused_lutmu" in e.key]
     print(f"[profile] fused_lutmu: "
           f"{sum(e.self_device_time_total for e in lutmu) / 1e3 / steps:.3f} "
@@ -667,6 +797,143 @@ def profile_phase(torch, cfg, params, load_engine, steps: int = 6):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"x{e.count / steps:6.0f}  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the graph gate — captured step programs against the eager
+# model functions
+# ---------------------------------------------------------------------------
+
+
+def twin(torch, prog, eager, caches, keep, log):
+    """Wrap the step program ``prog`` so that every call is checked as it
+    happens: the outputs ``keep(arrays, outputs)`` picks and every KV page
+    but the trash page (written in no fixed order by padding rows and
+    masked window slots, read by nothing) must be bit-equal to
+    ``eager(caches, **inputs)`` on copies of ``caches`` taken just before
+    the call.  ``log`` gets one entry per call."""
+    import numpy as np
+
+    def call(**arrays):
+        before = [{n: b.clone() for n, b in c.items()} for c in caches]
+        out = prog(**arrays)
+        got = keep(arrays, [o.clone() for o in (
+            out if isinstance(out, tuple) else (out,))])
+        want = eager(before, **{k: torch.from_numpy(
+            np.asarray(v, np.int32)).cuda() for k, v in arrays.items()})
+        want = keep(arrays, want if isinstance(want, tuple) else (want,))
+        torch.cuda.synchronize()
+        ensure(prog.graph is not None, f"{prog.name}: no graph captured")
+        for g, w in zip(got, want):
+            ensure(g.shape == w.shape and torch.equal(g, w),
+                   f"{prog.name}: replayed outputs != eager (max diff "
+                   f"{(g.float() - w.float()).abs().max().item()})")
+        for c, b in zip(caches, before):
+            for n in c:
+                ensure(torch.equal(c[n][:, :-1], b[n][:, :-1]),
+                       f"{prog.name}: replayed {n} pages != eager")
+        log.append({k: np.asarray(v).copy() for k, v in arrays.items()})
+        return out
+
+    return call
+
+
+def keep_rows(trash):
+    """Decode logits of the rows that hold a request (the others read only
+    the trash page)."""
+    return lambda a, outs: [outs[0][(a["table"][:, 0] != trash).nonzero()[0]]]
+
+
+def keep_round(a, outs):
+    """``accepted`` of the rows in the round, and each one's ``target``
+    window up to its ``n_valid`` (later slots read the trash page)."""
+    accepted, target = outs
+    rows = (a["n_valid"] > 0).nonzero()[0]
+    return [accepted[rows]] + [target[r, :a["n_valid"][r]] for r in rows]
+
+
+def keep_all(a, outs):
+    return list(outs)
+
+
+def graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
+                     SPEC):
+    """At full width and depth, the serve configuration: consecutive decode
+    steps and prefill chunks of a live engine (one prompt of 40 tokens, so
+    a chunk starts at 32 with 8 of 32 valid), then greedy rounds and
+    prefill pairs on ``fused`` and on ``scan`` (identical draft), each
+    replay bit-equal to the model function called eagerly on a copy of the
+    caches.  Prints each program's capture seconds and graph nodes."""
+    long_prompt = [(7 * i + 3) % cfg.vocab_size for i in range(40)]
+    reqs = prompts(cfg.vocab_size, 3) + [long_prompt]
+    eng = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                      device="cuda", **ENGINE_KNOBS)
+    kv, cd = eng.kv.buffers, torch.bfloat16
+    dec_log, pf_log = [], []
+    eng._decode = twin(torch, eng._decode, lambda c, token, pos, table:
+                       MD.paged_decode_step(params, token, pos, table, c[0],
+                                            cfg, compute_dtype=cd),
+                       [kv], keep_rows(eng.kv.trash), dec_log)
+    eng._prefill = twin(torch, eng._prefill, lambda c, tokens, start, n_valid,
+                        row: MD.paged_prefill_chunk(params, tokens, start,
+                                                    n_valid, row, c[0], cfg,
+                                                    compute_dtype=cd),
+                        [kv], keep_all, pf_log)
+    for p in reqs:
+        eng.submit(p, max_new_tokens=4)
+    eng.run_until_drained()
+    partial = [(int(a["start"]), int(a["n_valid"])) for a in pf_log
+               if int(a["start"]) > 0]
+    ensure(len(dec_log) >= 3, f"only {len(dec_log)} decode steps checked")
+    ensure(any(nv < eng.prefill_chunk for _, nv in partial),
+           f"no partial chunk past start 0 was checked: {partial}")
+    print(f"[graphs] decode: {len(dec_log)} consecutive steps of a live "
+          f"engine bit-equal to eager MD.paged_decode_step (logits of the "
+          f"live rows, every page but the trash page); prefill: "
+          f"{len(pf_log)} chunks bit-equal to eager MD.paged_prefill_chunk, "
+          f"(start, n_valid) past 0: {partial}", flush=True)
+    print(f"[graphs] plain engine: capture_s "
+          f"{fmt(eng.stats['capture_s'])}; graph nodes "
+          f"{eng.stats['graph_nodes']}", flush=True)
+    del eng
+    for backend in ("fused", "scan"):
+        seng = SpeculativeEngine(params, cfg, params, spec_k=SPEC_K,
+                                 verify_backend=backend, compute_dtype=cd,
+                                 device="cuda", **ENGINE_KNOBS)
+        caches = [seng.kv.buffers, seng.kv_draft.buffers]
+        r_log, p_log = [], []
+        seng._round_greedy = twin(
+            torch, seng._round_greedy, lambda c, token, pos, n_valid, table,
+            b=backend: SPEC.greedy_round(
+                params, params, token, pos, n_valid, table, c[0], c[1], cfg,
+                cfg, SPEC_K, compute_dtype=cd, backend=b),
+            caches, keep_round, r_log)
+        seng._prefill = twin(
+            torch, seng._prefill, lambda c, tokens, start, n_valid, row:
+            SPEC.prefill_pair(params, params, tokens, start, n_valid, row,
+                              c[0], c[1], cfg, cfg, compute_dtype=cd),
+            caches, keep_all, p_log)
+        for p in reqs[:2]:
+            seng.submit(p, max_new_tokens=10)
+        seng.run_until_drained()
+        # an identical draft accepts everything on the scan oracle; fused
+        # sums in another order (PERF.md, the verify findings), so it may
+        # reject
+        ensure(len(r_log) >= 2 and (backend == "fused"
+                                    or seng.acceptance_rate == 1.0),
+               f"{backend}: {len(r_log)} rounds, acceptance "
+               f"{seng.acceptance_rate}")
+        print(f"[graphs] greedy round ({backend}): {len(r_log)} rounds "
+              f"bit-equal to eager greedy_round (accepted, target up to "
+              f"n_valid, both caches), {len(p_log)} prefill pairs to eager "
+              f"prefill_pair; capture_s {fmt(seng.stats['capture_s'])}; "
+              f"graph nodes {seng.stats['graph_nodes']}", flush=True)
+        del seng
+    torch.cuda.empty_cache()
+
+
+def fmt(d):
+    return "{" + ", ".join(f"{k}: {v:.3f}" for k, v in d.items()) + "}"
 
 
 # ---------------------------------------------------------------------------
@@ -951,6 +1218,7 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.models import model as MD
     from repro_torch.serving import SpeculativeEngine, load_engine
+    from repro_torch.serving import speculative as SPEC
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     torch.backends.cudnn.allow_tf32 = False
@@ -997,9 +1265,6 @@ def main() -> int:
     agree_phase(torch, cfg, params, MD)
     counters = (FL.LAUNCHES, ME.LAUNCHES, LA.LAUNCHES, dispatch.REF_ON_CUDA,
                 FV.LAUNCHES, FV.PLAIN_ON_CUDA)
-    serve(torch, cfg, params, load_engine, 1, 2)  # warm-up, not counted
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(counters)
     handles, dt, ttft, engine = serve(torch, cfg, params, load_engine, 6, 16)
     launches = {"fused_lutmu": FL.LAUNCHES.n, "encode_onehot": ME.LAUNCHES.n,
                 "lut_aggregate": LA.LAUNCHES.n}
@@ -1024,11 +1289,17 @@ def main() -> int:
           f"{engine.stats['decode_calls']} decode; fused_lutmu launches "
           f"{launches['fused_lutmu']} = {per_call} x {calls}; ref on CUDA 0; "
           f"peak memory {peak / 1e9:.2f} GB", flush=True)
+    print(f"[serve] step programs, captured by a first short request (not "
+          f"timed): capture_s {fmt(engine.stats['capture_s'])}; graph nodes "
+          f"{engine.stats['graph_nodes']}", flush=True)
     for h in handles:
         print(f"  req {h.request_id}: {h.prompt} -> {h.generated}")
     plain_streams = [list(h.generated) for h in handles]
     del engine, handles
-    profile_phase(torch, cfg, params, load_engine)
+    profile_phase(torch, cfg, params, MD, load_engine)
+    # 14. each captured program against its eager model function
+    graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
+                     SPEC)
 
     # 8. fused verify step (kernel) against the scan oracle at full width
     verify_agree_phase(torch, cfg, params, MD, FV)
@@ -1101,14 +1372,16 @@ def main() -> int:
     # so the streams must be equal
     rcfg = dataclasses.replace(ucfg, amm=dataclasses.replace(ucfg.amm,
                                                              backend="ref"))
-    rh, _, _, _ = serve(torch, rcfg, uparams, load_engine, 2, 4)
-    ensure([h.generated for h in uh] == [h.generated for h in rh],
+    rh = eager_streams(torch, MD, uparams, rcfg, prompts(ucfg.vocab_size, 2),
+                       4)
+    ensure([h.generated for h in uh] == rh,
            "unfused streams differ from the plain LUT-MU path's")
     print(f"[unfused] 4 layers, 2 requests x 4 tokens in {udt:.3f}s; "
           f"encode_onehot {launches['encode_onehot']} + lut_aggregate "
           f"{launches['lut_aggregate']} launches = 12 x {ucalls} calls; "
-          "streams equal to the plain LUT-MU path's", flush=True)
-    del ueng, rh
+          "streams equal to the plain LUT-MU path's (called eagerly)",
+          flush=True)
+    del ueng
 
     # 10. speculative rounds with rejection and rollback, full width, depth
     # cut to 4 layers: a garbage draft (other LUT tables, same backbone) on

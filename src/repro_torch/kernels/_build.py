@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -67,18 +67,57 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+# every LaunchCount made, so a captured program can replay their counts
+_COUNTERS: List["LaunchCount"] = []
+
+
 class LaunchCount:
     """A plain launch counter: a wrapper bumps it once per call that
-    launched its kernel, and nowhere else."""
+    launched its kernel, and nowhere else.  A wrapper's bump runs in Python,
+    so inside a captured CUDA graph it runs at capture and not at replay:
+    :class:`CapturedLaunches` carries the counts over to the replays."""
 
     def __init__(self) -> None:
         self.n = 0
+        _COUNTERS.append(self)
 
     def bump(self) -> None:
         self.n += 1
 
     def reset(self) -> None:
         self.n = 0
+
+
+def launch_counts() -> Dict[LaunchCount, int]:
+    """Every registered counter's count now."""
+    return {c: c.n for c in _COUNTERS}
+
+
+class CapturedLaunches:
+    """The launches of one captured program, counted once per replay.
+
+    Runs ``warm_up()`` then ``capture()``: the counters' deltas over the
+    capture are what one replay launches; the counts of both runs are taken
+    back out (also when either raises), since neither is a step the caller
+    asked for.  :meth:`replay` adds the deltas."""
+
+    def __init__(self, warm_up: Callable[[], None],
+                 capture: Callable[[], None]) -> None:
+        before = launch_counts()
+        try:
+            warm_up()
+            mid = launch_counts()
+            capture()
+            after = launch_counts()
+        finally:
+            for c, n in before.items():
+                c.n = n
+        self.deltas = [(c, n - mid.get(c, 0)) for c, n in after.items()
+                       if n != mid.get(c, 0)]
+
+    def replay(self) -> None:
+        for c, d in self.deltas:
+            c.n += d
 
 
 def nvcc_path() -> str:

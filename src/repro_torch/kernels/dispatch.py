@@ -43,6 +43,8 @@ REF_ON_CUDA = _build.LaunchCount()
 
 # Optional observability hook: called with the call's static metadata (ints
 # and strings only) after backend selection.  None costs one check a call.
+# It is Python, so inside a serving step's captured program
+# (serving/programs.py) it runs at warm-up and capture only, never at replay.
 _PROFILE_HOOK = None
 
 

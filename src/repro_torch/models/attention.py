@@ -130,13 +130,14 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
 
 
 def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
-                        start: int, n_valid: int, k_pages: Tensor,
+                        start, n_valid, k_pages: Tensor,
                         v_pages: Tensor, page_row: Tensor,
                         window: Optional[int]) -> Tensor:
     """Chunked-prefill attention for ONE request against the paged cache.
 
     x: (1, cs, D), right-padded to the engine's chunk width; ``start``:
-    tokens already prefilled; ``n_valid`` ≤ cs real tokens in this chunk;
+    tokens already prefilled; ``n_valid`` ≤ cs real tokens in this chunk
+    (each an int or a 0-d integer tensor, never read on the host);
     page_row: (max_pages,) int32, trash-padded.  Writes the chunk's K/V in
     place (padding rows go to the trash page), then attends the chunk's
     queries against the gathered view under the causal(+window) mask.

@@ -174,19 +174,25 @@ def paged_decode_step(params: dict, token: Tensor, pos: Tensor,
 
 
 @torch.inference_mode()
-def paged_prefill_chunk(params: dict, tokens: Tensor, start: int,
-                        n_valid: int, page_row: Tensor,
-                        cache: Dict[str, Tensor], cfg: ModelConfig, *,
+def paged_prefill_chunk(params: dict, tokens: Tensor, start, n_valid,
+                        page_row: Tensor, cache: Dict[str, Tensor],
+                        cfg: ModelConfig, *,
                         compute_dtype=torch.bfloat16) -> Tensor:
     """One chunk of a single request's prefill against the paged cache.
 
     tokens: (1, cs) right-padded to the engine's chunk width; start /
-    n_valid: tokens already prefilled / real tokens in this chunk;
-    page_row: (max_pages,) int32.  The cache is updated in place.  Returns
-    logits (1, 1, V) float32 at the chunk's last valid position.
+    n_valid: tokens already prefilled / real tokens in this chunk, ints or
+    0-d integer tensors on the tokens' device (as in JAX, one program then
+    serves every chunk: nothing here reads them on the host); page_row:
+    (max_pages,) int32.  The cache is updated in place.  Returns logits
+    (1, 1, V) float32 at the chunk's last valid position (position 0 when
+    ``n_valid`` is 0, a chunk that writes only the trash page).
     """
     _check_uniform_dense(cfg)
     cd = compute_dtype
+    start = torch.as_tensor(start, device=tokens.device)
+    n_valid = torch.as_tensor(n_valid, device=tokens.device)
+    last = torch.clamp(n_valid.to(torch.int64) - 1, min=0).reshape(1)
     h = params["embed"].to(cd)[tokens.to(torch.int64)]
     for l, win in enumerate(window_flags(cfg)):
         lp = layer_params(params["layers"], l)
@@ -194,7 +200,7 @@ def paged_prefill_chunk(params: dict, tokens: Tensor, start: int,
             lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg, start,
             n_valid, cache["k"][l], cache["v"][l], page_row, win)
         h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
-    return _head(params, h[:, n_valid - 1:n_valid], cfg, cd)
+    return _head(params, h.index_select(1, last), cfg, cd)
 
 
 @torch.inference_mode()

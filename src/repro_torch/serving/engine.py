@@ -7,12 +7,15 @@ swap, cancellation, per-request budgets) over a paged KV cache
 fixed-width chunk per step and interleave with the batched decode.  Each
 step runs at most one prefill chunk and one decode of ``max_batch`` rows
 through ``models/model.py``; the model writes the K/V pages in place.
+Each of the two is one :class:`~repro_torch.serving.programs.StepProgram`
+at the engine's fixed shapes (``_decode``, ``_prefill``): on the card one
+CUDA-graph replay per step, as the JAX engine runs one jitted program.
 Greedy requests only for now (``sampling.py``).  ``cfg.amm.kv_int8`` serves
 from an int8-quantised KV cache.  :meth:`ServeEngine._from_artifact` serves
 a compiled ``amm_lm`` artifact (``compiler/artifact.py``) spliced into the
 dense params.  ``speculative.py`` subclasses the engine
-through its per-step hooks: ``_swap_out``/``_swap_in``, ``_clone_pages``,
-``_prefill_call`` and ``_run_decode``.
+through its per-step hooks: ``_swap_out``/``_swap_in``, ``_clone_pages``
+and ``_run_decode``, and its own programs.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.serving import scheduler as SCH
 from repro_torch.serving.handle import RequestHandle, _step_engine_async
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.obs import log
+from repro_torch.serving.programs import StepProgram
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -125,8 +129,26 @@ class ServeEngine:
             prefill_chunk=self.prefill_chunk, max_len=max_len,
             prefix_cache=prefix_cache)
         self._driver = None  # a server driver that owns the loop, if any
-        # model calls made, for callers that check per-call kernel counts
+        # model calls made, for callers that check per-call kernel counts;
+        # the programs add their capture seconds and graph node counts
         self.stats = {"prefill_calls": 0, "decode_calls": 0}
+        # the step programs (JAX ``_decode``/``_prefill``): one graph pool
+        # for all of an engine's programs, which never run at once
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        params, kv, cd = self.params, self.kv.buffers, compute_dtype
+
+        def decode(token, pos, table):
+            return MD.paged_decode_step(params, token, pos, table, kv, cfg,
+                                        compute_dtype=cd)
+
+        def prefill(tokens, start, n_valid, row):
+            return MD.paged_prefill_chunk(params, tokens, start, n_valid, row,
+                                          kv, cfg, compute_dtype=cd)
+
+        self._decode = self._program(decode, "decode", self._decode_inputs())
+        self._prefill = self._program(prefill, "prefill",
+                                      self._prefill_inputs())
 
     @classmethod
     def _from_artifact(cls, artifact_path, params: dict, cfg: ModelConfig,
@@ -204,8 +226,21 @@ class ServeEngine:
             "investigate a stuck schedule")
 
     # -- internals ---------------------------------------------------------
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a).to(self.device)
+    def _program(self, fn, name: str, inputs) -> StepProgram:
+        return StepProgram(fn, inputs, self.device, name=name,
+                           pool=self._pool, stats=self.stats)
+
+    def _decode_inputs(self, **extra):
+        """The decode-shaped inputs ``(shape, idle value)``: rows without a
+        request on the trash page (``extra`` adds inputs)."""
+        mb, mp = self.max_batch, self.max_pages_per_seq
+        return {"token": ((mb, 1), 0), "pos": ((mb,), 0), **extra,
+                "table": ((mb, mp), self.kv.trash)}
+
+    def _prefill_inputs(self):
+        return {"tokens": ((1, self.prefill_chunk), 0), "start": ((), 0),
+                "n_valid": ((), 0),
+                "row": ((self.max_pages_per_seq,), self.kv.trash)}
 
     def _swap_out(self, req: Request, old_pages: List[int]) -> None:
         """Copy an evicted request's pages to the host (the speculative
@@ -222,18 +257,6 @@ class ServeEngine:
         engine clones its draft cache too)."""
         self.kv.clone_page(src, dst)
 
-    def _prefill_call(self, toks: np.ndarray, chunk: SCH.PrefillChunk,
-                      page_row: np.ndarray) -> torch.Tensor:
-        """Run one prefill chunk and return the target logits (1, 1, V) —
-        the one prefill behaviour a subclass may change (the speculative
-        engine prefills its draft cache here too)."""
-        logits = MD.paged_prefill_chunk(
-            self.params, self._tensor(toks), chunk.start, chunk.n_valid,
-            self._tensor(page_row), self.kv.buffers, self.cfg,
-            compute_dtype=self.cd)
-        self.stats["prefill_calls"] += 1
-        return logits
-
     def _run_prefill_chunk(self, chunk: SCH.PrefillChunk,
                            finished: List[Request]) -> None:
         req = chunk.req
@@ -241,7 +264,11 @@ class ServeEngine:
         toks[0, : chunk.n_valid] = req.prompt[chunk.start:
                                               chunk.start + chunk.n_valid]
         page_row = self.kv.page_row(req.pages, self.max_pages_per_seq)
-        logits = self._prefill_call(toks, chunk, page_row)
+        # (1, 1, V) target logits; the speculative engine's program also
+        # prefills its draft cache
+        logits = self._prefill(tokens=toks, start=chunk.start,
+                               n_valid=chunk.n_valid, row=page_row)
+        self.stats["prefill_calls"] += 1
         req.pf_done += chunk.n_valid
         if req.pf_done == len(req.prompt):
             req.generated.append(
@@ -262,10 +289,7 @@ class ServeEngine:
             token[row, 0] = req.generated[-1]
             pos[row] = req.next_pos
             table[row, : len(req.pages)] = req.pages
-        logits = MD.paged_decode_step(
-            self.params, self._tensor(token), self._tensor(pos),
-            self._tensor(table), self.kv.buffers, self.cfg,
-            compute_dtype=self.cd)
+        logits = self._decode(token=token, pos=pos, table=table)
         self.stats["decode_calls"] += 1
         nxt = _sample_batch(logits[:, 0], decode, self.max_batch)
         for row, req in decode:

@@ -1,0 +1,166 @@
+"""Each serving step as one captured program, the counterpart of the JAX
+engines' ``jax.jit`` step functions with donated caches.
+
+A :class:`StepProgram` holds a step function, its static int32 input
+buffers and, on a CUDA device, one ``torch.cuda.CUDAGraph`` of the
+function captured at those buffers.  The caches are not inputs: the
+function closes over the engine's KV buffers, which it updates in place,
+so they stay the same tensors for the engine's life (JAX donates them).
+
+On the card the first call
+
+1. fills the input buffers with the program's *idle* values — every page
+   table row on the trash page, ``n_valid`` 0 — so warm-up and capture
+   write no real page;
+2. runs the function once eagerly on a side stream, which fills the
+   kernels' cached launch plans and occupancy queries, sets their
+   ``cudaFuncSetAttribute`` limits and loads the libraries, none of which
+   may run inside a capture;
+3. captures the function on that stream into the engine's graph pool.
+
+Every call then stages its host inputs in one pinned int32 buffer, moves
+them with one ``non_blocking`` copy and replays the graph.  The outputs are
+static tensors, rewritten by the next replay: the caller reads them first.
+The kernel wrappers count their launches in Python, which runs at capture
+and not at replay, so the counts of both runs are taken back out and each
+replay adds what the capture launched (``kernels/_build.py``).  A capture
+that fails raises; nothing falls back to eager.
+
+On the CPU there are no graphs: a call copies its inputs into the buffers
+and runs the function on them, returning its fresh outputs.
+"""
+from __future__ import annotations
+
+import ctypes
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+# name → (shape, idle value) of each int32 input
+InputSpec = Dict[str, Tuple[Tuple[int, ...], int]]
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """Node count of a graph captured with ``keep_graph=True``
+    (``cuGraphGetNodes`` from ``libcuda``; a ``cudaGraph_t`` is a
+    ``CUgraph``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return int(n.value)
+
+
+class StepProgram:
+    """One serving step at fixed shapes: ``program(**arrays)`` runs
+    ``fn(**inputs)`` on the arrays (host ints, each of its input's shape)
+    and returns its output tensor or tuple of tensors.
+
+    ``pool``: the engine's graph memory pool, shared by all its programs
+    (they never run at once).  ``stats``: where the capture's seconds and
+    the graph's node count go, under ``capture_s[name]`` and
+    ``graph_nodes[name]``.
+    """
+
+    def __init__(self, fn: Callable, inputs: InputSpec, device: torch.device,
+                 *, name: str, pool=None, stats: Optional[dict] = None):
+        self.fn = fn
+        self.name = name
+        self.device = device
+        self.pool = pool
+        self.stats = stats if stats is not None else {}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+        self._launches: Optional[_build.CapturedLaunches] = None
+        self._idle = {k: v for k, (_, v) in inputs.items()}
+        sizes = {k: int(np.prod(shape)) for k, (shape, _) in inputs.items()}
+        total = sum(sizes.values())
+        on_cuda = device.type == "cuda"
+        with torch.inference_mode():
+            self._host = torch.empty((total,), dtype=torch.int32,
+                                     pin_memory=on_cuda)
+            self._dev = (torch.empty((total,), dtype=torch.int32,
+                                     device=device) if on_cuda else self._host)
+        host_np = self._host.numpy()
+        self._host_np: Dict[str, np.ndarray] = {}
+        self.inputs: Dict[str, torch.Tensor] = {}
+        off = 0
+        for k, (shape, _) in inputs.items():
+            n = sizes[k]
+            self._host_np[k] = host_np[off:off + n].reshape(shape)
+            self.inputs[k] = self._dev[off:off + n].view(shape)
+            off += n
+        self._copied = torch.cuda.Event() if on_cuda else None
+
+    @torch.inference_mode()
+    def __call__(self, **arrays):
+        if self.device.type != "cuda":
+            self._stage(arrays)
+            return self.fn(**self.inputs)
+        if self.graph is None:
+            self._capture()
+        self._stage(arrays)
+        self.graph.replay()
+        self._launches.replay()
+        return self.outputs
+
+    def _stage(self, arrays) -> None:
+        if arrays.keys() != self._host_np.keys():
+            raise ValueError(f"{self.name} program takes inputs "
+                             f"{sorted(self._host_np)}, got {sorted(arrays)}")
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has left the buffer
+        for k, view in self._host_np.items():
+            a = np.asarray(arrays[k])
+            if a.shape != view.shape:
+                raise ValueError(f"{self.name} input {k!r}: shape {a.shape} "
+                                 f"!= {view.shape}")
+            view[...] = a
+        if self._copied is not None:
+            self._dev.copy_(self._host, non_blocking=True)
+            self._copied.record()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        for k, t in self.inputs.items():
+            t.fill_(self._idle[k])
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        out = []
+
+        def warm_up():
+            with torch.cuda.stream(stream):
+                self.fn(**self.inputs)
+
+        def capture():
+            # the outer context restores the caller's stream even when a
+            # failed capture's ``capture_end`` raises before the graph
+            # context leaves its stream
+            with torch.cuda.stream(stream):
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                    out.append(self.fn(**self.inputs))
+
+        try:
+            self._launches = _build.CapturedLaunches(warm_up, capture)
+        except RuntimeError as e:
+            # e.g. a host read or a data-dependent shape inside the step: the
+            # plain ``ref`` LUT-MU contraction (``nonzero``) cannot be
+            # captured, so an engine on the card serves auto, fused or
+            # unfused
+            raise RuntimeError(f"the {self.name} step program could not be "
+                               f"captured: {e}") from e
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph.instantiate()
+        self.graph, self.outputs = graph, out[0]
+        self.stats.setdefault("capture_s", {})[self.name] = (
+            time.perf_counter() - t0)
+        self.stats.setdefault("graph_nodes", {})[self.name] = graph_nodes(graph)

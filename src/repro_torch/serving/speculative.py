@@ -23,6 +23,12 @@ Round structure (one :meth:`SpeculativeEngine.step`):
    pages backing only garbage go back to the pool
    (``scheduler.Scheduler.rollback``).
 
+Each round (draft, verify, accept) is one step program, and so is each
+prefill chunk through both models (``serving/programs.py``; JAX
+``_round_greedy`` and ``_prefill_pair``): on the card one CUDA-graph replay
+each.  The program functions are :func:`greedy_round` and
+:func:`prefill_pair`.
+
 Both models share one scheduler, one page allocator and one page table;
 the draft's cache mirrors the target's pool (``PagedKVCache(allocator=…)``),
 so admission, chunked prefill, eviction with host swap, copy-on-write
@@ -38,18 +44,19 @@ differ).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.compiler.artifact import load_bundle
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving import scheduler as SCH
-from repro_torch.compiler.artifact import load_bundle
 from repro_torch.serving.engine import ServeEngine, _splice_artifact
 from repro_torch.serving.kv_cache import HostKV, PagedKVCache
 from repro_torch.serving.scheduler import Request
+
+Tensor = torch.Tensor
 
 # cfg fields that must agree between target and draft: both models route
 # through one page table and one verify window, so KV geometry and the
@@ -62,6 +69,42 @@ _GEOMETRY_FIELDS = ("family", "num_layers", "d_model", "num_heads",
 
 _SPEC_KEYS = ("rounds", "proposed", "accepted", "emitted", "corrections",
               "bonuses")
+
+
+def greedy_round(params: dict, draft_params: dict, token: Tensor, pos: Tensor,
+                 n_valid: Tensor, table: Tensor, cache: Dict[str, Tensor],
+                 draft_cache: Dict[str, Tensor], cfg: ModelConfig,
+                 draft_cfg: ModelConfig, k: int, *, compute_dtype,
+                 backend: str) -> Tuple[Tensor, Tensor]:
+    """One greedy round (JAX ``_round_greedy``): draft ``k`` proposals,
+    verify the ``k+1`` window, match prefixes.  Both caches are updated in
+    place.  Returns ``(accepted (B,), target (B, k+1))`` on the device."""
+    draft, _ = MD.paged_draft_loop(
+        draft_params, token, pos, n_valid, table, draft_cache, draft_cfg, k,
+        compute_dtype=compute_dtype)
+    window = torch.cat([token.to(draft.dtype), draft], dim=1)  # (B, k+1)
+    logits = MD.paged_verify_step(
+        params, window, pos, n_valid, table, cache, cfg,
+        compute_dtype=compute_dtype, backend=backend)
+    target = torch.argmax(logits, dim=-1).to(torch.int32)
+    ok = (draft == target[:, :-1]) & (
+        torch.arange(k, device=draft.device)[None, :] < n_valid[:, None] - 1)
+    accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+    return accepted, target
+
+
+def prefill_pair(params: dict, draft_params: dict, tokens: Tensor, start,
+                 n_valid, row: Tensor, cache: Dict[str, Tensor],
+                 draft_cache: Dict[str, Tensor], cfg: ModelConfig,
+                 draft_cfg: ModelConfig, *, compute_dtype) -> Tensor:
+    """One prefill chunk through both models (JAX ``_prefill_pair``): the
+    draft needs its own KV of the prompt; returns the target's logits
+    (1, 1, V), the plain engine's call on the same arguments."""
+    logits = MD.paged_prefill_chunk(params, tokens, start, n_valid, row,
+                                    cache, cfg, compute_dtype=compute_dtype)
+    MD.paged_prefill_chunk(draft_params, tokens, start, n_valid, row,
+                           draft_cache, draft_cfg, compute_dtype=compute_dtype)
+    return logits
 
 
 class SpeculativeEngine(ServeEngine):
@@ -101,6 +144,26 @@ class SpeculativeEngine(ServeEngine):
         assert self.kv_draft.trash == self.kv.trash
         self._draft_host: Dict[int, HostKV] = {}  # uid → swapped draft KV
         self.stats.update({k: 0 for k in _SPEC_KEYS})
+        # the step programs: the round replaces the plain decode program
+        pt, pd, ct, cdr = (self.params, draft_params, self.kv.buffers,
+                           self.kv_draft.buffers)
+        cfg_t, cfg_d, k, cd, vb = (self.cfg, self.draft_cfg, self.spec_k,
+                                   self.cd, self.verify_backend)
+
+        def round_greedy(token, pos, n_valid, table):
+            return greedy_round(pt, pd, token, pos, n_valid, table, ct, cdr,
+                                cfg_t, cfg_d, k, compute_dtype=cd, backend=vb)
+
+        def prefill(tokens, start, n_valid, row):
+            return prefill_pair(pt, pd, tokens, start, n_valid, row, ct, cdr,
+                                cfg_t, cfg_d, compute_dtype=cd)
+
+        self._decode = None
+        self._round_greedy = self._program(
+            round_greedy, "round_greedy",
+            self._decode_inputs(n_valid=((self.max_batch,), 0)))
+        self._prefill = self._program(prefill, "prefill_pair",
+                                      self._prefill_inputs())
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -157,39 +220,6 @@ class SpeculativeEngine(ServeEngine):
         self.kv.clone_page(src, dst)
         self.kv_draft.clone_page(src, dst)
 
-    def _prefill_call(self, toks: np.ndarray, chunk: SCH.PrefillChunk,
-                      page_row: np.ndarray) -> torch.Tensor:
-        """Chunked prefill through both models (the draft needs its own KV
-        of the prompt); the first token comes from the target's logits, the
-        same call on the same arguments as the plain engine's."""
-        toks_t, row_t = self._tensor(toks), self._tensor(page_row)
-        logits = MD.paged_prefill_chunk(
-            self.params, toks_t, chunk.start, chunk.n_valid, row_t,
-            self.kv.buffers, self.cfg, compute_dtype=self.cd)
-        MD.paged_prefill_chunk(
-            self.draft_params, toks_t, chunk.start, chunk.n_valid, row_t,
-            self.kv_draft.buffers, self.draft_cfg, compute_dtype=self.cd)
-        self.stats["prefill_calls"] += 1
-        return logits
-
-    def _round_greedy(self, token: torch.Tensor, pos: torch.Tensor,
-                      n_valid: torch.Tensor, table: torch.Tensor):
-        """Draft k proposals, verify the k+1 window, match prefixes.
-        Returns ``(accepted (B,), target (B, k+1))`` on the device."""
-        k = self.spec_k
-        draft, _ = MD.paged_draft_loop(
-            self.draft_params, token, pos, n_valid, table,
-            self.kv_draft.buffers, self.draft_cfg, k, compute_dtype=self.cd)
-        window = torch.cat([token.to(draft.dtype), draft], dim=1)  # (B, k+1)
-        logits = MD.paged_verify_step(
-            self.params, window, pos, n_valid, table, self.kv.buffers,
-            self.cfg, compute_dtype=self.cd, backend=self.verify_backend)
-        target = torch.argmax(logits, dim=-1).to(torch.int32)
-        ok = (draft == target[:, :-1]) & (
-            torch.arange(k, device=draft.device)[None, :] < n_valid[:, None] - 1)
-        accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
-        return accepted, target
-
     def _run_decode(self, decode, finished: List[Request]) -> None:
         """One speculative round over the decode batch (JAX
         ``_run_spec_round``): draft, verify, accept, then emit 1 to k+1
@@ -211,9 +241,8 @@ class SpeculativeEngine(ServeEngine):
                 req.max_new_tokens - len(req.generated),
                 self.max_len - len(req.prompt) - len(req.generated))
             table[row, : len(req.pages)] = req.pages
-        accepted, emit = self._round_greedy(
-            self._tensor(token), self._tensor(pos), self._tensor(n_valid),
-            self._tensor(table))
+        accepted, emit = self._round_greedy(token=token, pos=pos,
+                                            n_valid=n_valid, table=table)
         accepted = accepted.cpu().numpy()  # (B,)   accepted-prefix lengths
         emit = emit.cpu().numpy()          # (B, k+1) tokens to emit per row
         self.stats["decode_calls"] += 1

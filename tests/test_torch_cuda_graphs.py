@@ -1,0 +1,229 @@
+"""The serving engines' captured step programs on the card, against the
+eager model functions.
+
+These tests need a card: they carry the ``cuda`` marker and skip without
+one.  The module imports no JAX, so it runs on the card as
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_graphs.py``.
+
+A 4-layer model (``qwen3-14b --reduced``, bf16, random int8 LUTs: the
+``fused_lutmu`` kernel on every projection, the verify-window kernel on the
+``fused`` round) is served with a pool small enough to evict and swap in,
+and prompts that share a prefix, so copy-on-write clones run between
+replays.  Every program call is checked as it happens: its outputs and the
+KV pages it wrote must be bit-equal to the same model function called
+eagerly on a copy of the caches taken just before, and the launch counters
+must move by what the eager call launched.  Left out of the comparison is
+what reads or writes the trash page, which padding rows and masked window
+slots write in no fixed order: the trash page itself, the logits of batch
+rows without a request, and the round's window slots past a row's
+``n_valid``.  Nothing reads those.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_lutmu as FL
+from repro_torch.kernels import fused_verify as FV
+from repro_torch.models import model as MD
+from repro_torch.serving import ServeEngine, SpeculativeEngine
+from repro_torch.serving.programs import StepProgram
+from repro_torch.serving.speculative import greedy_round, prefill_pair
+
+CD = torch.bfloat16
+SPEC_K = 3
+STEM = [5, 1, 4, 1, 5, 9, 2, 6, 5, 3, 8, 9, 7, 9, 3, 2, 3, 8]
+PROMPTS = [STEM + [7, 7, 7], STEM + [7, 7, 7], STEM + [8, 8],
+           STEM[:6] + [9, 9, 9, 9], [2, 7, 1, 8, 2, 8], list(range(1, 30))]
+KNOBS = dict(max_batch=3, max_len=96, page_size=4, prefill_chunk=8,
+             num_pages=12, compute_dtype=CD, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: graphs and kernels have no CPU mode")
+    cfg = get_config("qwen3-14b", reduced=True)
+    cfg = dataclasses.replace(cfg, max_seq_len=128, amm=dataclasses.replace(
+        cfg.amm, enabled=True, backend="auto"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = MD.init_params(cfg, gen, CD, serving=True)
+    other = MD.init_params(cfg, gen, CD, serving=True)
+    # a draft with other LUT tables on the same backbone: rounds reject
+    draft = dict(params, layers=dict(params["layers"],
+                                     amm_mlp=other["layers"]["amm_mlp"]))
+    return cfg, params, draft
+
+
+def _dev(a):
+    return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+
+def _live_rows(arrays, trash):
+    """The decode-batch rows that hold a request (the others read only the
+    trash page)."""
+    return np.flatnonzero(arrays["table"][:, 0] != trash)
+
+
+def keep_decode(trash):
+    return lambda arrays, outs: [outs[0][_live_rows(arrays, trash)]]
+
+
+def keep_round(arrays, outs):
+    """``accepted`` of the rows in the round, and each one's ``target``
+    window up to its ``n_valid``."""
+    accepted, target = outs
+    rows = np.flatnonzero(arrays["n_valid"] > 0)
+    return [accepted[rows]] + [target[r, :arrays["n_valid"][r]] for r in rows]
+
+
+def keep_all(arrays, outs):
+    return list(outs)
+
+
+def _twin(prog, eager, caches, record, keep):
+    """``prog`` checked call by call against ``eager(caches, **inputs)``
+    on copies of ``caches`` taken just before the call; ``keep(arrays,
+    outputs)`` picks the outputs that do not read the trash page."""
+
+    def call(**arrays):
+        before = [{n: b.clone() for n, b in c.items()} for c in caches]
+        c0 = _build.launch_counts()
+        out = prog(**arrays)
+        outs = keep(arrays, [o.clone() for o in (
+            out if isinstance(out, tuple) else (out,))])
+        c1 = _build.launch_counts()
+        want = eager(before, **{k: _dev(v) for k, v in arrays.items()})
+        c2 = _build.launch_counts()
+        want = keep(arrays, want if isinstance(want, tuple) else (want,))
+        torch.cuda.synchronize()
+        assert prog.graph is not None, f"{prog.name} was not captured"
+        for got, w in zip(outs, want):
+            assert got.shape == w.shape and torch.equal(got, w), prog.name
+        for c, b in zip(caches, before):
+            for n in c:  # the trash page (last) is written in no fixed order
+                assert torch.equal(c[n][:, :-1], b[n][:, :-1]), (
+                    f"{prog.name}: {n} pages")
+        replayed = {c: c1[c] - c0[c] for c in c1 if c1[c] != c0[c]}
+        eager_n = {c: c2[c] - c1[c] for c in c2 if c2[c] != c1[c]}
+        assert replayed == eager_n and replayed, prog.name
+        record.append(prog.name)
+        return out
+
+    return call
+
+
+def _spies(eng):
+    calls = {"clone": 0, "swap_in": 0}
+    clone, swap_in = eng._clone_pages, eng._swap_in
+
+    def spy_clone(s, d):
+        calls["clone"] += 1
+        clone(s, d)
+
+    def spy_swap_in(req):
+        calls["swap_in"] += 1
+        swap_in(req)
+
+    eng._clone_pages, eng._swap_in = spy_clone, spy_swap_in
+    return calls
+
+
+def _drain(eng, max_new=10):
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in PROMPTS]
+    eng.run_until_drained()
+    assert all(r.done and len(r.generated) == max_new for r in reqs)
+    return [list(r.generated) for r in reqs]
+
+
+@pytest.mark.cuda
+def test_serve_engine_replays_equal_eager(model):
+    cfg, params, _ = model
+    eng = ServeEngine(params, cfg, **KNOBS)
+    kv, record = eng.kv.buffers, []
+    eng._decode = _twin(
+        eng._decode, lambda c, token, pos, table: MD.paged_decode_step(
+            params, token, pos, table, c[0], cfg, compute_dtype=CD),
+        [kv], record, keep_decode(eng.kv.trash))
+    eng._prefill = _twin(
+        eng._prefill, lambda c, tokens, start, n_valid, row:
+        MD.paged_prefill_chunk(params, tokens, start, n_valid, row, c[0], cfg,
+                               compute_dtype=CD), [kv], record, keep_all)
+    calls = _spies(eng)
+    streams = _drain(eng)
+    assert calls["clone"] > 0 and calls["swap_in"] > 0, calls
+    assert record.count("decode") == eng.stats["decode_calls"] > 1
+    assert record.count("prefill") == eng.stats["prefill_calls"] > 1
+    assert set(eng.stats["capture_s"]) == {"decode", "prefill"}
+    assert min(eng.stats["graph_nodes"].values()) > 3 * cfg.num_layers
+    cold = ServeEngine(params, cfg, **dict(KNOBS, num_pages=None,
+                                           prefix_cache=False))
+    assert _drain(cold) == streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "scan"])
+def test_speculative_engine_replays_equal_eager(model, backend):
+    cfg, params, draft = model
+    eng = SpeculativeEngine(params, cfg, draft, spec_k=SPEC_K,
+                            verify_backend=backend, **KNOBS)
+    caches, record = [eng.kv.buffers, eng.kv_draft.buffers], []
+    eng._round_greedy = _twin(
+        eng._round_greedy, lambda c, token, pos, n_valid, table: greedy_round(
+            params, draft, token, pos, n_valid, table, c[0], c[1], cfg, cfg,
+            SPEC_K, compute_dtype=CD, backend=backend), caches, record,
+        keep_round)
+    eng._prefill = _twin(
+        eng._prefill, lambda c, tokens, start, n_valid, row: prefill_pair(
+            params, draft, tokens, start, n_valid, row, c[0], c[1], cfg, cfg,
+            compute_dtype=CD), caches, record, keep_all)
+    calls = _spies(eng)
+    FV.LAUNCHES.reset()
+    _drain(eng)
+    assert calls["clone"] > 0 and calls["swap_in"] > 0, calls
+    assert eng.stats["corrections"] > 0  # the draft was rejected
+    rounds = eng.stats["decode_calls"]
+    assert record.count("round_greedy") == rounds > 1
+    assert record.count("prefill_pair") == eng.stats["prefill_calls"]
+    # the replays' verify launches, then as many from the eager twins
+    per_round = cfg.num_layers if backend == "fused" else 0
+    assert FV.LAUNCHES.n == 2 * per_round * rounds
+
+
+@pytest.mark.cuda
+def test_launch_counts_follow_replays(model):
+    """After a drained serve, ``fused_lutmu`` counts 3 launches per layer
+    per forward call, replays included, as ``chip_smoke.py`` checks."""
+    cfg, params, _ = model
+    eng = ServeEngine(params, cfg, **KNOBS)
+    FL.LAUNCHES.reset()
+    _drain(eng)
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_calls"]
+    assert FL.LAUNCHES.n == 3 * cfg.num_layers * calls
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(model):
+    cfg, params, _ = model
+    x = torch.randn((4, 16, 4), device="cuda")
+    thr = torch.randn((16, 15), device="cuda")
+    lut = torch.randint(-128, 128, (16, 16, 64), dtype=torch.int8,
+                        device="cuda")
+    one = torch.ones((), device="cuda")
+
+    def fn(a):
+        out = FL.fused_lutmu(x, thr, lut, one, one)
+        out.sum().item()  # a host read: not allowed inside a capture
+        return out
+
+    prog = StepProgram(fn, {"a": ((1,), 0)}, torch.device("cuda"), name="bad")
+    before = FL.LAUNCHES.n
+    with pytest.raises(RuntimeError):
+        prog(a=np.zeros((1,), np.int32))
+    assert prog.graph is None and FL.LAUNCHES.n == before
+    # the device and the caller's stream carry on
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    assert float(torch.ones(3, device="cuda").sum()) == 3.0
