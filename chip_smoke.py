@@ -80,7 +80,26 @@ Phases, each fatal on failure:
     consecutive decode steps; a chunk at start 32 with 8 of 32 valid), then
     of the speculative engine's greedy round and prefill pair on ``fused`` and
     on ``scan``, bit-equal to its model function called eagerly on a copy
-    of the caches: outputs, and every KV page but the trash page.
+    of the caches: outputs, and every KV page but the trash page; then
+    sampled requests through the same engines: every sampler replay bit-
+    equal to ``sample_tokens`` on the same logits, every sampled round's
+    replay to ``sampled_round`` (``accepted``, ``emit`` up to ``accepted +
+    1``, both caches);
+15. threefry (after 2) — ``sampling.stream_key``/``stream_uniform`` on the
+    card bit-equal to the same functions on the CPU for 4,096 (seed, t,
+    role) triples;
+16. sampled (after 5) — the serve of phase 5 at T 0.8, top-k 50, top-p
+    0.95 (request ``i`` seeded 1000 + i): two runs on fresh engines give
+    the same streams, request 3 alone gives its stream in the batch, tok/s
+    beside phase 5's greedy tok/s; the sampler program's device ms per
+    replay (CUDA events, profiler) against a sampled decode step's device
+    busy time;
+17. spec-sampled (after 9) — the same sampled requests through the
+    speculative engine with an identical draft: on ``scan`` (p = q
+    bitwise) acceptance at least ``MIN_SAMPLED_ACCEPTANCE``; on ``fused``
+    acceptance printed, 40 verify launches per round; the ``round``
+    program's capture seconds and graph nodes; one sampled round replayed
+    alone against the greedy round at the same inputs (device ms).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
@@ -151,6 +170,13 @@ LOGIT_TOL = 0.25
 # margins well above it
 STREAM_MARGIN_TOL = 1.0
 SPEC_K = 4
+# the sampled phases' requests
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# an identical draft's sampled acceptance on the scan oracle, where the
+# verify step's logits are bitwise the draft's decode logits (p = q): a
+# proposal is rejected only when its uniform rounds to 1
+MIN_SAMPLED_ACCEPTANCE = 0.9
+THREEFRY_TRIPLES = 4096
 
 
 def ensure(cond: bool, msg: str) -> None:
@@ -486,20 +512,34 @@ def agree_phase(torch, cfg, params, MD):
 ENGINE_KNOBS = dict(max_batch=4, max_len=128, page_size=16, prefill_chunk=32)
 
 
-def serve(torch, cfg, params, load_engine, n_requests: int, max_new: int):
+def serve(torch, cfg, params, load_engine, n_requests: int, max_new: int,
+          sampling=None):
     """Drive the engine; returns (requests, seconds, ttft list, engine)."""
     engine = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
                          device="cuda", **ENGINE_KNOBS)
-    return drive(torch, engine, cfg, n_requests, max_new)
+    return drive(torch, engine, cfg, n_requests, max_new, sampling)
 
 
-def drive(torch, engine, cfg, n_requests: int, max_new: int):
+def sampled(i: int):
+    """Request ``i``'s sampling in the sampled phases."""
+    from repro_torch.serving import SamplingParams
+    return SamplingParams(seed=1000 + i, **SAMPLED)
+
+
+def drive(torch, engine, cfg, n_requests: int, max_new: int, sampling=None):
     """One short request first, which captures ``engine``'s step programs;
     then, with its call counters, every launch count and the peak memory
-    set to 0, submit the CLI prompts and step until it drains.  Returns
+    set to 0, submit the CLI prompts and step until it drains.  Request
+    ``i`` samples with ``sampling(i)`` where given, else greedily; the
+    first request samples the same way with a seed no other uses.  Returns
     (requests, seconds, ttft list, engine)."""
     from repro_torch.kernels import _build
-    engine.submit(prompts(cfg.vocab_size, 1)[0], max_new_tokens=2)
+
+    def params(i):
+        return sampling(i) if sampling is not None else None
+
+    engine.submit(prompts(cfg.vocab_size, 1)[0], params(n_requests),
+                  max_new_tokens=2)
     engine.run_until_drained()
     for k, v in engine.stats.items():
         if isinstance(v, int):
@@ -508,8 +548,8 @@ def drive(torch, engine, cfg, n_requests: int, max_new: int):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    handles = [engine.submit(p, max_new_tokens=max_new)
-               for p in prompts(cfg.vocab_size, n_requests)]
+    handles = [engine.submit(p, params(i), max_new_tokens=max_new)
+               for i, p in enumerate(prompts(cfg.vocab_size, n_requests))]
     ttft = {}
     while engine.has_work:
         engine.step()  # sampling pulls the tokens to the host: a sync
@@ -561,22 +601,19 @@ def eager_streams(torch, MD, params, cfg, reqs, max_new: int):
 
 def plain_margin(torch, make_plain, prompt, at: int) -> float:
     """The plain engine's top-2 logit margin at generated position ``at``
-    of ``prompt``'s greedy stream (the request served alone)."""
-    import repro_torch.serving.engine as ENG
+    of ``prompt``'s greedy stream (the request served alone).  The logits
+    are a program's static output, rewritten by its next replay: copied."""
     seen = []
-    orig = ENG._sample_batch
+    eng = make_plain()
+    orig = eng._sample
 
-    def spy(logits, rows_reqs, batch):
-        seen.append(logits[rows_reqs[0][0]].float())
-        return orig(logits, rows_reqs, batch)
+    def spy(logits, rows_reqs, program):
+        seen.append(logits[rows_reqs[0][0]].clone())
+        return orig(logits, rows_reqs, program)
 
-    ENG._sample_batch = spy
-    try:
-        eng = make_plain()
-        eng.submit(prompt, max_new_tokens=at + 1)
-        eng.run_until_drained()
-    finally:
-        ENG._sample_batch = orig
+    eng._sample = spy
+    eng.submit(prompt, max_new_tokens=at + 1)
+    eng.run_until_drained()
     top = torch.topk(seen[at], 2).values
     return (top[0] - top[1]).item()
 
@@ -663,12 +700,12 @@ def verify_agree_phase(torch, cfg, params, MD, FV):
 
 
 def spec_serve(torch, cfg, params, draft_params, SpeculativeEngine, backend,
-               n_requests, max_new):
+               n_requests, max_new, sampling=None):
     engine = SpeculativeEngine(params, cfg, draft_params, spec_k=SPEC_K,
                                verify_backend=backend,
                                compute_dtype=torch.bfloat16, device="cuda",
                                **ENGINE_KNOBS)
-    return drive(torch, engine, cfg, n_requests, max_new)
+    return drive(torch, engine, cfg, n_requests, max_new, sampling)
 
 
 def spec_line(label, handles, dt, ttft, engine, peak) -> str:
@@ -800,6 +837,197 @@ def profile_phase(torch, cfg, params, MD, load_engine, steps: int = 6):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-17: seeded sampling
+# ---------------------------------------------------------------------------
+
+
+def threefry_phase(torch, S):
+    """The threefry streams on the card against the same function on the
+    CPU: THREEFRY_TRIPLES (seed, t, role) triples, the edge seeds among
+    them, key words and uniforms bit for bit."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    n = THREEFRY_TRIPLES
+    seed = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    seed[:4] = (0, 1, 2**31, 2**32 - 1)
+    t = rng.integers(0, 2**31, n).astype(np.int32)
+    t[: n // 2] %= 4096
+    role = rng.integers(0, 4, n).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        args = [torch.from_numpy(a).to(dev)
+                for a in (seed.view(np.int32), t, role)]
+        out[dev] = (S.stream_key(*args).cpu(),
+                    S.stream_uniform(*args).cpu().view(torch.int32))
+    ensure(torch.equal(out["cpu"][0], out["cuda"][0]),
+           "threefry key words: card != CPU")
+    ensure(torch.equal(out["cpu"][1], out["cuda"][1]),
+           "threefry uniforms: card != CPU")
+    print(f"[sampled] threefry: {n} (seed, t, role) triples, key words and "
+          "uniforms on the card bit-equal to the CPU's", flush=True)
+
+
+def sampler_device_ms(torch, fn, steps: int = 20):
+    """Device ms per call of ``fn``: CUDA events over ``steps`` calls, and
+    the profiler's kernel time (0 when it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    for _ in range(steps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    busy, _ = kernel_busy_ms(torch, prof, steps)
+    return s.elapsed_time(e) / steps, busy
+
+
+def sampled_serve_phase(torch, cfg, params, load_engine, counters, S,
+                        greedy_tok_s: float, steps: int = 6):
+    """40-layer sampled serve (6 requests × 16 tokens, SAMPLED): two runs
+    on fresh engines give the same streams, and request 3 alone gives its
+    stream in the batch; tok/s beside the greedy serve's; then the
+    sampler's device time per decode step (its program replayed alone)
+    against the step's device busy time (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fused_lutmu as FL
+    runs = []
+    for _ in range(2):
+        reset_counts(counters)
+        h, dt, ttft, eng = serve(torch, cfg, params, load_engine, 6, 16,
+                                 sampled)
+        calls = eng.stats["prefill_calls"] + eng.stats["decode_calls"]
+        ensure(FL.LAUNCHES.n == 3 * cfg.num_layers * calls,
+               f"sampled serve: fused_lutmu launches {FL.LAUNCHES.n} for "
+               f"{calls} calls")
+        ensure(all(x.done and len(x.generated) == 16
+                   and all(0 <= t < cfg.vocab_size for t in x.generated)
+                   for x in h), "sampled requests did not finish")
+        runs.append(([list(x.generated) for x in h], dt, ttft, eng.stats))
+        del eng
+    (streams, dt, ttft, stats), (again, dt2, _, _) = runs
+    ensure(again == streams, "sampled serve: a second run gave other streams")
+    # greedy once more after the sampled runs: greedy, sampled, sampled,
+    # greedy in one process
+    gh, gdt, _, geng = serve(torch, cfg, params, load_engine, 6, 16)
+    greedy_after = sum(len(x.generated) for x in gh) / gdt
+    del geng, gh
+    alone = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                        device="cuda", **ENGINE_KNOBS)
+    r = alone.submit(prompts(cfg.vocab_size, 6)[3], sampled(3),
+                     max_new_tokens=16)
+    alone.run_until_drained()
+    ensure(r.generated == streams[3],
+           "sampled serve: request 3 alone gave another stream")
+    ensure(len({tuple(x) for x in streams}) == len(streams),
+           "sampled serve: two requests gave the same stream")
+    n_tok = sum(map(len, streams))
+    print(f"[sampled] serve (T {SAMPLED['temperature']}, top-k "
+          f"{SAMPLED['top_k']}, top-p {SAMPLED['top_p']}, seeds 1000-1005), 6 "
+          f"requests x 16 tokens: {n_tok / dt:.2f} / {n_tok / dt2:.2f} tok/s "
+          f"(two runs) against greedy {greedy_tok_s:.2f} / "
+          f"{greedy_after:.2f} tok/s (phase 5, and after the sampled runs);"
+          f" TTFT mean {sum(ttft) / len(ttft):.4f}s; streams equal in both "
+          f"runs, request 3 alone equal to its stream in the batch; "
+          f"capture_s {fmt(stats['capture_s'])}; graph nodes "
+          f"{stats['graph_nodes']}", flush=True)
+    del alone
+    # the sampler's share of a decode step: 4 sampled rows decoding
+    eng = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                      device="cuda", **ENGINE_KNOBS)
+    for i, p in enumerate(prompts(cfg.vocab_size, 4)):
+        eng.submit(p, sampled(i), max_new_tokens=4 + 3 * steps + 2)
+    for _ in range(4):
+        eng.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    busy, _ = kernel_busy_ms(torch, prof, steps)
+    prog, seen = eng._sample_decode, []
+    eng._sample_decode = lambda **a: seen.append(a) or prog(**a)
+    eng.step()
+    eng._sample_decode = prog
+    ev_ms, prof_ms = sampler_device_ms(torch, lambda: prog(**seen[0]))
+    share = ("not measured (the profiler saw no kernels)" if not busy else
+             f"{100 * prof_ms / busy:.1f}% of the step's {busy:.2f} ms")
+    print(f"[sampled] sampler (sample_decode replay, 4 rows x "
+          f"{cfg.vocab_size}): {ev_ms:.4f} device ms per replay (CUDA "
+          f"events), kernel time {prof_ms:.4f} ms (profiler) = {share} "
+          f"(profiler, sampled decode steps)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return n_tok / dt
+
+
+def sampled_spec_phase(torch, cfg, params, SpeculativeEngine, FV, counters):
+    """40-layer sampled speculative serve, identical draft, 6 × 16 tokens:
+    on ``scan`` (p = q bitwise) acceptance at least MIN_SAMPLED_ACCEPTANCE;
+    on ``fused`` (the verify kernel, 40 launches per round) acceptance
+    printed; the round program's capture seconds and graph nodes; the
+    round's device ms replayed alone against the greedy round's at the same
+    inputs (the sampler's cost inside a round)."""
+    out = {}
+    for backend in ("scan", "fused"):
+        reset_counts(counters)
+        h, dt, ttft, eng = spec_serve(torch, cfg, params, params,
+                                      SpeculativeEngine, backend, 6, 16,
+                                      sampled)
+        rounds = eng.stats["decode_calls"]
+        ensure(all(x.done and len(x.generated) == 16 for x in h),
+               f"sampled spec {backend}: requests did not finish")
+        ensure(FV.LAUNCHES.n == (cfg.num_layers * rounds
+                                 if backend == "fused" else 0)
+               and FV.PLAIN_ON_CUDA.n == 0,
+               f"sampled spec {backend}: verify launches {FV.LAUNCHES.n} "
+               f"for {rounds} rounds")
+        if backend == "scan":
+            ensure(eng.acceptance_rate >= MIN_SAMPLED_ACCEPTANCE,
+                   f"identical draft, sampled, scan: acceptance "
+                   f"{eng.acceptance_rate} < {MIN_SAMPLED_ACCEPTANCE}")
+        ensure(eng.stats["emitted"] == eng.stats["accepted"]
+               + eng.stats["corrections"] + eng.stats["bonuses"],
+               f"sampled spec {backend}: counters {eng.stats}")
+        print(spec_line(f"spec-sampled-{backend}", h, dt, ttft, eng,
+                        torch.cuda.max_memory_allocated())
+              + f"; round capture {eng.stats['capture_s']['round']:.3f}s, "
+              f"{eng.stats['graph_nodes']['round']} graph nodes", flush=True)
+        out[backend] = eng
+    # the round replayed alone, sampled against greedy, at one round's
+    # inputs (a replay rewrites the same K/V at the same positions)
+    eng = out["fused"]
+    for i, p in enumerate(prompts(cfg.vocab_size, 4)):
+        eng.submit(p, sampled(i), max_new_tokens=40)
+    for _ in range(5):
+        eng.step()
+    prog, seen = eng._round, []
+    eng._round = lambda **a: seen.append(a) or prog(**a)
+    eng.step()
+    eng._round = prog
+    a = seen[0]
+    greedy_in = {k: a[k] for k in ("token", "pos", "n_valid", "table")}
+    eng._round_greedy(**greedy_in)  # captured here if not yet
+    times = {"round": sampler_device_ms(torch, lambda: prog(**a), 5),
+             "round_greedy": sampler_device_ms(
+                 torch, lambda: eng._round_greedy(**greedy_in), 5)}
+    print(f"[sampled] fused round replayed alone (4 rows, k {SPEC_K}): "
+          f"sampled {times['round'][0]:.3f} / greedy "
+          f"{times['round_greedy'][0]:.3f} device ms (CUDA events), kernel "
+          f"time {times['round'][1]:.3f} / {times['round_greedy'][1]:.3f} ms"
+          f" (profiler); graph nodes {eng.stats['graph_nodes']}", flush=True)
+    del out, eng
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the graph gate — captured step programs against the eager
 # model functions
 # ---------------------------------------------------------------------------
@@ -852,18 +1080,49 @@ def keep_round(a, outs):
     return [accepted[rows]] + [target[r, :a["n_valid"][r]] for r in rows]
 
 
+def keep_sampled_round(a, outs):
+    """``accepted`` of the rows in the round, and each one's ``emit`` up to
+    ``accepted + 1`` (later slots hold proposals past the live window)."""
+    accepted, emit = outs
+    rows = (a["n_valid"] > 0).nonzero()[0]
+    return [accepted[rows]] + [emit[r, :int(accepted[r]) + 1] for r in rows]
+
+
 def keep_all(a, outs):
     return list(outs)
 
 
+def sampler_twin(torch, prog, S, log):
+    """A sampler program checked call by call: its replay bit-equal to
+    ``S.sample_tokens`` called eagerly on the same logits and inputs."""
+    import numpy as np
+
+    def call(logits, **arrays):
+        out = prog(logits=logits, **arrays).clone()
+        want = S.sample_tokens(logits, *S.from_staged(*(
+            torch.from_numpy(np.asarray(arrays[k], np.int32)).cuda()
+            for k in S.STAGED)))
+        torch.cuda.synchronize()
+        ensure(prog.graph is not None, f"{prog.name}: no graph captured")
+        ensure(torch.equal(out, want), f"{prog.name}: replayed tokens "
+               f"{out.tolist()} != eager {want.tolist()}")
+        log.append(prog.name)
+        return out
+
+    return call
+
+
 def graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
-                     SPEC):
+                     SPEC, S):
     """At full width and depth, the serve configuration: consecutive decode
     steps and prefill chunks of a live engine (one prompt of 40 tokens, so
     a chunk starts at 32 with 8 of 32 valid), then greedy rounds and
     prefill pairs on ``fused`` and on ``scan`` (identical draft), each
     replay bit-equal to the model function called eagerly on a copy of the
-    caches.  Prints each program's capture seconds and graph nodes."""
+    caches; then sampled requests through the same engines: each sampler
+    replay (plain decode and prefill) bit-equal to ``sample_tokens`` on the
+    same logits, each sampled round's replay to ``sampled_round``.  Prints
+    each program's capture seconds and graph nodes."""
     long_prompt = [(7 * i + 3) % cfg.vocab_size for i in range(40)]
     reqs = prompts(cfg.vocab_size, 3) + [long_prompt]
     eng = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
@@ -882,6 +1141,16 @@ def graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
     for p in reqs:
         eng.submit(p, max_new_tokens=4)
     eng.run_until_drained()
+    n_greedy_dec = len(dec_log)
+    s_log = []
+    eng._sample_decode = sampler_twin(torch, eng._sample_decode, S, s_log)
+    eng._sample_prefill = sampler_twin(torch, eng._sample_prefill, S, s_log)
+    for i, p in enumerate(reqs[1:]):  # one sampled request with a greedy one
+        eng.submit(p, sampled(i) if i != 1 else None, max_new_tokens=4)
+    eng.run_until_drained()
+    ensure(s_log.count("sample_decode") >= 3
+           and s_log.count("sample_prefill") == 2,
+           f"sampler calls checked: {s_log}")
     partial = [(int(a["start"]), int(a["n_valid"])) for a in pf_log
                if int(a["start"]) > 0]
     ensure(len(dec_log) >= 3, f"only {len(dec_log)} decode steps checked")
@@ -889,9 +1158,14 @@ def graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
            f"no partial chunk past start 0 was checked: {partial}")
     print(f"[graphs] decode: {len(dec_log)} consecutive steps of a live "
           f"engine bit-equal to eager MD.paged_decode_step (logits of the "
-          f"live rows, every page but the trash page); prefill: "
-          f"{len(pf_log)} chunks bit-equal to eager MD.paged_prefill_chunk, "
-          f"(start, n_valid) past 0: {partial}", flush=True)
+          f"live rows, every page but the trash page), {n_greedy_dec} of "
+          f"them greedy; prefill: {len(pf_log)} chunks bit-equal to eager "
+          f"MD.paged_prefill_chunk, (start, n_valid) past 0: {partial}; "
+          f"sampled decode: {s_log.count('sample_decode')} sampler replays "
+          f"bit-equal to eager S.sample_tokens on the replayed logits "
+          f"(with the decode check: replay + sampler = eager twin), "
+          f"{s_log.count('sample_prefill')} first tokens after prefill",
+          flush=True)
     print(f"[graphs] plain engine: capture_s "
           f"{fmt(eng.stats['capture_s'])}; graph nodes "
           f"{eng.stats['graph_nodes']}", flush=True)
@@ -923,11 +1197,25 @@ def graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
                                     or seng.acceptance_rate == 1.0),
                f"{backend}: {len(r_log)} rounds, acceptance "
                f"{seng.acceptance_rate}")
+        sr_log = []
+        seng._round = twin(
+            torch, seng._round, lambda c, token, pos, n_valid, table, seed,
+            t, temperature, top_k, top_p, b=backend: SPEC.sampled_round(
+                params, params, token, pos, n_valid, table,
+                *S.from_staged(seed, t, temperature, top_k, top_p), c[0],
+                c[1], cfg, cfg, SPEC_K, compute_dtype=cd, backend=b),
+            caches, keep_sampled_round, sr_log)
+        for i, p in enumerate(reqs[:2]):
+            seng.submit(p, sampled(i), max_new_tokens=10)
+        seng.run_until_drained()
+        ensure(len(sr_log) >= 2, f"{backend}: {len(sr_log)} sampled rounds")
         print(f"[graphs] greedy round ({backend}): {len(r_log)} rounds "
               f"bit-equal to eager greedy_round (accepted, target up to "
-              f"n_valid, both caches), {len(p_log)} prefill pairs to eager "
-              f"prefill_pair; capture_s {fmt(seng.stats['capture_s'])}; "
-              f"graph nodes {seng.stats['graph_nodes']}", flush=True)
+              f"n_valid, both caches); sampled round: {len(sr_log)} rounds "
+              f"bit-equal to eager sampled_round (accepted, emit up to "
+              f"accepted + 1, both caches); {len(p_log)} prefill pairs to "
+              f"eager prefill_pair; capture_s {fmt(seng.stats['capture_s'])};"
+              f" graph nodes {seng.stats['graph_nodes']}", flush=True)
         del seng
     torch.cuda.empty_cache()
 
@@ -1218,6 +1506,7 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.models import model as MD
     from repro_torch.serving import SpeculativeEngine, load_engine
+    from repro_torch.serving import sampling as S
     from repro_torch.serving import speculative as SPEC
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
@@ -1241,6 +1530,9 @@ def main() -> int:
     print(f"[build] {len(_build.SOURCES)} kernels in "
           f"{time.perf_counter() - t0:.1f}s ({' '.join(_build.NVCC_FLAGS)})",
           flush=True)
+
+    # 15. the threefry streams, card against CPU
+    threefry_phase(torch, S)
 
     # 3. kernels
     timer = Timer(torch)
@@ -1297,9 +1589,12 @@ def main() -> int:
     plain_streams = [list(h.generated) for h in handles]
     del engine, handles
     profile_phase(torch, cfg, params, MD, load_engine)
+    # 16. the same serve sampled, and the sampler's share of a step
+    sampled_serve_phase(torch, cfg, params, load_engine, counters, S,
+                        n_tok / dt)
     # 14. each captured program against its eager model function
     graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
-                     SPEC)
+                     SPEC, S)
 
     # 8. fused verify step (kernel) against the scan oracle at full width
     verify_agree_phase(torch, cfg, params, MD, FV)
@@ -1345,6 +1640,8 @@ def main() -> int:
           f"{rounds} rounds; plain verify on CUDA 0; {differ} of {len(fh)} "
           "streams differ from the plain engine's", flush=True)
     del feng, fh
+    # 17. sampled speculative serve, identical draft, scan then fused
+    sampled_spec_phase(torch, cfg, params, SpeculativeEngine, FV, counters)
     del params
     torch.cuda.empty_cache()
 

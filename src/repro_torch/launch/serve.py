@@ -15,11 +15,13 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --reduced --amm --device cpu
 
-  # a bundle the JAX compiler wrote, served speculatively on the CPU
+  # a bundle the JAX compiler wrote, served speculatively on the CPU,
+  # sampled (the same seed gives the same streams)
   PYTHONPATH=src python -m repro.compiler bundle --arch qwen3-14b \\
       --reduced --out /tmp/lm_bundle
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
-      --reduced --artifact /tmp/lm_bundle --speculative --device cpu
+      --reduced --artifact /tmp/lm_bundle --speculative --device cpu \\
+      --temperature 0.8 --top-k 8 --seed 0
 """
 from __future__ import annotations
 
@@ -103,13 +105,16 @@ def main(argv=None) -> None:
                          "--speculative")
     ap.add_argument("--speculative", action="store_true",
                     help="draft-propose / target-verify serving of a bundle "
-                         "--artifact (greedy streams equal the target's)")
+                         "--artifact (greedy streams equal the target's; "
+                         "sampled streams are distributed as its plain "
+                         "sampling)")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft tokens proposed per verify step (default: "
                          "the bundle manifest's recorded value, else 4)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature; 0 (default) = greedy argmax "
-                         "(above 0: ROADMAP A8)")
+                    help="sampling temperature; 0 (default) = greedy argmax; "
+                         "above 0 each request samples from its own seeded "
+                         "stream (the JAX package's streams)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="keep only the k most likely tokens (0 = off)")
     ap.add_argument("--top-p", type=float, default=1.0,

@@ -10,7 +10,11 @@ through ``models/model.py``; the model writes the K/V pages in place.
 Each of the two is one :class:`~repro_torch.serving.programs.StepProgram`
 at the engine's fixed shapes (``_decode``, ``_prefill``): on the card one
 CUDA-graph replay per step, as the JAX engine runs one jitted program.
-Greedy requests only for now (``sampling.py``).  ``cfg.amm.kv_int8`` serves
+Requests sample with temperature / top-k / top-p from per-request seeded
+streams equal to JAX's (``sampling.py``): a step whose rows are all greedy
+takes the argmax of the logits; otherwise the sampler runs on the device
+as one more small program (``_sample_decode``, ``_sample_prefill``) that
+reads the step program's logits in place.  ``cfg.amm.kv_int8`` serves
 from an int8-quantised KV cache.  :meth:`ServeEngine._from_artifact` serves
 a compiled ``amm_lm`` artifact (``compiler/artifact.py``) spliced into the
 dense params.  ``speculative.py`` subclasses the engine
@@ -38,13 +42,6 @@ from repro_torch.serving.obs import log
 from repro_torch.serving.programs import StepProgram
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
-
-
-def _sample_batch(logits: torch.Tensor, rows_reqs, batch: int) -> np.ndarray:
-    """``logits (batch, V)`` + ``(row, request)`` pairs → ``(batch,)`` int32
-    tokens on the host; rows not listed are greedy and discarded."""
-    _, _, temp, _, _ = S.batch_rows(rows_reqs, batch)
-    return S.sample_tokens(logits, temp)
 
 
 def _splice_artifact(art, params: dict, cfg: ModelConfig, device="cuda"):
@@ -149,6 +146,9 @@ class ServeEngine:
         self._decode = self._program(decode, "decode", self._decode_inputs())
         self._prefill = self._program(prefill, "prefill",
                                       self._prefill_inputs())
+        # the device sampler of a decode batch and of a prefill's first token
+        self._sample_decode = self._sampler("sample_decode", self.max_batch)
+        self._sample_prefill = self._sampler("sample_prefill", 1)
 
     @classmethod
     def _from_artifact(cls, artifact_path, params: dict, cfg: ModelConfig,
@@ -167,11 +167,9 @@ class ServeEngine:
                sampling: Optional[SamplingParams] = None, *,
                max_new_tokens: int = 16, eos_id: Optional[int] = None,
                priority: int = 0) -> RequestHandle:
-        """Queue a request; returns a :class:`RequestHandle`."""
+        """Queue a request; returns a :class:`RequestHandle`.  ``sampling``
+        defaults to greedy."""
         sampling = sampling if sampling is not None else SamplingParams()
-        if not sampling.greedy:
-            raise NotImplementedError(
-                "temperature > 0 sampling is not ported yet (ROADMAP A8)")
         req = Request(uid=next(self._uid), prompt=list(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       priority=priority, sampling=sampling)
@@ -226,9 +224,31 @@ class ServeEngine:
             "investigate a stuck schedule")
 
     # -- internals ---------------------------------------------------------
-    def _program(self, fn, name: str, inputs) -> StepProgram:
+    def _program(self, fn, name: str, inputs, tensors=()) -> StepProgram:
         return StepProgram(fn, inputs, self.device, name=name,
-                           pool=self._pool, stats=self.stats)
+                           pool=self._pool, stats=self.stats, tensors=tensors)
+
+    def _sampler(self, name: str, batch: int) -> StepProgram:
+        """The sampler of ``batch`` rows as a program reading the logits
+        ``(batch, V)`` it is given in place, its per-row parameters staged
+        as int32 bit views."""
+        def sample(logits, seed, t, temperature, top_k, top_p):
+            return S.sample_tokens(logits, *S.from_staged(
+                seed, t, temperature, top_k, top_p))
+
+        return self._program(sample, name, S.staged_inputs(batch),
+                             tensors=("logits",))
+
+    def _sample(self, logits: torch.Tensor, rows_reqs,
+                program: StepProgram) -> np.ndarray:
+        """``logits (batch, V)`` + ``(row, request)`` pairs → ``(batch,)``
+        int32 tokens on the host; rows not listed are greedy and discarded.
+        An all-greedy batch takes the argmax (the sampler's T = 0 path gives
+        the same tokens), any other the sampler ``program``."""
+        if S.all_greedy(rows_reqs):
+            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        staged = S.stage_rows(rows_reqs, logits.shape[0])
+        return program(logits=logits, **staged).cpu().numpy()
 
     def _decode_inputs(self, **extra):
         """The decode-shaped inputs ``(shape, idle value)``: rows without a
@@ -271,8 +291,8 @@ class ServeEngine:
         self.stats["prefill_calls"] += 1
         req.pf_done += chunk.n_valid
         if req.pf_done == len(req.prompt):
-            req.generated.append(
-                int(_sample_batch(logits[0, -1:], [(0, req)], 1)[0]))
+            req.generated.append(int(self._sample(
+                logits[0, -1:], [(0, req)], self._sample_prefill)[0]))
             # prefill_finished first — it indexes the prompt pages for
             # prefix reuse, which a budget-limited request still provides
             self.sched.prefill_finished(req)
@@ -291,7 +311,7 @@ class ServeEngine:
             table[row, : len(req.pages)] = req.pages
         logits = self._decode(token=token, pos=pos, table=table)
         self.stats["decode_calls"] += 1
-        nxt = _sample_batch(logits[:, 0], decode, self.max_batch)
+        nxt = self._sample(logits[:, 0], decode, self._sample_decode)
         for row, req in decode:
             req.generated.append(int(nxt[row]))
             if req.budget_reached(self.max_len):

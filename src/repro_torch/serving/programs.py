@@ -19,7 +19,12 @@ On the card the first call
 3. captures the function on that stream into the engine's graph pool.
 
 Every call then stages its host inputs in one pinned int32 buffer, moves
-them with one ``non_blocking`` copy and replays the graph.  The outputs are
+them with one ``non_blocking`` copy and replays the graph.  Float and
+uint32 inputs travel as int32 bit views (``sampling.py::stage_rows``).  A
+program may also read device tensors it is given as they are, without
+staging (``tensors=``): the sampler reads the decode program's logits.  A
+graph holds their addresses, so each later call must pass the same
+tensors: another one raises.  The outputs are
 static tensors, rewritten by the next replay: the caller reads them first.
 The kernel wrappers count their launches in Python, which runs at capture
 and not at replay, so the counts of both runs are taken back out and each
@@ -67,13 +72,17 @@ class StepProgram:
     ``pool``: the engine's graph memory pool, shared by all its programs
     (they never run at once).  ``stats``: where the capture's seconds and
     the graph's node count go, under ``capture_s[name]`` and
-    ``graph_nodes[name]``.
+    ``graph_nodes[name]``.  ``tensors``: names of device-tensor inputs
+    passed through unstaged, the same tensors on every call on the card.
     """
 
     def __init__(self, fn: Callable, inputs: InputSpec, device: torch.device,
-                 *, name: str, pool=None, stats: Optional[dict] = None):
+                 *, name: str, pool=None, stats: Optional[dict] = None,
+                 tensors: Tuple[str, ...] = ()):
         self.fn = fn
         self.name = name
+        self.tensors = tuple(tensors)
+        self._bound: Optional[Dict[str, torch.Tensor]] = None
         self.device = device
         self.pool = pool
         self.stats = stats if stats is not None else {}
@@ -102,11 +111,21 @@ class StepProgram:
 
     @torch.inference_mode()
     def __call__(self, **arrays):
+        tensors = {k: arrays.pop(k) for k in self.tensors if k in arrays}
+        if tensors.keys() != set(self.tensors):
+            raise ValueError(f"{self.name} program takes tensors "
+                             f"{list(self.tensors)}, got {sorted(tensors)}")
         if self.device.type != "cuda":
             self._stage(arrays)
-            return self.fn(**self.inputs)
+            return self.fn(**self.inputs, **tensors)
         if self.graph is None:
-            self._capture()
+            self._capture(tensors)
+        for k, t in tensors.items():
+            b = self._bound[k]
+            if (t.data_ptr(), t.shape, t.stride()) != (b.data_ptr(), b.shape,
+                                                       b.stride()):
+                raise ValueError(f"{self.name} program was captured reading "
+                                 f"another {k!r} tensor")
         self._stage(arrays)
         self.graph.replay()
         self._launches.replay()
@@ -128,7 +147,7 @@ class StepProgram:
             self._dev.copy_(self._host, non_blocking=True)
             self._copied.record()
 
-    def _capture(self) -> None:
+    def _capture(self, tensors: Dict[str, torch.Tensor]) -> None:
         t0 = time.perf_counter()
         for k, t in self.inputs.items():
             t.fill_(self._idle[k])
@@ -139,7 +158,7 @@ class StepProgram:
 
         def warm_up():
             with torch.cuda.stream(stream):
-                self.fn(**self.inputs)
+                self.fn(**self.inputs, **tensors)
 
         def capture():
             # the outer context restores the caller's stream even when a
@@ -147,7 +166,7 @@ class StepProgram:
             # context leaves its stream
             with torch.cuda.stream(stream):
                 with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                    out.append(self.fn(**self.inputs))
+                    out.append(self.fn(**self.inputs, **tensors))
 
         try:
             self._launches = _build.CapturedLaunches(warm_up, capture)
@@ -160,7 +179,7 @@ class StepProgram:
                                f"captured: {e}") from e
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph.instantiate()
-        self.graph, self.outputs = graph, out[0]
+        self.graph, self.outputs, self._bound = graph, out[0], tensors
         self.stats.setdefault("capture_s", {})[self.name] = (
             time.perf_counter() - t0)
         self.stats.setdefault("graph_nodes", {})[self.name] = graph_nodes(graph)

@@ -1,21 +1,28 @@
-"""Speculative decoding (greedy): a low-resolution LUT-MU draft proposes,
-the full-resolution target verifies, as in ``repro.serving.speculative``.
+"""Speculative decoding: a low-resolution LUT-MU draft proposes, the
+full-resolution target verifies, as in ``repro.serving.speculative`` —
+greedy streams equal to the plain engine's, sampled streams distributed as
+plain sampling from the target.
 
 Round structure (one :meth:`SpeculativeEngine.step`):
 
 1. **draft** — ``models/model.py::paged_draft_loop`` runs ``k`` decode
    steps of the draft model over the whole decode batch (plus one
-   write-only step), writing the draft's own paged KV cache;
+   write-only step), writing the draft's own paged KV cache; a sampled
+   round draws each proposal from the draft's post-transform distribution
+   ``q`` on the ``ROLE_DRAFT`` stream;
 2. **verify** — ``models/model.py::paged_verify_step`` feeds each row's
    last emitted token plus its ``k`` proposals at positions
    ``next_pos .. next_pos+k`` and returns per-position logits; the
    ``fused`` backend runs one verify-window attention per layer (the CUDA
    kernel ``csrc/verify_window.cu`` on the card);
-3. **accept** — greedy prefix matching: proposal ``j`` is accepted while it
-   equals the target's argmax after the prefix before it; the target's
-   token at the first mismatch (the correction) or after the whole window
-   (the bonus) is emitted too, so each request gains 1 to ``k+1`` tokens
-   per round, each one the plain engine would have emitted;
+3. **accept** — greedy: proposal ``j`` is accepted while it equals the
+   target's argmax after the prefix before it, and the target's token at
+   the first mismatch (the correction) or after the whole window (the
+   bonus) is emitted too.  Sampled: the rejection-sampling correction
+   ``sampling.py::speculative_accept`` on the target's distribution ``p``
+   (accept with probability ``min(1, p/q)``, resample the first rejection
+   from ``max(p - q, 0)``, the bonus from ``p`` on the plain engine's own
+   stream).  Each request gains 1 to ``k+1`` tokens per round;
 4. **rollback** — positions past the accepted prefix hold rejected-draft
    K/V in both caches.  The next window starts at the first rejected
    position and every paged write precedes every read of the same
@@ -23,18 +30,22 @@ Round structure (one :meth:`SpeculativeEngine.step`):
    pages backing only garbage go back to the pool
    (``scheduler.Scheduler.rollback``).
 
-Each round (draft, verify, accept) is one step program, and so is each
-prefill chunk through both models (``serving/programs.py``; JAX
-``_round_greedy`` and ``_prefill_pair``): on the card one CUDA-graph replay
-each.  The program functions are :func:`greedy_round` and
-:func:`prefill_pair`.
+Each round is one step program, and so is each prefill chunk through both
+models (``serving/programs.py``; JAX ``_round``, ``_round_greedy`` and
+``_prefill_pair``): on the card one CUDA-graph replay each.  The program
+functions are :func:`sampled_round`, :func:`greedy_round` and
+:func:`prefill_pair`.  A round whose rows are all greedy runs
+``round_greedy``, any other ``round``, as JAX picks on the host; the
+greedy round gives the tokens the sampled one gives at T = 0.  Every
+uniform of a sampled round depends on ``(seed, t0 + j, role)`` only, never
+on a drafted token, so one batched hash draws them all before the draft
+loop (``sampling.py::round_uniforms``).
 
 Both models share one scheduler, one page allocator and one page table;
 the draft's cache mirrors the target's pool (``PagedKVCache(allocator=…)``),
 so admission, chunked prefill, eviction with host swap, copy-on-write
 prefix sharing and cancellation all come from the plain engine, applied to
-both caches.  Sampled rounds (temperature > 0) need the counter-derived
-sampling streams (ROADMAP A8): ``submit`` raises for them.
+both caches.
 
 A compiled target+draft bundle (``compiler/artifact.py::load_bundle``) or a
 pair of ``amm_lm`` artifacts is served through :meth:`_from_bundle` /
@@ -53,6 +64,7 @@ from repro_torch.compiler.artifact import load_bundle
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import ServeEngine, _splice_artifact
+from repro_torch.serving import sampling as S
 from repro_torch.serving.kv_cache import HostKV, PagedKVCache
 from repro_torch.serving.scheduler import Request
 
@@ -91,6 +103,38 @@ def greedy_round(params: dict, draft_params: dict, token: Tensor, pos: Tensor,
         torch.arange(k, device=draft.device)[None, :] < n_valid[:, None] - 1)
     accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
     return accepted, target
+
+
+def sampled_round(params: dict, draft_params: dict, token: Tensor,
+                  pos: Tensor, n_valid: Tensor, table: Tensor, seed: Tensor,
+                  t0: Tensor, temperature: Tensor, top_k: Tensor,
+                  top_p: Tensor, cache: Dict[str, Tensor],
+                  draft_cache: Dict[str, Tensor], cfg: ModelConfig,
+                  draft_cfg: ModelConfig, k: int, *, compute_dtype,
+                  backend: str) -> Tuple[Tensor, Tensor]:
+    """One sampled round (JAX ``_round``): the draft samples ``k`` proposals
+    from its own post-transform ``q`` (``ROLE_DRAFT``), the target verifies
+    the ``k+1`` window, ``speculative_accept`` corrects.  Per-row ``seed``
+    (int64 holding uint32), ``t0`` (emission index of the window's first
+    token), ``temperature``, ``top_k``, ``top_p``.  Both caches are updated
+    in place.  Returns ``(accepted (B,), emit (B, k+1))`` on the device."""
+    u_draft, u_acc, u_res, u_bonus = S.round_uniforms(seed, t0, n_valid, k)
+
+    def draft_sample(logits, off):
+        q = S.sampling_probs(logits, temperature, top_k, top_p)
+        return S.categorical_from_uniform(q, u_draft[:, off]), q
+
+    draft, q_probs = MD.paged_draft_loop(
+        draft_params, token, pos, n_valid, table, draft_cache, draft_cfg, k,
+        sample=draft_sample, compute_dtype=compute_dtype)
+    window = torch.cat([token.to(draft.dtype), draft], dim=1)  # (B, k+1)
+    logits = MD.paged_verify_step(
+        params, window, pos, n_valid, table, cache, cfg,
+        compute_dtype=compute_dtype, backend=backend)
+    p_probs = S.sampling_probs(logits, temperature[:, None], top_k[:, None],
+                               top_p[:, None])
+    return S.speculative_accept(p_probs, q_probs, draft, seed, t0, n_valid,
+                                uniforms=(u_acc, u_res, u_bonus))
 
 
 def prefill_pair(params: dict, draft_params: dict, tokens: Tensor, start,
@@ -154,14 +198,26 @@ class SpeculativeEngine(ServeEngine):
             return greedy_round(pt, pd, token, pos, n_valid, table, ct, cdr,
                                 cfg_t, cfg_d, k, compute_dtype=cd, backend=vb)
 
+        def round_sampled(token, pos, n_valid, table, seed, t, temperature,
+                          top_k, top_p):
+            return sampled_round(pt, pd, token, pos, n_valid, table,
+                                 *S.from_staged(seed, t, temperature, top_k,
+                                                top_p),
+                                 ct, cdr, cfg_t, cfg_d, k, compute_dtype=cd,
+                                 backend=vb)
+
         def prefill(tokens, start, n_valid, row):
             return prefill_pair(pt, pd, tokens, start, n_valid, row, ct, cdr,
                                 cfg_t, cfg_d, compute_dtype=cd)
 
-        self._decode = None
+        self._decode = self._sample_decode = None
+        window = ((self.max_batch,), 0)  # n_valid's (shape, idle value)
         self._round_greedy = self._program(
-            round_greedy, "round_greedy",
-            self._decode_inputs(n_valid=((self.max_batch,), 0)))
+            round_greedy, "round_greedy", self._decode_inputs(n_valid=window))
+        self._round = self._program(
+            round_sampled, "round",
+            self._decode_inputs(n_valid=window,
+                                **S.staged_inputs(self.max_batch)))
         self._prefill = self._program(prefill, "prefill_pair",
                                       self._prefill_inputs())
 
@@ -241,8 +297,15 @@ class SpeculativeEngine(ServeEngine):
                 req.max_new_tokens - len(req.generated),
                 self.max_len - len(req.prompt) - len(req.generated))
             table[row, : len(req.pages)] = req.pages
-        accepted, emit = self._round_greedy(token=token, pos=pos,
-                                            n_valid=n_valid, table=table)
+        if S.all_greedy(decode):
+            # every row greedy: the greedy round, whose tokens the sampled
+            # round gives at T = 0
+            accepted, emit = self._round_greedy(token=token, pos=pos,
+                                                n_valid=n_valid, table=table)
+        else:
+            accepted, emit = self._round(
+                token=token, pos=pos, n_valid=n_valid, table=table,
+                **S.stage_rows(decode, self.max_batch))
         accepted = accepted.cpu().numpy()  # (B,)   accepted-prefix lengths
         emit = emit.cpu().numpy()          # (B, k+1) tokens to emit per row
         self.stats["decode_calls"] += 1

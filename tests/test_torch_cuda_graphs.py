@@ -16,7 +16,10 @@ must move by what the eager call launched.  Left out of the comparison is
 what reads or writes the trash page, which padding rows and masked window
 slots write in no fixed order: the trash page itself, the logits of batch
 rows without a request, and the round's window slots past a row's
-``n_valid``.  Nothing reads those.
+``n_valid`` (past ``accepted + 1`` for the sampled round's ``emit``).
+Nothing reads those.  Sampled requests run the same way through the
+sampled round and the sampler programs, each replay bit-equal to
+``sampled_round`` or ``sample_tokens`` called eagerly on the same inputs.
 """
 import dataclasses
 
@@ -29,9 +32,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels import fused_verify as FV
 from repro_torch.models import model as MD
-from repro_torch.serving import ServeEngine, SpeculativeEngine
+from repro_torch.serving import SamplingParams, ServeEngine, SpeculativeEngine
+from repro_torch.serving import sampling as S
 from repro_torch.serving.programs import StepProgram
-from repro_torch.serving.speculative import greedy_round, prefill_pair
+from repro_torch.serving.speculative import (greedy_round, prefill_pair,
+                                             sampled_round)
 
 CD = torch.bfloat16
 SPEC_K = 3
@@ -80,8 +85,33 @@ def keep_round(arrays, outs):
     return [accepted[rows]] + [target[r, :arrays["n_valid"][r]] for r in rows]
 
 
+def keep_sampled_round(arrays, outs):
+    """``accepted`` of the rows in the round, and each one's ``emit`` up to
+    ``accepted + 1`` (later slots hold proposals past the live window)."""
+    accepted, emit = outs
+    rows = np.flatnonzero(arrays["n_valid"] > 0)
+    return [accepted[rows]] + [emit[r, :int(accepted[r]) + 1] for r in rows]
+
+
 def keep_all(arrays, outs):
     return list(outs)
+
+
+def _sample_twin(prog, record):
+    """A sampler program checked call by call against ``sample_tokens``
+    called eagerly on the same logits and inputs."""
+
+    def call(logits, **arrays):
+        out = prog(logits=logits, **arrays).clone()
+        want = S.sample_tokens(logits, *S.from_staged(
+            *(_dev(arrays[k]) for k in S.STAGED)))
+        torch.cuda.synchronize()
+        assert prog.graph is not None, f"{prog.name} was not captured"
+        assert torch.equal(out, want), prog.name
+        record.append(prog.name)
+        return out
+
+    return call
 
 
 def _twin(prog, eager, caches, record, keep):
@@ -132,8 +162,17 @@ def _spies(eng):
     return calls
 
 
-def _drain(eng, max_new=10):
-    reqs = [eng.submit(p, max_new_tokens=max_new) for p in PROMPTS]
+def _sampled(i):
+    """Request ``i``'s sampling: one greedy request among sampled ones."""
+    if i == 2:
+        return SamplingParams()
+    return SamplingParams(temperature=0.8, top_k=20 * (i % 2), top_p=0.95,
+                          seed=2**31 + i)
+
+
+def _drain(eng, max_new=10, sampled=False):
+    reqs = [eng.submit(p, _sampled(i) if sampled else None,
+                       max_new_tokens=max_new) for i, p in enumerate(PROMPTS)]
     eng.run_until_drained()
     assert all(r.done and len(r.generated) == max_new for r in reqs)
     return [list(r.generated) for r in reqs]
@@ -191,6 +230,52 @@ def test_speculative_engine_replays_equal_eager(model, backend):
     # the replays' verify launches, then as many from the eager twins
     per_round = cfg.num_layers if backend == "fused" else 0
     assert FV.LAUNCHES.n == 2 * per_round * rounds
+
+
+@pytest.mark.cuda
+def test_sampled_serve_replays_equal_eager(model):
+    cfg, params, _ = model
+    eng = ServeEngine(params, cfg, **KNOBS)
+    record = []
+    eng._decode = _twin(
+        eng._decode, lambda c, token, pos, table: MD.paged_decode_step(
+            params, token, pos, table, c[0], cfg, compute_dtype=CD),
+        [eng.kv.buffers], record, keep_decode(eng.kv.trash))
+    eng._sample_decode = _sample_twin(eng._sample_decode, record)
+    eng._sample_prefill = _sample_twin(eng._sample_prefill, record)
+    streams = _drain(eng, sampled=True)
+    # a step whose rows are all greedy takes the argmax instead
+    assert 1 < record.count("sample_decode") <= eng.stats["decode_calls"]
+    assert record.count("sample_prefill") == len(PROMPTS) - 1
+    assert {"sample_decode", "sample_prefill"} <= set(eng.stats["capture_s"])
+    again = ServeEngine(params, cfg, **dict(KNOBS, num_pages=None,
+                                            prefix_cache=False))
+    assert _drain(again, sampled=True) == streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "scan"])
+def test_sampled_round_replays_equal_eager(model, backend):
+    cfg, params, draft = model
+    eng = SpeculativeEngine(params, cfg, draft, spec_k=SPEC_K,
+                            verify_backend=backend, **KNOBS)
+    caches, record = [eng.kv.buffers, eng.kv_draft.buffers], []
+
+    def eager(c, token, pos, n_valid, table, seed, t, temperature, top_k,
+              top_p):
+        return sampled_round(params, draft, token, pos, n_valid, table,
+                             *S.from_staged(seed, t, temperature, top_k,
+                                            top_p),
+                             c[0], c[1], cfg, cfg, SPEC_K, compute_dtype=CD,
+                             backend=backend)
+
+    eng._round = _twin(eng._round, eager, caches, record, keep_sampled_round)
+    calls = _spies(eng)
+    _drain(eng, sampled=True)
+    assert calls["clone"] > 0 and calls["swap_in"] > 0, calls
+    assert 1 < record.count("round") <= eng.stats["decode_calls"]
+    assert eng.stats["corrections"] > 0
+    assert eng.stats["graph_nodes"]["round"] > 0
 
 
 @pytest.mark.cuda

@@ -11,6 +11,10 @@
   close over them.
 * The launch counters' capture/replay accounting (``kernels/_build.py``),
   with a fake warm-up and capture: there are no graphs on a CPU.
+* The sampled ``round`` program, its float and uint32 inputs staged as
+  int32 bit views, equals ``sampled_round`` called on the same values as
+  float32 and int64 tensors, call by call through a drain: outputs and
+  both caches bitwise.  A program's unstaged tensor inputs pass through.
 """
 import dataclasses
 
@@ -26,7 +30,10 @@ from repro_torch.configs import get_config as port_get_config
 from repro_torch.convert import config_from_jax, params_from_jax
 from repro_torch.kernels import _build
 from repro_torch.models import model as TMD
-from repro_torch.serving import ServeEngine, SpeculativeEngine
+from repro_torch.serving import (SamplingParams, ServeEngine,
+                                 SpeculativeEngine)
+from repro_torch.serving import sampling as S
+from repro_torch.serving import speculative as SPEC
 from repro_torch.serving.programs import StepProgram
 
 CHUNK = 4
@@ -189,3 +196,51 @@ def test_captured_launches_count_replays_not_warm_up_or_capture():
     with pytest.raises(RuntimeError, match="capture failed"):
         _build.CapturedLaunches(warm_up, failed_capture)
     assert (a.n, b.n, c.n) == (16, 4, 3)
+
+
+def test_step_program_passes_tensor_inputs_through_on_cpu():
+    prog = StepProgram(lambda x, a: x[:2] * a, {"a": ((2,), 0)},
+                       torch.device("cpu"), name="t", tensors=("x",))
+    x = torch.arange(4.0)
+    assert torch.equal(prog(x=x, a=np.int32([2, 3])), torch.tensor([0., 3.]))
+    assert torch.equal(prog(x=x + 1, a=np.int32([1, 1])),
+                       torch.tensor([1., 2.]))
+    with pytest.raises(ValueError, match="tensors"):
+        prog(a=np.int32([1, 1]))
+
+
+def test_round_program_equals_sampled_round_on_float_inputs():
+    eng = _tiny_engine(SpeculativeEngine)
+    prog, calls = eng._round, []
+
+    def spy(**arrays):
+        caches = [{n: b.clone() for n, b in c.buffers.items()}
+                  for c in (eng.kv, eng.kv_draft)]
+        out = prog(**arrays)
+        staged = {k: torch.from_numpy(np.asarray(arrays[k]))
+                  for k in ("token", "pos", "n_valid", "table")}
+        seed = torch.from_numpy(arrays["seed"].view(np.uint32).astype(np.int64))
+        floats = {k: torch.from_numpy(arrays[k].view(np.float32))
+                  for k in ("temperature", "top_p")}
+        want = SPEC.sampled_round(
+            eng.params, eng.draft_params, staged["token"], staged["pos"],
+            staged["n_valid"], staged["table"], seed,
+            torch.from_numpy(arrays["t"]), floats["temperature"],
+            torch.from_numpy(arrays["top_k"]), floats["top_p"], caches[0],
+            caches[1], eng.cfg, eng.draft_cfg, eng.spec_k,
+            compute_dtype=eng.cd, backend=eng.verify_backend)
+        for g, w in zip(out, want):
+            assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+        for c, w in zip((eng.kv, eng.kv_draft), caches):
+            assert all(torch.equal(c.buffers[n], w[n]) for n in w)
+        calls.append(arrays)
+        return out
+
+    eng._round = spy
+    reqs = [eng.submit(p, SamplingParams(temperature=0.9, top_k=5 * i,
+                                         top_p=1.0 - 0.1 * i,
+                                         seed=2**32 - 1 - i),
+                       max_new_tokens=6) for i, p in enumerate(PROMPTS[:3])]
+    eng.run_until_drained()
+    assert all(r.done for r in reqs) and len(calls) >= 2
+    assert any((a["seed"] < 0).any() for a in calls)  # uint32 above 2^31

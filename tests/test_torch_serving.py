@@ -35,6 +35,7 @@ from repro_torch.configs import get_config as port_get_config
 from repro_torch.convert import config_from_jax, params_from_jax
 from repro_torch.launch import serve as port_serve
 from repro_torch.models.amm_mlp import init_amm_mlp_params
+from repro_torch.models.model import init_params as port_init_params
 from repro_torch.serving import (PageError, SamplingParams, ServeEngine,
                                  load_engine)
 
@@ -108,8 +109,9 @@ def test_engine_surface(golden):
     assert eng.stats["prefill_calls"] == 1 and eng.stats["decode_calls"] == 1
     c = eng.submit([4, 5], max_new_tokens=4)
     assert c.cancel() and c.status == "cancelled"
-    with pytest.raises(NotImplementedError):
-        eng.submit([1], SamplingParams(temperature=0.7))
+    s = eng.submit([1], SamplingParams(temperature=0.7, seed=5),
+                   max_new_tokens=3)
+    assert len(s.result()) == 3 and s.status == "done"
     with pytest.raises(ValueError):
         eng.submit(list(range(70)))  # ≥ max_len
     with pytest.raises(ArtifactError, match="no manifest.json"):
@@ -304,7 +306,28 @@ def test_launcher_exits_where_not_ported(launcher_arts, extra, message):
         port_serve.main(BASE_ARGS + extra)
 
 
-def test_launcher_sampled_flags_raise_until_a8(launcher_arts):
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_serve.main(BASE_ARGS + ["--artifact", str(launcher_arts / "art"),
-                                     "--temperature", "0.7"])
+def test_launcher_sampled_flags_raise_until_a8(launcher_arts, capsys):
+    """Sampling is ported (ROADMAP A8, named in this test's name from when
+    the flags raised): the launcher's sampled streams are the same in two
+    runs and equal ``ServeEngine``'s driven directly with the launcher's
+    params, prompts and seeds (request ``i`` seeded ``--seed`` + i)."""
+    args = BASE_ARGS + ["--artifact", str(launcher_arts / "art"),
+                        "--temperature", "0.7", "--top-k", "8", "--seed", "3"]
+    port_serve.main(args)
+    first = _served(capsys.readouterr().out, 2)
+    port_serve.main(args)
+    assert _served(capsys.readouterr().out, 2) == first
+    cfg = port_get_config("qwen3-14b", reduced=True)
+    params = port_init_params(cfg, torch.Generator().manual_seed(0),
+                              torch.float32)
+    eng = load_engine(str(launcher_arts / "art"), params, cfg, max_batch=2,
+                      max_len=128, page_size=16, prefill_chunk=32,
+                      compute_dtype=torch.float32, device="cpu")
+    hs = [eng.submit(p, SamplingParams(temperature=0.7, top_k=8, seed=3 + i),
+                     max_new_tokens=3)
+          for i, p in enumerate(port_serve.cli_prompts(None, 2,
+                                                       cfg.vocab_size))]
+    eng.run_until_drained()
+    assert [h.generated for h in hs] == first
+    port_serve.main(BASE_ARGS + ["--artifact", str(launcher_arts / "art")])
+    assert _served(capsys.readouterr().out, 2) != first  # greedy differs

@@ -206,8 +206,12 @@ def test_guards(setup):
     st = setup
     eng = SpeculativeEngine(st["tparams"], st["tcfg"], st["tparams"],
                             spec_k=2, device="cpu", **KNOBS)
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.submit([1, 2], SamplingParams(temperature=0.7))
+    # sampled requests are served (ROADMAP A8): through the sampled round
+    sampled = eng.submit([1, 2], SamplingParams(temperature=0.7, seed=9),
+                         max_new_tokens=5)
+    eng.run_until_drained()
+    assert sampled.done and len(sampled.generated) == 5
+    assert eng.stats["decode_calls"] > 0
     other = dataclasses.replace(st["tcfg"], num_kv_heads=2)
     with pytest.raises(ValueError, match="geometry mismatch on 'num_kv_heads'"):
         SpeculativeEngine(st["tparams"], st["tcfg"], st["tparams"],
