@@ -99,7 +99,23 @@ Phases, each fatal on failure:
     bitwise) acceptance at least ``MIN_SAMPLED_ACCEPTANCE``; on ``fused``
     acceptance printed, 40 verify launches per round; the ``round``
     program's capture seconds and graph nodes; one sampled round replayed
-    alone against the greedy round at the same inputs (device ms).
+    alone against the greedy round at the same inputs (device ms);
+18. observed — (after 16) phase 5's serve with the recorder off, then on
+    (a tracing ``Recorder``, ``KernelProfiler(every=4)``, the dispatch
+    hook) in one call: the same streams, tok/s and host ms per
+    ``engine.step()``, the profiled ``serve.decode`` p50 beside the profile
+    phase's device ms; phase 16's sampled requests through the observed
+    engine give phase 16's streams; both exports validate, the trace has a
+    kernels lane, ``serve_generated_tokens_total`` is the tokens emitted,
+    each program built once.  Then ``AsyncServer`` on ``127.0.0.1:0`` over
+    that engine: 4 concurrent streaming clients get phase 5's streams,
+    ``/metrics`` validates, ``/slo`` and ``/healthz`` answer, a client that
+    disconnects is cancelled; served tok/s.  (After 9) the fused
+    speculative serve observed: ``spec_rounds_total``, proposed and
+    accepted equal ``stats`` and ``acceptance_rate``.  (After 6) the
+    4-layer unfused serve with a quality probe at rate 1.0 and dense bf16
+    reference weights: the probe-off streams, no probe errors, rel-error
+    histograms for gate, up and down.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
@@ -177,6 +193,7 @@ SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 # proposal is rejected only when its uniform rounds to 1
 MIN_SAMPLED_ACCEPTANCE = 0.9
 THREEFRY_TRIPLES = 4096
+DEVICE = "cuda"  # where the engines serve
 
 
 def ensure(cond: bool, msg: str) -> None:
@@ -516,7 +533,7 @@ def serve(torch, cfg, params, load_engine, n_requests: int, max_new: int,
           sampling=None):
     """Drive the engine; returns (requests, seconds, ttft list, engine)."""
     engine = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
-                         device="cuda", **ENGINE_KNOBS)
+                         device=DEVICE, **ENGINE_KNOBS)
     return drive(torch, engine, cfg, n_requests, max_new, sampling)
 
 
@@ -526,13 +543,16 @@ def sampled(i: int):
     return SamplingParams(seed=1000 + i, **SAMPLED)
 
 
-def drive(torch, engine, cfg, n_requests: int, max_new: int, sampling=None):
+def drive(torch, engine, cfg, n_requests: int, max_new: int, sampling=None,
+          after_warm_up=None, step_ms=None):
     """One short request first, which captures ``engine``'s step programs;
     then, with its call counters, every launch count and the peak memory
-    set to 0, submit the CLI prompts and step until it drains.  Request
-    ``i`` samples with ``sampling(i)`` where given, else greedily; the
-    first request samples the same way with a seed no other uses.  Returns
-    (requests, seconds, ttft list, engine)."""
+    set to 0 (and ``after_warm_up()`` called), submit the CLI prompts and
+    step until it drains.  Request ``i`` samples with ``sampling(i)`` where
+    given, else greedily; the first request samples the same way with a
+    seed no other uses.  ``step_ms``, a list, gets each ``engine.step()``'s
+    host ms, whether a kernel profiler timed it and whether it ran a
+    prefill chunk.  Returns (requests, seconds, ttft list, engine)."""
     from repro_torch.kernels import _build
 
     def params(i):
@@ -541,6 +561,9 @@ def drive(torch, engine, cfg, n_requests: int, max_new: int, sampling=None):
     engine.submit(prompts(cfg.vocab_size, 1)[0], params(n_requests),
                   max_new_tokens=2)
     engine.run_until_drained()
+    if after_warm_up is not None:
+        after_warm_up()
+    prof = getattr(engine.obs, "profiler", None) if engine.obs else None
     for k, v in engine.stats.items():
         if isinstance(v, int):
             engine.stats[k] = 0
@@ -552,8 +575,13 @@ def drive(torch, engine, cfg, n_requests: int, max_new: int, sampling=None):
                for i, p in enumerate(prompts(cfg.vocab_size, n_requests))]
     ttft = {}
     while engine.has_work:
+        t1, chunks = time.perf_counter(), engine.stats["prefill_calls"]
         engine.step()  # sampling pulls the tokens to the host: a sync
         now = time.perf_counter()
+        if step_ms is not None:
+            step_ms.append((1e3 * (now - t1),
+                            prof is not None and prof.active,
+                            engine.stats["prefill_calls"] > chunks))
         for h in handles:
             if h.generated and h.request_id not in ttft:
                 ttft[h.request_id] = now - t0
@@ -821,8 +849,11 @@ def profile_phase(torch, cfg, params, MD, load_engine, steps: int = 6):
           f"{100 - 100 * times['eager']['profiler'] / times['eager']['wall']:.1f}"
           f"% of its wall; graph nodes {engine.stats['graph_nodes']}",
           flush=True)
+    out = {"step_host_ms": wall * 1e3,
+           "replay_events_ms": times["replay"]["events"],
+           "replay_profiler_ms": times["replay"]["profiler"]}
     if not kernels:
-        return
+        return out
     lutmu = [e for e in kernels if "fused_lutmu" in e.key]
     print(f"[profile] fused_lutmu: "
           f"{sum(e.self_device_time_total for e in lutmu) / 1e3 / steps:.3f} "
@@ -834,6 +865,7 @@ def profile_phase(torch, cfg, params, MD, load_engine, steps: int = 6):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"x{e.count / steps:6.0f}  {e.key[:90]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -965,7 +997,7 @@ def sampled_serve_phase(torch, cfg, params, load_engine, counters, S,
           f"(profiler, sampled decode steps)", flush=True)
     del eng
     torch.cuda.empty_cache()
-    return n_tok / dt
+    return n_tok / dt, streams
 
 
 def sampled_spec_phase(torch, cfg, params, SpeculativeEngine, FV, counters):
@@ -1488,6 +1520,349 @@ def chain_phase(torch, timer, mods, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: observed — recorder, kernel profiler, HTTP, quality probe
+# ---------------------------------------------------------------------------
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else float("nan")
+
+
+def observed_serve(torch, cfg, params, load_engine, counters, plain_streams,
+                   sampled_streams, profile):
+    """The 40-layer serve of phase 5 four times in one call, the recorder
+    off, on, on, off (on: a tracing ``Recorder``, a
+    ``KernelProfiler(every=4)`` and the dispatch hook; the recorder reset
+    after each warm-up request): the same streams, tok/s and host ms per
+    ``engine.step()`` (decode-only and prefill steps, profiled and
+    unprofiled, apart), the profiled ``serve.decode`` p50 beside the
+    profile phase's device ms; then the same engine serves phase 16's
+    sampled requests, with phase 16's streams.  Both exports validate, the
+    trace has a kernels lane, ``serve_generated_tokens_total`` is the
+    tokens emitted, and every step program built once.  Returns the
+    observed engine and its recorder."""
+    from repro_torch.kernels import fused_lutmu as FL
+    from repro_torch.serving import (KernelProfiler, Recorder,
+                                     attach_dispatch_hook,
+                                     validate_chrome_trace,
+                                     validate_prometheus)
+    off = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                      device=DEVICE, **ENGINE_KNOBS)
+    rec = Recorder(trace=True)
+    rec.profiler = KernelProfiler(rec.registry, tracer=rec.tracer, every=4)
+    detach = attach_dispatch_hook(rec.registry)
+    eng = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                      device=DEVICE, recorder=rec, **ENGINE_KNOBS)
+    dispatched = []
+
+    def warmed_up():
+        # by the first warm-up both engines had built their decode and
+        # prefill programs: the hook fired 3 times per layer for each, at
+        # capture only
+        dispatched.append(rec.registry.sum_values("lutmu_dispatch_total"))
+        rec.reset()
+
+    runs = {"off": [], "on": []}  # (tok/s, [(host ms, profiled, prefill)])
+    for label in ("off", "on", "on", "off"):
+        ms = []
+        reset_counts(counters)
+        hs, dt, _, e = drive(torch, eng if label == "on" else off, cfg, 6,
+                             16, step_ms=ms,
+                             after_warm_up=warmed_up if label == "on" else None)
+        ensure([x.generated for x in hs] == plain_streams,
+               f"recorder {label}: streams differ from phase 5's")
+        calls = e.stats["prefill_calls"] + e.stats["decode_calls"]
+        ensure(FL.LAUNCHES.n == 3 * cfg.num_layers * calls,
+               f"recorder {label}: fused_lutmu launches {FL.LAUNCHES.n} for "
+               f"{calls} calls")
+        n_tok = sum(len(x.generated) for x in hs)
+        runs[label].append((n_tok / dt, ms))
+        if label == "on":  # the recorder holds this run since its reset
+            generated = rec.registry.value("serve_generated_tokens_total")
+            ensure(generated == n_tok,
+                   f"serve_generated_tokens_total {generated} != {n_tok} "
+                   "tokens emitted")
+    del off
+    ensure(dispatched == [2 * 2 * 3 * cfg.num_layers, 0]
+           and rec.registry.sum_values("lutmu_dispatch_total") == 0,
+           f"dispatch hook: {dispatched} at the warm-ups, "
+           f"{rec.registry.sum_values('lutmu_dispatch_total')} after")
+    prof = rec.profiler.snapshot()
+    dec = prof["sites"].get("serve.decode")
+    ensure(dec is not None and dec["count"] > 0, "no profiled serve.decode")
+    # the sampled requests of phase 16 through the same observed engine
+    sh, sdt, _, eng = drive(torch, eng, cfg, 6, 16, sampled)
+    ensure([x.generated for x in sh] == sampled_streams,
+           "observed sampled serve: streams differ from phase 16's")
+    detach()
+    text, trace = rec.to_prometheus(), rec.to_chrome()
+    ensure(validate_prometheus(text) == [],
+           f"metrics invalid: {validate_prometheus(text)[:3]}")
+    ensure(validate_chrome_trace(trace) == [],
+           f"trace invalid: {validate_chrome_trace(trace)[:3]}")
+    lanes = {e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M"}
+    ensure("kernels" in lanes, f"no kernels lane in the trace: {lanes}")
+    builds = {p.name: p.builds for p in (eng._decode, eng._prefill,
+                                         eng._sample_decode,
+                                         eng._sample_prefill)}
+    ensure(all(b == 1 for b in builds.values()), f"program builds {builds}")
+    misses = {dict(m.labels)["site"]: m.value
+              for m in rec.registry.find("jit_cache_misses_total")}
+    def by_kind(steps, profiled):
+        # mean host ms of decode-only steps and of steps with a prefill
+        # chunk, (count), among the steps profiled or not as asked
+        out = []
+        for pre in (False, True):
+            ms = [t for t, a, p in steps if a == profiled and p == pre]
+            out.append(f"{_mean(ms):.3f} ({len(ms)})")
+        return " / ".join(out)
+
+    off_ms = [x for _, ms in runs["off"] for x in ms]
+    on_ms = [x for _, ms in runs["on"] for x in ms]
+    tok_s = {k: " / ".join(f"{t:.2f}" for t, _ in r) for k, r in runs.items()}
+    print(f"[observed] 40-layer serve, 6 x 16 greedy, in turns off, on, on, "
+          f"off: recorder off {tok_s['off']} tok/s, "
+          f"{_mean([t for t, _, _ in off_ms]):.3f} host ms per "
+          f"engine.step() ({len(off_ms)} steps); recorder on (trace, profiler "
+          f"every 4, dispatch hook) {tok_s['on']} tok/s, "
+          f"{_mean([t for t, _, _ in on_ms]):.3f} ms per step; host ms of "
+          f"decode-only / prefill steps (count): off {by_kind(off_ms, False)}"
+          f", on unprofiled {by_kind(on_ms, False)}, on profiled "
+          f"{by_kind(on_ms, True)}; streams equal phase 5's", flush=True)
+    print(f"[observed] profiled serve.decode p50 {1e3 * dec['p50_s']:.3f} ms "
+          f"mean {1e3 * dec['mean_s']:.3f} ms (n={dec['count']}; host clock "
+          f"between device syncs) against the profile phase's decode replay "
+          f"{profile['replay_events_ms']:.3f} device ms (CUDA events), "
+          f"{profile['replay_profiler_ms']:.3f} ms of kernels (profiler); "
+          f"serve.decode flops, bytes {eng._decode_cost({'token': [0] * 4})}"
+          f" (the port's count); sites {sorted(prof['sites'])}", flush=True)
+    print(f"[observed] sampled serve through the observed engine: "
+          f"{sum(len(x.generated) for x in sh) / sdt:.2f} tok/s, streams "
+          f"equal phase 16's; builds {builds}; jit_cache_misses_total "
+          f"{misses} (reset after the warm-up); lutmu_dispatch_total "
+          f"{dispatched[0]:.0f} at the two engines' four captures, 0 after; "
+          f"exports "
+          f"valid ({len(text.splitlines())} lines, "
+          f"{len(trace['traceEvents'])} trace events, lanes include kernels)",
+          flush=True)
+    return eng, rec
+
+
+def observed_spec(torch, cfg, params, SpeculativeEngine, FV, counters):
+    """The 40-layer speculative serve on ``fused`` (identical draft)
+    observed: the recorder's speculative counters against ``stats`` and
+    ``acceptance_rate``, 40 verify launches per round."""
+    from repro_torch.serving import Recorder, validate_prometheus
+    rec = Recorder(trace=False)
+    eng = SpeculativeEngine(params, cfg, params, spec_k=SPEC_K,
+                            verify_backend="fused", recorder=rec,
+                            compute_dtype=torch.bfloat16, device=DEVICE,
+                            **ENGINE_KNOBS)
+    reset_counts(counters)
+    h, dt, _, eng = drive(torch, eng, cfg, 6, 16, after_warm_up=rec.reset)
+    v, st = rec.registry.value, eng.stats
+    rounds = v("spec_rounds_total", path="greedy") + v("spec_rounds_total",
+                                                       path="sampled")
+    ensure(rounds == st["decode_calls"]
+           and v("spec_proposed_total") == st["proposed"]
+           and v("spec_accepted_total") == st["accepted"]
+           and v("spec_request_rounds_total") == st["rounds"],
+           f"spec counters {rec.registry.find('spec_rounds_total')} vs "
+           f"{st}")
+    rate = v("spec_accepted_total") / max(1, v("spec_proposed_total"))
+    ensure(rate == eng.acceptance_rate,
+           f"recorded acceptance {rate} != {eng.acceptance_rate}")
+    ensure(FV.LAUNCHES.n == cfg.num_layers * st["decode_calls"],
+           f"observed spec: verify launches {FV.LAUNCHES.n}")
+    ensure(validate_prometheus(rec.to_prometheus()) == [],
+           "spec metrics invalid")
+    n_tok = sum(len(x.generated) for x in h)
+    print(f"[observed] spec fused, 6 x 16 greedy: {n_tok / dt:.2f} tok/s; "
+          f"spec_rounds_total {rounds:.0f} = stats decode_calls; proposed "
+          f"{v('spec_proposed_total'):.0f}, accepted "
+          f"{v('spec_accepted_total'):.0f} = stats; acceptance {rate:.4f} = "
+          f"engine.acceptance_rate; rollback pages "
+          f"{v('serve_pages_rollback_total'):.0f}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def http_phase(torch, eng, rec, cfg, plain_streams, counters):
+    """``AsyncServer`` on 127.0.0.1:0 over the observed 40-layer engine: 4
+    concurrent streaming clients give phase 5's streams, ``/metrics``
+    validates, ``/slo`` and ``/healthz`` answer, and a client that walks
+    away mid-stream has its request cancelled."""
+    import asyncio
+    from repro_torch.serving import AsyncServer, validate_prometheus
+
+    async def request(port, method, path, body=None):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        payload = json.dumps(body).encode() if body is not None else b""
+        head = f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+        if payload:
+            head += f"Content-Length: {len(payload)}\r\n"
+        writer.write(head.encode() + b"\r\n" + payload)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        hdrs = {}
+        while True:
+            line = await reader.readline()
+            if line in (b"\r\n", b"\n", b""):
+                break
+            k, _, val = line.decode().partition(":")
+            hdrs[k.strip().lower()] = val.strip()
+        return reader, writer, status, hdrs
+
+    async def chunk(reader):
+        n = int((await reader.readline()).strip() or b"0", 16)
+        if n == 0:
+            return None
+        data = await reader.readexactly(n)
+        await reader.readline()
+        return data
+
+    async def body(reader, hdrs):
+        if hdrs.get("transfer-encoding") != "chunked":
+            return await reader.readexactly(int(hdrs["content-length"]))
+        out = b""
+        while (c := await chunk(reader)) is not None:
+            out += c
+        return out
+
+    async def generate(port, prompt):
+        r, w, status, hdrs = await request(
+            port, "POST", "/v1/generate",
+            {"prompt": prompt, "max_new_tokens": 16})
+        ensure(status == 200, f"generate: HTTP {status}")
+        recs = [json.loads(x) for x in (await body(r, hdrs)).splitlines()]
+        w.close()
+        ensure(recs[-1].get("done") is True
+               and [x["token"] for x in recs[:-1]] == recs[-1]["tokens"],
+               "generate: the stream and its final record differ")
+        return recs[-1]["tokens"]
+
+    server = AsyncServer(eng, host="127.0.0.1", port=0)
+    reps = prompts(cfg.vocab_size, 4)
+
+    async def main():
+        await server.start()  # raises if the socket cannot bind
+        try:
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(generate(server.port, p)
+                                         for p in reps))
+            dt = time.perf_counter() - t0
+            r, w, status, hdrs = await request(server.port, "GET", "/metrics")
+            text = (await body(r, hdrs)).decode()
+            w.close()
+            ensure(status == 200 and validate_prometheus(text) == [],
+                   f"GET /metrics: {status}")
+            r, w, status, hdrs = await request(server.port, "GET", "/slo")
+            slo = json.loads(await body(r, hdrs))
+            w.close()
+            ensure(status == 200 and slo["ttft_samples"] > 0,
+                   f"GET /slo: {status}")
+            r, w, status, hdrs = await request(server.port, "GET",
+                                               "/healthz")
+            ensure(status == 200 and await body(r, hdrs) == b"ok\n",
+                   f"GET /healthz: {status}")
+            w.close()
+            before = rec.registry.value("serve_requests_cancelled_total")
+            r, w, status, _ = await request(
+                server.port, "POST", "/v1/generate",
+                {"prompt": reps[0], "max_new_tokens": 100})
+            ensure(status == 200 and await chunk(r) is not None,
+                   "disconnect: no first token")
+            w.close()  # walk away mid-stream
+            for _ in range(1000):
+                if not eng.has_work:
+                    break
+                await asyncio.sleep(0.01)
+            cancelled = (rec.registry.value("serve_requests_cancelled_total")
+                         - before)
+            return got, dt, slo, cancelled
+        finally:
+            await server.stop()
+
+    from repro_torch.kernels import fused_lutmu as FL
+    reset_counts(counters)
+    calls0 = eng.stats["prefill_calls"] + eng.stats["decode_calls"]
+    got, dt, slo, cancelled = asyncio.run(main())
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_calls"] - calls0
+    ensure(FL.LAUNCHES.n == 3 * cfg.num_layers * calls,
+           f"HTTP serve: fused_lutmu launches {FL.LAUNCHES.n} for {calls} "
+           "calls")
+    ensure(got == plain_streams[:4],
+           "HTTP streams differ from the offline streams")
+    ensure(cancelled == 1 and not eng.has_work,
+           f"disconnect: {cancelled} requests cancelled, work left "
+           f"{eng.has_work}")
+    n_tok = sum(map(len, got))
+    print(f"[http] AsyncServer on 127.0.0.1:{server.port}, 4 concurrent "
+          f"streaming clients x 16 tokens over the 40-layer engine: "
+          f"{n_tok / dt:.2f} tok/s served ({dt:.3f}s); streams equal the "
+          f"offline ones; /metrics valid, /slo (window tok/s "
+          f"{slo['tok_s']:.2f}, TTFT p50 {1e3 * slo['ttft_p50_s']:.1f} ms) "
+          f"and /healthz answer; a client that disconnected was cancelled",
+          flush=True)
+
+
+def quality_phase(torch, ucfg, uparams, load_engine, counters, ME, LA):
+    """The 4-layer unfused serve (full width) with a quality probe at rate
+    1.0 holding dense bf16 MLP weights: the streams of the same run with
+    the probe off, no probe errors, rel-error histograms for gate, up and
+    down.  The probe's replays launch the encode and aggregate kernels
+    eagerly, counted here and reset after."""
+    from repro_torch.serving import QualityProbe, Recorder
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    L, d, ff = ucfg.num_layers, ucfg.d_model, ucfg.d_ff
+    dense = {"layers": {"mlp": {
+        name: torch.randn(shape, generator=gen, device=DEVICE,
+                          dtype=torch.bfloat16).mul_(shape[1] ** -0.5)
+        for name, shape in (("w_gate", (L, d, ff)), ("w_up", (L, d, ff)),
+                            ("w_down", (L, ff, d)))}}}
+    want, _, _, eng = serve(torch, ucfg, uparams, load_engine, 3, 8)
+    want = [list(x.generated) for x in want]
+    del eng
+    rec = Recorder(trace=False)
+    rec.quality = QualityProbe(rec.registry, rate=1.0, dense_params=dense)
+    eng = load_engine(None, uparams, ucfg, compute_dtype=torch.bfloat16,
+                      device=DEVICE, recorder=rec, **ENGINE_KNOBS)
+    reset_counts(counters)
+    h, dt, _, eng = drive(torch, eng, ucfg, 3, 8, after_warm_up=rec.reset)
+    calls = eng.stats["prefill_calls"] + eng.stats["decode_calls"]
+    v = rec.registry.value
+    probes = v("quality_probes_total")
+    ensure([x.generated for x in h] == want,
+           "probe on: streams differ from the probe-off run")
+    ensure(v("quality_probe_errors_total") == 0 and probes == 3,
+           f"quality probe: {v('quality_probe_errors_total')} errors, "
+           f"{probes} probes")
+    rel = {dict(m.labels)["proj"]: m for m in rec.registry.find(
+        "quality_rel_error") if m.count}
+    ensure(set(rel) == {"gate", "up", "down"},
+           f"rel-error histograms cover {sorted(rel)}")
+    # 3 projections per layer per forward: the engine's calls, replayed,
+    # and the probes' eager forwards
+    ensure(ME.LAUNCHES.n == LA.LAUNCHES.n == 3 * L * (calls + probes),
+           f"quality: encode {ME.LAUNCHES.n} aggregate {LA.LAUNCHES.n} for "
+           f"{calls} calls + {probes:.0f} probes")
+    snap = rec.quality.snapshot()
+    sat = {k: round(x["fraction"], 5) for k, x in snap["saturation"].items()
+           if k.startswith("0/")}
+    means = {p: round(m.mean, 4) for p, m in sorted(rel.items())}
+    print(f"[quality] 4 layers, unfused, probe rate 1.0 with dense bf16 "
+          f"reference: streams equal the probe-off run; {probes:.0f} probes, "
+          f"{v('quality_probe_tokens_total'):.0f} tokens, 0 errors; mean "
+          f"rel error {means} (random tables); layer 0 buckets "
+          f"{snap['layers']['0']['buckets']}, saturation {sat}; encode + "
+          f"aggregate launches {ME.LAUNCHES.n} + {LA.LAUNCHES.n} = 12 x "
+          f"({calls} calls + {probes:.0f} probes)", flush=True)
+    reset_counts(counters)
+    del eng, dense
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1588,10 +1963,17 @@ def main() -> int:
         print(f"  req {h.request_id}: {h.prompt} -> {h.generated}")
     plain_streams = [list(h.generated) for h in handles]
     del engine, handles
-    profile_phase(torch, cfg, params, MD, load_engine)
+    profile = profile_phase(torch, cfg, params, MD, load_engine)
     # 16. the same serve sampled, and the sampler's share of a step
-    sampled_serve_phase(torch, cfg, params, load_engine, counters, S,
-                        n_tok / dt)
+    _, sampled_streams = sampled_serve_phase(torch, cfg, params, load_engine,
+                                             counters, S, n_tok / dt)
+    # 18. the serve observed (recorder, kernel profiler, dispatch hook), then
+    # served over HTTP
+    oeng, orec = observed_serve(torch, cfg, params, load_engine, counters,
+                                plain_streams, sampled_streams, profile)
+    http_phase(torch, oeng, orec, cfg, plain_streams, counters)
+    del oeng, orec
+    torch.cuda.empty_cache()
     # 14. each captured program against its eager model function
     graph_gate_phase(torch, cfg, params, MD, load_engine, SpeculativeEngine,
                      SPEC, S)
@@ -1640,6 +2022,8 @@ def main() -> int:
           f"{rounds} rounds; plain verify on CUDA 0; {differ} of {len(fh)} "
           "streams differ from the plain engine's", flush=True)
     del feng, fh
+    # 18. the fused speculative serve observed
+    observed_spec(torch, cfg, params, SpeculativeEngine, FV, counters)
     # 17. sampled speculative serve, identical draft, scan then fused
     sampled_spec_phase(torch, cfg, params, SpeculativeEngine, FV, counters)
     del params
@@ -1679,6 +2063,8 @@ def main() -> int:
           "streams equal to the plain LUT-MU path's (called eagerly)",
           flush=True)
     del ueng
+    # 18. the quality probe on the unfused 4-layer serve
+    quality_phase(torch, ucfg, uparams, load_engine, counters, ME, LA)
 
     # 10. speculative rounds with rejection and rollback, full width, depth
     # cut to 4 layers: a garbage draft (other LUT tables, same backbone) on

@@ -12,8 +12,7 @@ The serving half of ``repro.core.lut_mu``:
 
 Every forward goes through ``kernels.dispatch.lutmu_matmul``; the
 ``backend`` keyword threads straight to it (default ``"auto"``).  The
-offline fitting functions come with the compiler (ROADMAP A12), the quality
-probe tap with ``serving/quality.py`` (A9).
+offline fitting functions come with the compiler (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -28,6 +27,29 @@ from repro_torch.core import pruning as P
 from repro_torch.kernels import dispatch as D
 
 Tensor = torch.Tensor
+
+# Optional approximation-quality probe tap (serving/quality.py).  When a
+# tap is installed, every *eager* LUT-MU forward also reports its input,
+# params and output, so the probe can replay the dense reference on the
+# same activations.  Two rules keep it observation-only:
+#   * ``None`` (the default) costs one host ``is not None`` check;
+#   * calls made while a CUDA graph is being captured are skipped — a tap
+#     inside a captured step program would fire once, at capture, and
+#     never on a replay — so taps see eager calls only.
+_PROBE_TAP = None
+
+
+def set_probe_tap(tap) -> None:
+    """Install (or clear, with ``None``) the LUT-MU quality-probe tap."""
+    global _PROBE_TAP
+    _PROBE_TAP = tap
+
+
+def _tap_eager(proj: str, x: Tensor, params: M.MaddnessParams, out: Tensor,
+               input_kind: str) -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return
+    _PROBE_TAP(proj=proj, x=x, params=params, out=out, input_kind=input_kind)
 
 
 @dataclasses.dataclass
@@ -53,14 +75,19 @@ class AMMLinear:
 
     def __call__(self, x: Tensor, *, backend: str = "auto") -> Tensor:
         """Full-width input path."""
-        return D.lutmu_matmul(x, self.params, backend=backend,
-                              input_kind="full")
+        y = D.lutmu_matmul(x, self.params, backend=backend, input_kind="full")
+        if _PROBE_TAP is not None:
+            _tap_eager("linear", x, self.params, y, "full")
+        return y
 
     def apply_package(self, x_pruned: Tensor, *,
                       backend: str = "auto") -> Tensor:
         """Pruned-package input path (chained mode)."""
-        return D.lutmu_matmul(x_pruned, self.params, backend=backend,
-                              input_kind="package")
+        y = D.lutmu_matmul(x_pruned, self.params, backend=backend,
+                           input_kind="package")
+        if _PROBE_TAP is not None:
+            _tap_eager("linear", x_pruned, self.params, y, "package")
+        return y
 
     # -- resource accounting (paper Figs. 11/12) -----------------------------
     def lut_bytes(self) -> int:

@@ -18,6 +18,7 @@ backend executes in the CPU tests.  ``REPRO_LUTMU_BACKEND`` overrides
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -52,6 +53,18 @@ def set_profile_hook(hook) -> None:
     """Install (or clear, with ``None``) the dispatch-metadata hook."""
     global _PROFILE_HOOK
     _PROFILE_HOOK = hook
+
+
+@contextlib.contextmanager
+def profile_hook_paused():
+    """Hold the dispatch hook off for a block (a step program's calls that
+    build nothing: its warm-up, and its repeat calls on the CPU)."""
+    global _PROFILE_HOOK
+    hook, _PROFILE_HOOK = _PROFILE_HOOK, None
+    try:
+        yield
+    finally:
+        _PROFILE_HOOK = hook
 
 
 # N-tile count past which the fused kernel's per-N-tile encode recompute

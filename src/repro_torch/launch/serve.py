@@ -22,10 +22,22 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --reduced --artifact /tmp/lm_bundle --speculative --device cpu \\
       --temperature 0.8 --top-k 8 --seed 0
+
+  # observed: metrics, a trace, the SLO report, every 2nd step profiled
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --reduced --amm --device cpu --metrics serve.prom \\
+      --trace-out trace.json --slo-report --profile-every 2
+  PYTHONPATH=src python -m repro_torch.serving.obs --metrics serve.prom \\
+      --trace trace.json
+
+  # the HTTP front end: NDJSON token streams on localhost:8080
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --amm \\
+      --http --port 8080 --metrics serve.prom
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import time
 
@@ -36,7 +48,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.models import model as MD
-from repro_torch.serving import SamplingParams, load_engine, log
+from repro_torch.serving import (AsyncServer, KernelProfiler, QualityProbe,
+                                 Recorder, SamplingParams,
+                                 attach_dispatch_hook, load_engine, log,
+                                 slo_report, summary_table)
 
 
 def cli_prompts(prompt_specs, n_requests: int, vocab_size: int):
@@ -63,6 +78,43 @@ def _artifact_kind(path):
         raise SystemExit(f"cannot read artifact {path!r}: {e}")
 
 
+def _report(rec, args) -> None:
+    """The summary table, the SLO report and the metrics and trace files of
+    one recorder."""
+    print(summary_table(rec.registry))
+    if args.slo_report:
+        print(slo_report(rec.slo))
+    if args.metrics:
+        rec.write_metrics(args.metrics)
+        log("serve", f"metrics (Prometheus text format) → {args.metrics}")
+    if args.trace_out:
+        rec.write_trace(args.trace_out)
+        log("serve", f"trace (Chrome trace-event JSON) → {args.trace_out}")
+
+
+def _serve_http(engine, args, rec) -> None:
+    """Run the asyncio front end until interrupted, then report."""
+    server = AsyncServer(engine, host=args.host, port=args.port,
+                         rate_limit=args.rate_limit,
+                         rate_burst=args.rate_burst)
+
+    async def _run():
+        await server.start()
+        try:
+            await server.serve_forever()
+        except asyncio.CancelledError:
+            pass
+        finally:
+            await server.stop()
+
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        log("serve", "interrupted; shutting down")
+    if rec is not None:
+        _report(rec, args)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
@@ -76,6 +128,8 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-batch", type=int, default=2,
                     help="decode batch rows")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="fixed-slot engine slots (ROADMAP A10)")
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16,
@@ -111,6 +165,10 @@ def main(argv=None) -> None:
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft tokens proposed per verify step (default: "
                          "the bundle manifest's recorded value, else 4)")
+    ap.add_argument("--draft-resolution", default=None,
+                    choices=("float32", "int8", "int4"),
+                    help="draft LUT width of an in-process bundle compile "
+                         "(ROADMAP A12)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature; 0 (default) = greedy argmax; "
                          "above 0 each request samples from its own seeded "
@@ -131,6 +189,41 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP instead of draining a synthetic "
+                         "batch: POST /v1/generate streams NDJSON tokens, "
+                         "GET /metrics, /slo, /debug/quality and /healthz")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="HTTP bind address (default 127.0.0.1)")
+    ap.add_argument("--port", type=int, default=8080,
+                    help="HTTP port (0 = ephemeral; printed on startup)")
+    ap.add_argument("--rate-limit", type=float, default=None, metavar="RPS",
+                    help="per-tenant request rate limit (token bucket, "
+                         "requests/second; the X-Tenant header keys the "
+                         "bucket); over-limit requests get 429")
+    ap.add_argument("--rate-burst", type=float, default=None,
+                    help="token-bucket burst size (default: max(1, "
+                         "rate-limit))")
+    ap.add_argument("--metrics", metavar="PATH",
+                    help="record serving metrics, print a summary table, and "
+                         "write a Prometheus text-format snapshot to PATH")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="record per-request lifecycle spans and write Chrome "
+                         "trace-event JSON to PATH (Perfetto)")
+    ap.add_argument("--quality-probe", type=float, default=0.0,
+                    metavar="RATE",
+                    help="replay this fraction of finished requests through "
+                         "the dense reference: per-layer relative-error "
+                         "histograms, codebook utilisation and dequant "
+                         "saturation (GET /debug/quality)")
+    ap.add_argument("--profile-every", type=int, default=0, metavar="N",
+                    help="profile every N-th engine step: per-site latency "
+                         "histograms (synced on profiled steps only), the "
+                         "programs' flops/bytes and a 'kernels' trace lane "
+                         "(0 = off)")
+    ap.add_argument("--slo-report", action="store_true",
+                    help="print the sliding-window SLO health report after "
+                         "serving; live snapshot at GET /slo")
     args = ap.parse_args(argv)
     if args.mesh:
         raise SystemExit("--mesh: multi-device serving is not ported yet "
@@ -138,9 +231,12 @@ def main(argv=None) -> None:
     if args.ckpt:
         raise SystemExit("--ckpt: checkpoint restore is not ported yet "
                          "(ROADMAP A13)")
-    if args.engine == "fixed":
-        raise SystemExit("--engine fixed: the fixed-slot engine is not "
-                         "ported yet (ROADMAP A10)")
+    if args.engine == "fixed" or args.slots is not None:
+        raise SystemExit("--engine fixed / --slots: the fixed-slot engine is "
+                         "not ported yet (ROADMAP A10)")
+    if args.draft_resolution is not None:
+        raise SystemExit("--draft-resolution: the in-process bundle compile "
+                         "is not ported yet (ROADMAP A12)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -154,12 +250,29 @@ def main(argv=None) -> None:
     params = MD.init_params(cfg, gen, dtype,
                             serving=args.amm and not args.artifact)
     art_kind = _artifact_kind(args.artifact) if args.artifact else None
+    # one recorder feeds the summary table, the Prometheus snapshot, the
+    # Chrome trace and GET /metrics; without these flags engines keep the
+    # NullRecorder
+    rec = (Recorder(trace=bool(args.trace_out))
+           if (args.metrics or args.trace_out or args.http
+               or args.quality_probe or args.profile_every
+               or args.slo_report) else None)
+    if rec is not None and args.quality_probe:
+        # ``params`` is the pre-splice tree: with --artifact it still holds
+        # the dense mlp weights the probe references (LUT-MU params alone
+        # degrade to utilisation/saturation tracking)
+        rec.quality = QualityProbe(rec.registry, rate=args.quality_probe,
+                                   dense_params=params)
+    if rec is not None and args.profile_every:
+        rec.profiler = KernelProfiler(rec.registry, tracer=rec.tracer,
+                                      every=args.profile_every)
+        attach_dispatch_hook(rec.registry)
     kwargs = dict(max_batch=args.max_batch, max_len=args.max_len,
                   page_size=args.page_size, prefill_chunk=args.prefill_chunk,
                   num_pages=args.num_pages,
                   prefix_cache=not args.no_prefix_cache,
                   verify_backend=args.verify_backend, compute_dtype=dtype,
-                  device=device)
+                  device=device, recorder=rec)
     if args.speculative:
         if args.spec_k is not None:
             kwargs["spec_k"] = args.spec_k
@@ -182,6 +295,9 @@ def main(argv=None) -> None:
         engine = load_engine(args.artifact, params, cfg,
                              engine=args.engine or "auto", speculative=False,
                              **kwargs)
+    if args.http:
+        _serve_http(engine, args, rec)
+        return
     for i, prompt in enumerate(cli_prompts(args.prompt, args.requests,
                                            cfg.vocab_size)):
         engine.submit(prompt, SamplingParams(
@@ -197,6 +313,8 @@ def main(argv=None) -> None:
         log("spec", f"k={engine.spec_k} rounds={engine.stats['rounds']} "
             f"acceptance={engine.acceptance_rate:.3f} "
             f"tokens/round={engine.mean_emitted_per_round:.2f}")
+    if rec is not None:
+        _report(rec, args)
     for r in done:
         print(f"  req {r.uid}: {r.prompt} → {r.generated}")
 

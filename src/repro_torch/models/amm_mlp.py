@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import lut_mu as LU
 from repro_torch.core import maddness as M
 from repro_torch.kernels import dispatch as D
 from repro_torch.models.config import ModelConfig
@@ -88,6 +89,12 @@ def amm_mlp_apply(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     h = F.silu(gate) * up
     # gate/up emitted the cluster-ordered pruned package when pruning is on
     down_kind = "package" if cfg.amm.prune else "full"
-    out = D.lutmu_matmul(h, _params(params, "down", "down"), backend=be,
-                         input_kind=down_kind)
+    down_p = _params(params, "down", "down")
+    out = D.lutmu_matmul(h, down_p, backend=be, input_kind=down_kind)
+    if LU._PROBE_TAP is not None:
+        # quality-probe tap: eager calls only (the probe's replay), never
+        # inside a captured step program
+        LU._tap_eager("gate", xs, gate_p, gate, "split")
+        LU._tap_eager("up", xs, up_p, up, "split")
+        LU._tap_eager("down", h, down_p, out, down_kind)
     return out.reshape(b, s, d).to(x.dtype)

@@ -1,5 +1,6 @@
 """GQA attention against the paged KV cache (PyTorch), as in
-``repro.models.attention``.
+``repro.models.attention``, and full-sequence causal attention (the quality
+probe's eager replay, ``model.capture_mlp_inputs``).
 
 Weights are stored flat, ``(D, H·hd)``, as in the JAX package.  The paged
 cache is one layer's ``(P, page_size, n_kv, hd)`` page pool (the last page
@@ -80,6 +81,70 @@ def _direct_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     logits = logits + mask[None, None, None]
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bngst,btnh->bsngh", w, v)
+
+
+def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, window,
+                       causal: bool, chunk: int = 1024) -> Tensor:
+    """Flash-style blockwise attention (running log-sum-exp) over KV
+    chunks, in float32: memory O(S·chunk) instead of O(S²).  q: (B, S,
+    n_kv, g, hd); k/v: (B, T, n_kv, hd); ``window`` None or an int.
+    Returns (B, S, n_kv, g, hd) in q's type."""
+    b, s, nkv, g, hd = q.shape
+    t = k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = torch.arange(s, device=dev)
+    qf = q.to(torch.float32)
+    m = torch.full((b, nkv, g, s), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, nkv, g, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, nkv, g, s, hd), dtype=torch.float32, device=dev)
+    for start in range(0, t, chunk):
+        kb = k[:, start:start + chunk].to(torch.float32)
+        vb = v[:, start:start + chunk].to(torch.float32)
+        kv_pos = start + torch.arange(kb.shape[1], device=dev)
+        logits = torch.einsum("bsngh,btnh->bngst", qf, kb) * scale
+        valid = torch.ones((s, kb.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            valid = valid & (kv_pos[None, :] > q_pos[:, None] - window)
+        logits = torch.where(valid[None, None, None], logits,
+                             torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bngst,btnh->bngsh", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def attention(params: dict, x: Tensor, cfg: ModelConfig, *,
+              positions: Tensor, causal: bool = True,
+              window: Optional[int] = None,
+              chunked_threshold: int = 4096) -> Tensor:
+    """Self-attention over a full sequence (no cache): (B, S, D) →
+    (B, S, D).  Sequences of ``chunked_threshold`` tokens or more take the
+    blockwise path."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    qg = _grouped(q, nkv)
+    if s >= chunked_threshold:
+        out = _chunked_attention(qg, k, v, window, causal)
+    else:
+        pos = torch.arange(s, device=x.device)
+        ok = torch.ones((s, s), dtype=torch.bool, device=x.device)
+        if causal:
+            ok = pos[None, :] <= pos[:, None]
+        if window is not None:
+            ok = ok & (pos[None, :] > pos[:, None] - window)
+        mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+        out = _direct_attention(qg, k, v, mask)
+    out = out.reshape(b, s, nq * hd)
+    return out.to(x.dtype) @ params["wo"].to(x.dtype)
 
 
 def _quantize_kv_int8(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:

@@ -143,6 +143,50 @@ def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd) -> Tensor:
                        m["w_down"].to(cd), cfg.act)
 
 
+def _block_apply(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
+                 window, layer_idx: int, mlp_tap=None) -> Tensor:
+    """One block over a full sequence (no cache): attention, then the MLP
+    (dense or LUT-MU); ``mlp_tap(layer_idx, mlp_in)`` sees each MLP input.
+    Mamba and MoE blocks are not ported (ROADMAP A10)."""
+    if "mamba" in lp or "moe" in lp:
+        raise NotImplementedError(
+            "Mamba and MoE blocks are not ported yet (ROADMAP A10)")
+    h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                        cfg, positions=positions, window=window)
+    mlp_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if mlp_tap is not None:
+        mlp_tap(layer_idx, mlp_in)
+    return h + _mlp_out(lp, mlp_in, cfg, h.dtype)
+
+
+@torch.inference_mode()
+def capture_mlp_inputs(params: dict, tokens, cfg: ModelConfig, *,
+                       compute_dtype=torch.float32) -> list:
+    """Run the forward pass layer by layer, recording each layer's MLP
+    input: a list of ``(B·S, D)`` activations in layer order — what the
+    LUT-MU MLP sees in serving.  ``tokens``: (B, S) ints.  Uniform
+    attention stacks only (the families the LUT-MU MLP targets)."""
+    if cfg.is_hybrid or cfg.is_encdec or cfg.family == "ssm":
+        raise ValueError(
+            f"MLP-input capture supports uniform attention stacks, "
+            f"not family {cfg.family!r}")
+    cd = compute_dtype
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens, device=embed.device).to(torch.int64)
+    b, s = tokens.shape
+    h = embed.to(cd)[tokens]
+    positions = torch.arange(s, device=embed.device).expand(b, s)
+    captured: list = []
+
+    def tap(layer_idx, mlp_in):
+        captured.append(mlp_in.reshape(-1, cfg.d_model))
+
+    for l, win in enumerate(window_flags(cfg)):
+        h = _block_apply(cfg, layer_params(params["layers"], l), h, positions,
+                         win, l, mlp_tap=tap)
+    return captured
+
+
 def _head(params: dict, h: Tensor, cfg: ModelConfig, cd) -> Tensor:
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return (h @ params["lm_head"].to(cd)).to(torch.float32)

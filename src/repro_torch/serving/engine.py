@@ -20,6 +20,16 @@ a compiled ``amm_lm`` artifact (``compiler/artifact.py``) spliced into the
 dense params.  ``speculative.py`` subclasses the engine
 through its per-step hooks: ``_swap_out``/``_swap_in``, ``_clone_pages``
 and ``_run_decode``, and its own programs.
+
+Observability (``obs.py``): ``recorder=`` threads one recorder through the
+scheduler, the cache and its allocator, and the engine's own hook sites,
+the JAX engine's: request lifecycle, prefill and decode spans, tokens, pool
+gauges and the step programs' builds (as ``jit_cache_misses_total``).  A
+kernel profiler on the recorder (``profiler.py``) times the program calls
+of every ``every``-th step; a quality probe (``quality.py``) is bound to
+the params the engine serves.  Every hook runs on the host around a
+program call, never inside a captured graph; with the default
+``NullRecorder`` each site costs one truthiness check.
 """
 from __future__ import annotations
 
@@ -38,7 +48,8 @@ from repro_torch.serving import sampling as S
 from repro_torch.serving import scheduler as SCH
 from repro_torch.serving.handle import RequestHandle, _step_engine_async
 from repro_torch.serving.kv_cache import PagedKVCache
-from repro_torch.serving.obs import log
+from repro_torch.serving.obs import NULL_RECORDER, log
+from repro_torch.serving.profiler import forward_cost, tree_bytes
 from repro_torch.serving.programs import StepProgram
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -85,14 +96,35 @@ def _artifact_params_cfg(artifact_path, params: dict, cfg: ModelConfig,
     return _splice_artifact(load_artifact(artifact_path), params, cfg, device)
 
 
+def _bind_quality(obs, params: dict, cfg: ModelConfig) -> None:
+    """Point the recorder's quality probe (if one is attached) at the
+    params the engine serves.  ``bind`` is first-wins, so the target half
+    of a speculative engine is the one probed."""
+    quality = getattr(obs, "quality", None)
+    if quality is not None:
+        quality.bind(params, cfg)
+
+
+def _profiled_call(obs, site: str, program: StepProgram, **arrays):
+    """Route one program call through the kernel profiler on profiled
+    steps.  Off (no recorder, no profiler, or an unprofiled step) it costs
+    one truthiness check and one attribute read — no wrapper, no sync."""
+    prof = getattr(obs, "profiler", None) if obs else None
+    if prof is not None and prof.active:
+        return prof.timed(site, program, **arrays)
+    return program(**arrays)
+
+
 class ServeEngine:
     """Continuous-batching serving over a paged KV cache."""
+
+    _prefill_site = "serve.prefill"  # the profiler's site of ``_prefill``
 
     def __init__(self, params: dict, cfg: ModelConfig, *,
                  max_batch: int = 4, max_len: int = 256, page_size: int = 16,
                  prefill_chunk: int = 32, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, compute_dtype=torch.float32,
-                 device="cuda", verify_backend: str = "auto"):
+                 device="cuda", verify_backend: str = "auto", recorder=None):
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged decode path")
@@ -101,6 +133,9 @@ class ServeEngine:
         # override included); the plain engine never verifies but keeps it
         # for SpeculativeEngine
         self.verify_backend = MD.resolve_verify_backend(verify_backend)
+        # observability: one recorder for the scheduler, the cache, its
+        # allocator and the hook sites below (obs.py)
+        self.obs = recorder if recorder is not None else NULL_RECORDER
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = int(max_batch)
@@ -119,12 +154,13 @@ class ServeEngine:
         self.kv_dtype = (torch.int8 if cfg.amm.enabled and cfg.amm.kv_int8
                          else compute_dtype)
         self.kv = PagedKVCache(cfg, num_pages=num_pages, page_size=ps,
-                               dtype=self.kv_dtype, device=self.device)
+                               dtype=self.kv_dtype, device=self.device,
+                               recorder=recorder)
         self.sched = Scheduler(
             max_batch=self.max_batch, allocator=self.kv.allocator,
             page_size=ps, max_pages_per_seq=mp,
             prefill_chunk=self.prefill_chunk, max_len=max_len,
-            prefix_cache=prefix_cache)
+            prefix_cache=prefix_cache, recorder=recorder)
         self._driver = None  # a server driver that owns the loop, if any
         # model calls made, for callers that check per-call kernel counts;
         # the programs add their capture seconds and graph node counts
@@ -143,12 +179,26 @@ class ServeEngine:
             return MD.paged_prefill_chunk(params, tokens, start, n_valid, row,
                                           kv, cfg, compute_dtype=cd)
 
-        self._decode = self._program(decode, "decode", self._decode_inputs())
+        self._kv_itemsize = kv["k"].element_size()
+        self._param_bytes = tree_bytes(params)
+        self._decode = self._program(decode, "decode", self._decode_inputs(),
+                                     cost=self._decode_cost)
         self._prefill = self._program(prefill, "prefill",
-                                      self._prefill_inputs())
+                                      self._prefill_inputs(),
+                                      cost=self._prefill_cost)
         # the device sampler of a decode batch and of a prefill's first token
         self._sample_decode = self._sampler("sample_decode", self.max_batch)
         self._sample_prefill = self._sampler("sample_prefill", 1)
+        if self.obs:
+            # the JAX engine's dispatch sites; its one jitted sampler is
+            # the port's two sampler programs
+            for site, prog in (("serve.decode", self._decode),
+                               ("serve.prefill", self._prefill),
+                               ("sampling.sample_tokens", self._sample_decode),
+                               ("sampling.sample_tokens",
+                                self._sample_prefill)):
+                self.obs.register_jit_site(site, prog)
+            _bind_quality(self.obs, self.params, self.cfg)
 
     @classmethod
     def _from_artifact(cls, artifact_path, params: dict, cfg: ModelConfig,
@@ -190,6 +240,10 @@ class ServeEngine:
         """One engine iteration: execute the scheduler's plan — swap-outs,
         swap-ins, copy-on-write clones, at most one prefill chunk, one
         batched decode — and retire finished requests."""
+        if self.obs:
+            prof = getattr(self.obs, "profiler", None)
+            if prof is not None:
+                prof.tick()
         plan = self.sched.schedule()
         for req, old_pages in plan.swap_out:
             # the allocator already released these pages; copy them before
@@ -207,6 +261,9 @@ class ServeEngine:
             self._run_prefill_chunk(plan.prefill, finished)
         if plan.decode:
             self._run_decode(plan.decode, finished)
+        if self.obs:
+            self.obs.sample_pool(self.kv.allocator)
+            self.obs.poll_jit()
         return finished
 
     def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
@@ -224,9 +281,29 @@ class ServeEngine:
             "investigate a stuck schedule")
 
     # -- internals ---------------------------------------------------------
-    def _program(self, fn, name: str, inputs, tensors=()) -> StepProgram:
+    def _program(self, fn, name: str, inputs, tensors=(),
+                 cost=None) -> StepProgram:
         return StepProgram(fn, inputs, self.device, name=name,
-                           pool=self._pool, stats=self.stats, tensors=tensors)
+                           pool=self._pool, stats=self.stats, tensors=tensors,
+                           cost=cost)
+
+    def _forward_cost(self, cfg: ModelConfig, rows: int, tokens: int,
+                      head_tokens: int, param_bytes: int):
+        """``(flops, bytes)`` of one forward at the engine's cache view
+        (``profiler.py::forward_cost``)."""
+        return forward_cost(cfg, rows=rows, tokens=tokens,
+                            ctx=self.max_pages_per_seq * self.page_size,
+                            head_tokens=head_tokens,
+                            kv_itemsize=self._kv_itemsize,
+                            param_bytes=param_bytes)
+
+    def _decode_cost(self, arrays):
+        return self._forward_cost(self.cfg, len(arrays["token"]), 1, 1,
+                                  self._param_bytes)
+
+    def _prefill_cost(self, arrays):
+        return self._forward_cost(self.cfg, 1, arrays["tokens"].shape[1], 1,
+                                  self._param_bytes)
 
     def _sampler(self, name: str, batch: int) -> StepProgram:
         """The sampler of ``batch`` rows as a program reading the logits
@@ -284,21 +361,34 @@ class ServeEngine:
         toks[0, : chunk.n_valid] = req.prompt[chunk.start:
                                               chunk.start + chunk.n_valid]
         page_row = self.kv.page_row(req.pages, self.max_pages_per_seq)
+        obs = self.obs
+        t0 = obs.now() if obs else 0.0
         # (1, 1, V) target logits; the speculative engine's program also
         # prefills its draft cache
-        logits = self._prefill(tokens=toks, start=chunk.start,
-                               n_valid=chunk.n_valid, row=page_row)
+        logits = _profiled_call(obs, self._prefill_site, self._prefill,
+                                tokens=toks, start=chunk.start,
+                                n_valid=chunk.n_valid, row=page_row)
         self.stats["prefill_calls"] += 1
         req.pf_done += chunk.n_valid
         if req.pf_done == len(req.prompt):
             req.generated.append(int(self._sample(
                 logits[0, -1:], [(0, req)], self._sample_prefill)[0]))
+            if obs:
+                t1 = obs.now()
+                obs.on_prefill(req, chunk.start // self.prefill_chunk,
+                               chunk.n_valid, t0, t1)
+                obs.on_tokens(req, 1, t1, source="prefill")
             # prefill_finished first — it indexes the prompt pages for
             # prefix reuse, which a budget-limited request still provides
             self.sched.prefill_finished(req)
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)
+        elif obs:
+            # a chunk that is not the last: no host sync happens here, so
+            # the span measures staging and the replay's launch
+            obs.on_prefill(req, chunk.start // self.prefill_chunk,
+                           chunk.n_valid, t0, obs.now())
 
     def _run_decode(self, decode, finished: List[Request]) -> None:
         token = np.zeros((self.max_batch, 1), np.int32)
@@ -309,11 +399,21 @@ class ServeEngine:
             token[row, 0] = req.generated[-1]
             pos[row] = req.next_pos
             table[row, : len(req.pages)] = req.pages
-        logits = self._decode(token=token, pos=pos, table=table)
+        obs = self.obs
+        t0 = obs.now() if obs else 0.0
+        logits = _profiled_call(obs, "serve.decode", self._decode,
+                                token=token, pos=pos, table=table)
         self.stats["decode_calls"] += 1
         nxt = self._sample(logits[:, 0], decode, self._sample_decode)
+        if obs:
+            # the sampled tokens came to the host, so t1 covers the step's
+            # device time without a sync of the recorder's own
+            t1 = obs.now()
+            obs.on_decode(decode, t0, t1)
         for row, req in decode:
             req.generated.append(int(nxt[row]))
+            if obs:
+                obs.on_tokens(req, 1, t1)
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)

@@ -22,7 +22,8 @@ a loaded ``Artifact`` object          same as an ``amm_lm`` path
 ported yet (ROADMAP A10).  Every other keyword goes to the engine
 (``max_batch``, ``max_len``, ``page_size``, ``prefill_chunk``,
 ``num_pages``, ``prefix_cache``, ``compute_dtype``, ``device``,
-``verify_backend``, ``spec_k``).
+``verify_backend``, ``spec_k``, ``recorder``): every engine built gets the
+same ``recorder``.
 """
 from __future__ import annotations
 

@@ -33,6 +33,15 @@ that fails raises; nothing falls back to eager.
 
 On the CPU there are no graphs: a call copies its inputs into the buffers
 and runs the function on them, returning its fresh outputs.
+
+``builds`` counts what a JAX engine's compile cache counts: captures on the
+card, first calls for an input signature on the CPU (the recorder reports
+its growth as ``jit_cache_misses_total``).  The LUT-MU dispatch hook
+(``kernels/dispatch.py::set_profile_hook``) fires on building calls only —
+the capture, not its warm-up, and on the CPU not the calls after the first
+— so it counts built programs, as JAX's counts traces.  ``cost`` (set by
+the engine) gives the kernel profiler a program's flops and bytes from its
+inputs' shapes without running it.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import dispatch as D
 
 # name → (shape, idle value) of each int32 input
 InputSpec = Dict[str, Tuple[Tuple[int, ...], int]]
@@ -74,14 +84,20 @@ class StepProgram:
     the graph's node count go, under ``capture_s[name]`` and
     ``graph_nodes[name]``.  ``tensors``: names of device-tensor inputs
     passed through unstaged, the same tensors on every call on the card.
+    ``cost``: ``(arrays) -> (flops, bytes)`` of one call, for the kernel
+    profiler (``serving/profiler.py``).
     """
 
     def __init__(self, fn: Callable, inputs: InputSpec, device: torch.device,
                  *, name: str, pool=None, stats: Optional[dict] = None,
-                 tensors: Tuple[str, ...] = ()):
+                 tensors: Tuple[str, ...] = (),
+                 cost: Optional[Callable] = None):
         self.fn = fn
         self.name = name
         self.tensors = tuple(tensors)
+        self.cost = cost
+        self.builds = 0
+        self._signatures = set()  # input signatures seen on the CPU
         self._bound: Optional[Dict[str, torch.Tensor]] = None
         self.device = device
         self.pool = pool
@@ -117,7 +133,14 @@ class StepProgram:
                              f"{list(self.tensors)}, got {sorted(tensors)}")
         if self.device.type != "cuda":
             self._stage(arrays)
-            return self.fn(**self.inputs, **tensors)
+            sig = tuple((k, tuple(t.shape), t.dtype)
+                        for k, t in sorted(tensors.items()))
+            if sig not in self._signatures:
+                self._signatures.add(sig)
+                self.builds += 1
+                return self.fn(**self.inputs, **tensors)
+            with D.profile_hook_paused():
+                return self.fn(**self.inputs, **tensors)
         if self.graph is None:
             self._capture(tensors)
         for k, t in tensors.items():
@@ -130,6 +153,14 @@ class StepProgram:
         self.graph.replay()
         self._launches.replay()
         return self.outputs
+
+    @torch.inference_mode()
+    def build(self, **arrays) -> None:
+        """Capture the program now if it has not been captured (on the
+        card; the CPU builds at a call), so that the next call times a
+        replay and not a capture.  Reads only the ``tensors`` inputs."""
+        if self.device.type == "cuda" and self.graph is None:
+            self._capture({k: arrays[k] for k in self.tensors})
 
     def _stage(self, arrays) -> None:
         if arrays.keys() != self._host_np.keys():
@@ -157,7 +188,7 @@ class StepProgram:
         out = []
 
         def warm_up():
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), D.profile_hook_paused():
                 self.fn(**self.inputs, **tensors)
 
         def capture():
@@ -180,6 +211,7 @@ class StepProgram:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph.instantiate()
         self.graph, self.outputs, self._bound = graph, out[0], tensors
+        self.builds += 1
         self.stats.setdefault("capture_s", {})[self.name] = (
             time.perf_counter() - t0)
         self.stats.setdefault("graph_nodes", {})[self.name] = graph_nodes(graph)

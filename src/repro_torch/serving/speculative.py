@@ -47,6 +47,14 @@ so admission, chunked prefill, eviction with host swap, copy-on-write
 prefix sharing and cancellation all come from the plain engine, applied to
 both caches.
 
+With a recorder (``recorder=``, as the plain engine), each round records
+the JAX engine's speculative telemetry: a ``spec-round`` span, the round
+by program (``spec_rounds_total{path=greedy|sampled}``), per-row
+proposals, acceptances, corrections and bonuses, the emitted tokens, and
+pages freed by rollback; the draft cache's swap and copy-on-write bytes
+count too.  ``stats`` stays a dict and counts the same whether or not a
+recorder is attached.
+
 A compiled target+draft bundle (``compiler/artifact.py::load_bundle``) or a
 pair of ``amm_lm`` artifacts is served through :meth:`_from_bundle` /
 :meth:`_from_artifacts`: both halves are spliced into the one dense tree
@@ -63,9 +71,11 @@ import torch
 from repro_torch.compiler.artifact import load_bundle
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.engine import ServeEngine, _splice_artifact
+from repro_torch.serving.engine import (ServeEngine, _profiled_call,
+                                        _splice_artifact)
 from repro_torch.serving import sampling as S
 from repro_torch.serving.kv_cache import HostKV, PagedKVCache
+from repro_torch.serving.profiler import tree_bytes
 from repro_torch.serving.scheduler import Request
 
 Tensor = torch.Tensor
@@ -181,10 +191,13 @@ class SpeculativeEngine(ServeEngine):
         # the scheduler grows pages to cover the window up front
         self.sched.lookahead = self.spec_k + 1
         # mirror of the target pool: same page ids, the draft model's KV
+        # (the shared allocator keeps the target's recorder, so pool
+        # counters are not counted twice; the draft's swap and clone bytes
+        # are)
         self.kv_draft = PagedKVCache(
             self.cfg, num_pages=self.kv.num_pages, page_size=self.page_size,
             dtype=self.kv_dtype, device=self.device,
-            allocator=self.kv.allocator)
+            allocator=self.kv.allocator, recorder=self.obs)
         assert self.kv_draft.trash == self.kv.trash
         self._draft_host: Dict[int, HostKV] = {}  # uid → swapped draft KV
         self.stats.update({k: 0 for k in _SPEC_KEYS})
@@ -211,15 +224,24 @@ class SpeculativeEngine(ServeEngine):
                                 cfg_t, cfg_d, compute_dtype=cd)
 
         self._decode = self._sample_decode = None
+        self._draft_param_bytes = tree_bytes(draft_params)
         window = ((self.max_batch,), 0)  # n_valid's (shape, idle value)
         self._round_greedy = self._program(
-            round_greedy, "round_greedy", self._decode_inputs(n_valid=window))
+            round_greedy, "round_greedy", self._decode_inputs(n_valid=window),
+            cost=self._round_cost)
         self._round = self._program(
             round_sampled, "round",
             self._decode_inputs(n_valid=window,
-                                **S.staged_inputs(self.max_batch)))
+                                **S.staged_inputs(self.max_batch)),
+            cost=self._round_cost)
         self._prefill = self._program(prefill, "prefill_pair",
-                                      self._prefill_inputs())
+                                      self._prefill_inputs(),
+                                      cost=self._prefill_pair_cost)
+        if self.obs:
+            for site, prog in (("spec.round", self._round),
+                               ("spec.round_greedy", self._round_greedy),
+                               ("spec.prefill_pair", self._prefill)):
+                self.obs.register_jit_site(site, prog)
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -241,6 +263,8 @@ class SpeculativeEngine(ServeEngine):
         kwargs.setdefault("spec_k", int(manifest.get("spec_k", 4)))
         return cls._from_artifacts(target, draft, params, cfg, **kwargs)
 
+    _prefill_site = "spec.prefill_pair"
+
     # -- telemetry ---------------------------------------------------------
     @property
     def acceptance_rate(self) -> float:
@@ -260,6 +284,22 @@ class SpeculativeEngine(ServeEngine):
         return ok
 
     # -- internals: the plain engine's step calls these ---------------------
+    def _round_cost(self, arrays):
+        """A round: ``k + 1`` draft decode steps, then the target's verify
+        window of ``k + 1`` positions (the head at each)."""
+        b, w = len(arrays["token"]), self.spec_k + 1
+        fd, bd = self._forward_cost(self.draft_cfg, b, 1, 1,
+                                    self._draft_param_bytes)
+        ft, bt = self._forward_cost(self.cfg, b, w, w, self._param_bytes)
+        return w * fd + ft, w * bd + bt
+
+    def _prefill_pair_cost(self, arrays):
+        cs = arrays["tokens"].shape[1]
+        ft, bt = self._forward_cost(self.cfg, 1, cs, 1, self._param_bytes)
+        fd, bd = self._forward_cost(self.draft_cfg, 1, cs, 1,
+                                    self._draft_param_bytes)
+        return ft + fd, bt + bd
+
     def _swap_out(self, req: Request, old_pages: List[int]) -> None:
         super()._swap_out(req, old_pages)
         self._draft_host[req.uid] = self.kv_draft.gather_host(old_pages)
@@ -297,18 +337,29 @@ class SpeculativeEngine(ServeEngine):
                 req.max_new_tokens - len(req.generated),
                 self.max_len - len(req.prompt) - len(req.generated))
             table[row, : len(req.pages)] = req.pages
-        if S.all_greedy(decode):
+        obs = self.obs
+        tw0 = obs.now() if obs else 0.0
+        greedy = S.all_greedy(decode)
+        if greedy:
             # every row greedy: the greedy round, whose tokens the sampled
             # round gives at T = 0
-            accepted, emit = self._round_greedy(token=token, pos=pos,
-                                                n_valid=n_valid, table=table)
+            accepted, emit = _profiled_call(
+                obs, "spec.round_greedy", self._round_greedy, token=token,
+                pos=pos, n_valid=n_valid, table=table)
         else:
-            accepted, emit = self._round(
-                token=token, pos=pos, n_valid=n_valid, table=table,
+            accepted, emit = _profiled_call(
+                obs, "spec.round", self._round, token=token, pos=pos,
+                n_valid=n_valid, table=table,
                 **S.stage_rows(decode, self.max_batch))
         accepted = accepted.cpu().numpy()  # (B,)   accepted-prefix lengths
         emit = emit.cpu().numpy()          # (B, k+1) tokens to emit per row
         self.stats["decode_calls"] += 1
+        if obs:
+            # the round's outputs came to the host: tw1 covers its device
+            # time without a sync of the recorder's own
+            tw1 = obs.now()
+            obs.on_decode(decode, tw0, tw1, name="spec-round")
+            obs.on_spec_round("greedy" if greedy else "sampled")
 
         st = self.stats
         for row, req in decode:
@@ -329,13 +380,19 @@ class SpeculativeEngine(ServeEngine):
             # corrections + bonuses holds under eos truncation too
             acc_emitted = min(emitted_n, a)
             final_emitted = emitted_n == a + 1
+            correction = int(final_emitted and a < w - 1)
+            bonus = int(final_emitted and a == w - 1)
             req.spec_accepted += acc_emitted
             st["rounds"] += 1
             st["proposed"] += w - 1
             st["accepted"] += acc_emitted
             st["emitted"] += emitted_n
-            st["corrections"] += int(final_emitted and a < w - 1)
-            st["bonuses"] += int(final_emitted and a == w - 1)
+            st["corrections"] += correction
+            st["bonuses"] += bonus
+            if obs:
+                obs.on_spec_row(w - 1, acc_emitted, correction, bonus,
+                                emitted_n)
+                obs.on_tokens(req, emitted_n, tw1)
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)

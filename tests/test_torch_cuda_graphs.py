@@ -20,6 +20,9 @@ rows without a request, and the round's window slots past a row's
 Nothing reads those.  Sampled requests run the same way through the
 sampled round and the sampler programs, each replay bit-equal to
 ``sampled_round`` or ``sample_tokens`` called eagerly on the same inputs.
+With a recorder and a kernel profiler attached, the replays stay bit-equal
+to their eager twins, every program builds once, and a profiled step
+synchronises the device while an unprofiled one does not.
 """
 import dataclasses
 
@@ -32,7 +35,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels import fused_verify as FV
 from repro_torch.models import model as MD
-from repro_torch.serving import SamplingParams, ServeEngine, SpeculativeEngine
+from repro_torch.serving import (KernelProfiler, Recorder, SamplingParams,
+                                 ServeEngine, SpeculativeEngine,
+                                 validate_chrome_trace, validate_prometheus)
 from repro_torch.serving import sampling as S
 from repro_torch.serving.programs import StepProgram
 from repro_torch.serving.speculative import (greedy_round, prefill_pair,
@@ -312,3 +317,101 @@ def test_failed_capture_raises(model):
     # the device and the caller's stream carry on
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     assert float(torch.ones(3, device="cuda").sum()) == 3.0
+
+
+def _observed(every=2):
+    rec = Recorder(trace=True)
+    rec.profiler = KernelProfiler(rec.registry, tracer=rec.tracer,
+                                  every=every)
+    return rec
+
+
+def _as_program(call, prog):
+    """The twin seen by the profiler as the program it wraps: it captures
+    before timing and syncs on the program's device."""
+    call.build, call.device, call.cost = prog.build, prog.device, prog.cost
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "spec-fused"])
+def test_observed_replays_equal_eager(model, kind):
+    cfg, params, draft = model
+    rec = _observed()
+    if kind == "plain":
+        eng = ServeEngine(params, cfg, recorder=rec, **KNOBS)
+        caches, record = [eng.kv.buffers], []
+        progs = {"serve.decode": eng._decode, "serve.prefill": eng._prefill}
+        eng._decode = _as_program(_twin(
+            eng._decode, lambda c, token, pos, table: MD.paged_decode_step(
+                params, token, pos, table, c[0], cfg, compute_dtype=CD),
+            caches, record, keep_decode(eng.kv.trash)), eng._decode)
+        eng._prefill = _as_program(_twin(
+            eng._prefill, lambda c, tokens, start, n_valid, row:
+            MD.paged_prefill_chunk(params, tokens, start, n_valid, row, c[0],
+                                   cfg, compute_dtype=CD),
+            caches, record, keep_all), eng._prefill)
+    else:
+        eng = SpeculativeEngine(params, cfg, draft, spec_k=SPEC_K,
+                                verify_backend="fused", recorder=rec, **KNOBS)
+        caches, record = [eng.kv.buffers, eng.kv_draft.buffers], []
+        progs = {"spec.round_greedy": eng._round_greedy,
+                 "spec.prefill_pair": eng._prefill}
+        eng._round_greedy = _as_program(_twin(
+            eng._round_greedy, lambda c, token, pos, n_valid, table:
+            greedy_round(params, draft, token, pos, n_valid, table, c[0],
+                         c[1], cfg, cfg, SPEC_K, compute_dtype=CD,
+                         backend="fused"), caches, record, keep_round),
+            eng._round_greedy)
+        eng._prefill = _as_program(_twin(
+            eng._prefill, lambda c, tokens, start, n_valid, row: prefill_pair(
+                params, draft, tokens, start, n_valid, row, c[0], c[1], cfg,
+                cfg, compute_dtype=CD), caches, record, keep_all),
+            eng._prefill)
+    calls = _spies(eng)
+    streams = _drain(eng)
+    assert calls["clone"] > 0 and calls["swap_in"] > 0, calls
+    assert len(record) == (eng.stats["prefill_calls"]
+                           + eng.stats["decode_calls"])
+    v = rec.registry.value
+    for site, prog in progs.items():
+        assert prog.builds == 1 and prog.graph is not None, site
+        assert v("jit_cache_misses_total", site=site) == 1, site
+        assert rec.profiler.snapshot()["sites"][site]["count"] > 0, site
+    assert v("kernel_profiled_steps_total") > 0
+    assert v("serve_generated_tokens_total") == sum(map(len, streams))
+    assert v("serve_evicted_total", kind="swap") > 0
+    assert v("serve_cow_clones_total") > 0
+    assert validate_prometheus(rec.to_prometheus()) == []
+    assert validate_chrome_trace(rec.to_chrome()) == []
+    cold = ServeEngine(params, cfg, **dict(KNOBS, num_pages=None,
+                                           prefix_cache=False))
+    if kind == "plain":
+        assert _drain(cold) == streams
+
+
+@pytest.mark.cuda
+def test_profiled_step_syncs_and_unprofiled_does_not(model, monkeypatch):
+    cfg, params, _ = model
+    rec = _observed(every=2)
+    eng = ServeEngine(params, cfg, recorder=rec, **KNOBS)
+    _drain(eng)  # every program captured: a capture syncs on its own
+    n = [0]
+    sync = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return sync(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    for p in PROMPTS:
+        eng.submit(p, max_new_tokens=6)
+    steps = []
+    while eng.has_work:
+        before = n[0]
+        eng.step()
+        steps.append((rec.profiler.active, n[0] - before))
+    assert all(d == 0 for active, d in steps if not active), steps
+    assert all(d % 2 == 0 for active, d in steps if active), steps
+    assert any(active and d >= 2 for active, d in steps), steps
+    assert eng._decode.builds == eng._prefill.builds == 1
