@@ -117,17 +117,55 @@ Phases, each fatal on failure:
     reference weights: the probe-off streams, no probe errors, rel-error
     histograms for gate, up and down.
 
-The line before the last is ``{"kernels": [...]}``, the last
+19. compile (after 13) — the offline compiler on the card: qwen3-14b at
+    full width, depth cut to ``ART_LAYERS`` (a 40-layer float32 model
+    leaves no room for the fit's workspace), float32 dense params from a
+    seeded generator on the card, ``compile_lm_bundle`` (int8 target, int4
+    draft) from ``TokenStream`` tokens ``CALIB_BATCH`` × ``CALIB_SEQ``,
+    written to a temporary directory: seconds per layer by stage (capture,
+    trees, up and down prototype solves, LUT build, quantize, write), peak
+    memory, both halves' LUT bytes and ``draft_vs_target_stored``.  The
+    fitted target's MLP output on the calibration activations is closer to
+    the dense MLP's than random int8 tables' (relative errors printed,
+    also on held-out tokens); the
+    target half served from disk through the kernels gives the streams of
+    the plain ``ref`` path called eagerly; the bundle served speculatively
+    (``fused`` verify) is held to them by the ``STREAM_MARGIN_TOL`` rule,
+    its acceptance printed.  Then one AMM-MLP layer fit at reduced width on
+    the card and on the CPU with the same code (``fit_card_vs_cpu``):
+    split dims and thresholds equal except near-ties (printed), prototypes
+    within ``PROTO_TOL``, int8 codes equal but for a printed count of ±1
+    steps;
+20. compile-chain — ``compile_chain`` of the SFC MLP (784 → 256 → 256 →
+    256 → 10, d_sub 8, depth 4, pruned, ReLU) from seeded dense weights and
+    synthetic calibration rows, int8, ``autotune=True``: reloaded from
+    disk, every layer carries its measured plan and is bit-equal to
+    ``backend="ref"``;
+21. autotune — ``fused_lutmu`` cluster sizes measured at the gate/up and
+    down decode and prefill shapes (int8) and ``verify_window`` split
+    counts at S = 128 and 4096 (bf16 KV) into a temporary cache, re-read
+    from disk; each measured plan's output bit-equal to the heuristic's
+    (int8) or within ``VERIFY_TOL`` (bf16); the measured plan's ms beside
+    the heuristic's.  Every phase before 20 reads an empty cache of its
+    own (``REPRO_AUTOTUNE_CACHE``), so every launch on the serve path is
+    the one its wrapper plans.
+
+The line before the last is ``{"kernels": [...]}`` (the ``fused_lutmu``
+and ``verify_window`` entries also carry the heuristic and measured plans
+and their ms at their reported case), the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -194,6 +232,17 @@ SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 MIN_SAMPLED_ACCEPTANCE = 0.9
 THREEFRY_TRIPLES = 4096
 DEVICE = "cuda"  # where the engines serve
+# the compile phase's calibration tokens (the compiler CLI's defaults)
+CALIB_BATCH, CALIB_SEQ = 8, 32
+# the reduced-width fit, card against CPU: rows; a pick whose two best
+# losses lie within NEAR_TIE relative may resolve either way under the
+# other device's rounding; prototypes within PROTO_TOL (float64 sums and
+# solves in another order, rounded to float32)
+FIT_ROWS = 256
+NEAR_TIE = 1e-12
+PROTO_TOL = dict(rtol=1e-5, atol=1e-6)
+# calibration rows of the SFC chain compile
+CHAIN_CALIB = 1024
 
 
 def ensure(cond: bool, msg: str) -> None:
@@ -1521,6 +1570,403 @@ def chain_phase(torch, timer, mods, counters):
 
 
 # ---------------------------------------------------------------------------
+# phases 19-21: the offline compiler on the card, and autotuned plans
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def fit_card_vs_cpu(torch):
+    """One AMM-MLP layer fit at qwen3-14b's reduced widths (d_model 128,
+    d_ff 256, ``FIT_ROWS`` seeded rows) on the card and on the CPU with the
+    same code: split dims and thresholds equal except at near-ties
+    (``maddness.compare_trees``, each printed); prototypes from the same
+    trees within ``PROTO_TOL``; int8 codes equal but for a counted number
+    of ±1 steps (the float tables' sums in another order).  Returns the
+    counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import maddness as M
+    from repro_torch.models import amm_mlp as AMM
+    cfg = get_config("qwen3-14b", reduced=True)
+    d, ff, depth = cfg.d_model, cfg.d_ff, cfg.amm.depth
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((FIT_ROWS, d))
+    ws = [(rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+          for s in ((d, ff), (d, ff), (ff, d))]
+    fits = {}
+    for dev in ("cpu", "cuda"):
+        fits[dev] = AMM.fit_from_dense_float(
+            torch.from_numpy(x).to(dev),
+            *[torch.from_numpy(w).to(dev) for w in ws], cfg)
+    cpu = fits["cpu"]
+    card = {k: v.cpu() for k, v in fits["cuda"].items()}
+    g = torch.from_numpy(x @ ws[0]).float()
+    h = (torch.nn.functional.silu(g.double()).float()
+         * torch.from_numpy(x @ ws[1]).float())
+    out = {"excused": {}, "codes_off_by_one": {}}
+    for tree, src in (("up", torch.from_numpy(x)), ("down", h)):
+        trees = {k: M.HashTree(f[f"{tree}_split_dims"], f[f"{tree}_thresholds"])
+                 for k, f in (("cpu", cpu), ("card", card))}
+        _, margins = M.learn_hash_trees(src, trees["cpu"].num_codebooks, depth,
+                                        margins=True)
+        excused, unexcused = M.compare_trees(trees["card"], trees["cpu"],
+                                             margins, NEAR_TIE)
+        ensure(not unexcused, f"fit {tree} tree: card != CPU beyond a "
+               f"near-tie at (codebook, level) {unexcused}")
+        out["excused"][tree] = excused
+        for c, level in excused:
+            print(f"[fit] {tree} tree codebook {c} level {level}: a near-tie "
+                  f"(within {NEAR_TIE} relative) picked apart", flush=True)
+        p_cpu = M.learn_prototypes(src, trees["cpu"])
+        p_card = M.learn_prototypes(src.cuda(), M.HashTree(
+            fits["cpu"][f"{tree}_split_dims"].cuda(),
+            fits["cpu"][f"{tree}_thresholds"].cuda())).cpu()
+        torch.testing.assert_close(p_card, p_cpu, **PROTO_TOL,
+                                   msg=f"{tree} prototypes, card vs CPU")
+    q_cpu = AMM.quantize_amm_layer(cpu, "int8")
+    q_card = AMM.quantize_amm_layer(card, "int8")
+    for proj in ("gate", "up", "down"):
+        tree = "down" if proj == "down" else "up"
+        if out["excused"][tree] or out["excused"]["down"]:
+            print(f"[fit] lut_{proj}: codes not compared (a tree picked "
+                  "apart)", flush=True)
+            continue
+        diff = (q_card[f"lut_{proj}"].int() - q_cpu[f"lut_{proj}"].int()).abs()
+        ensure(int(diff.max()) <= 1, f"lut_{proj} int8 codes card vs CPU "
+               f"differ by {int(diff.max())} steps")
+        out["codes_off_by_one"][proj] = (int((diff == 1).sum()), diff.numel())
+    print(f"[fit] reduced width (d_model {d}, d_ff {ff}, {FIT_ROWS} rows), "
+          f"card vs CPU: trees equal (near-ties excused: "
+          f"{ {k: len(v) for k, v in out['excused'].items()} }); prototypes "
+          f"within {PROTO_TOL}; int8 codes ±1 steps (count, of): "
+          f"{out['codes_off_by_one']}", flush=True)
+    return out
+
+
+def compile_phase(torch, cfg, MD, mods, counters, load_engine,
+                  SpeculativeEngine):
+    """qwen3-14b at full width, depth cut to ART_LAYERS, float32 dense params
+    from a seeded generator on the card: ``compile_lm_bundle`` (int8
+    target, int4 draft) from ``TokenStream`` calibration tokens, written to
+    a temporary directory; stage seconds and peak memory printed.  Gates:
+    the fitted target's MLP is closer to the dense MLP on the calibration
+    activations than random int8 tables of the same shape; the target half
+    served from disk through the kernels gives the plain ``ref`` path's
+    streams; the bundle served speculatively is held to them by the
+    ``STREAM_MARGIN_TOL`` rule (its acceptance printed).  Returns the
+    launches and the numbers for the summary."""
+    import tempfile
+
+    from repro_torch.compiler import compile_lm_bundle
+    from repro_torch.data import TokenStream
+    from repro_torch.device import StageClock
+    from repro_torch.models import amm_mlp as AMM
+    from repro_torch.models import layers as L
+    FL, FV, dispatch = mods
+    acfg = dataclasses.replace(cfg, num_layers=ART_LAYERS,
+                               amm=dataclasses.replace(cfg.amm, enabled=True,
+                                                       backend="auto"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = MD.init_params(acfg, torch.Generator(device="cuda").manual_seed(21),
+                           torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = TokenStream(vocab_size=acfg.vocab_size, batch_size=CALIB_BATCH,
+                         seq_len=CALIB_SEQ).batch(0)["tokens"]
+    clock = StageClock()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bundle"
+        t0 = time.perf_counter()
+        res = compile_lm_bundle(dense, acfg, tokens, target_resolution="int8",
+                                draft_resolution="int4", spec_k=SPEC_K,
+                                out=str(path), clock=clock)
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rep = res.report
+        per_layer = {k: v / acfg.num_layers for k, v in clock.seconds.items()}
+        out.update(compile_s=total, per_layer_s=per_layer, peak_gb=peak / 1e9,
+                   report=rep)
+        print(f"[compile] qwen3-14b full width, {acfg.num_layers} layers, "
+              f"float32 dense params ({init_s:.1f}s to init), calibration "
+              f"{CALIB_BATCH} x {CALIB_SEQ} tokens: compile_lm_bundle in "
+              f"{total:.1f}s; seconds per layer {fmt(per_layer)}; peak memory "
+              f"{peak / 1e9:.2f} GB; LUT bytes target "
+              f"{rep['target']['lut_bytes']} ({rep['target']['resolution']}), "
+              f"draft {rep['draft']['lut_bytes']} "
+              f"({rep['draft']['resolution']}), draft_vs_target_stored "
+              f"{rep['draft_vs_target_stored']}", flush=True)
+
+        # the fitted MLP against the dense one and against random tables,
+        # on the calibration activations (the gate) and on held-out tokens
+        # (printed: the fit has more unknowns than calibration rows)
+        held_out = TokenStream(vocab_size=acfg.vocab_size,
+                               batch_size=CALIB_BATCH,
+                               seq_len=CALIB_SEQ).batch(1)["tokens"]
+        target_layers = res.target.lm_layer_params(device="cuda")
+        rand = AMM.init_amm_mlp_params(
+            acfg, torch.Generator(device="cuda").manual_seed(22))
+        errs = {}
+        for which, toks in (("calibration", tokens), ("held-out", held_out)):
+            caps = MD.capture_mlp_inputs(dense, toks, acfg,
+                                         compute_dtype=torch.float32)
+            errs[which] = []
+            for l, x in enumerate(caps):
+                m = MD.layer_params(dense["layers"], l)["mlp"]
+                want = L.gated_mlp(x, m["w_gate"], m["w_up"], m["w_down"],
+                                   acfg.act)
+                fit = AMM.amm_mlp_apply(target_layers[l], x[None], acfg)[0]
+                rnd = AMM.amm_mlp_apply(rand, x[None], acfg)[0]
+                errs[which].append((_rel_err(fit, want), _rel_err(rnd, want)))
+        for l, (fit_err, rnd_err) in enumerate(errs["calibration"]):
+            ensure(fit_err < rnd_err, f"layer {l}: fitted int8 MLP rel. error "
+                   f"{fit_err} not below random tables' {rnd_err}")
+        out["mlp_rel_err"] = errs
+        print(f"[compile] MLP output, relative error to the dense MLP "
+              f"(fitted int8, random int8) per layer: on the calibration "
+              f"activations {[(round(a, 4), round(b, 4)) for a, b in errs['calibration']]}; "
+              f"on held-out tokens "
+              f"{[(round(a, 4), round(b, 4)) for a, b in errs['held-out']]}",
+              flush=True)
+        del caps, target_layers, rand, res
+
+        # the target half from disk through the kernels, against the plain
+        # ref path called eagerly on the same tables
+        def to_bf16(tree):
+            return ({k: to_bf16(v) for k, v in tree.items()}
+                    if isinstance(tree, dict) else tree.to(torch.bfloat16))
+
+        dense_bf = to_bf16(dense)
+        del dense
+        torch.cuda.empty_cache()
+        opts = dict(compute_dtype=torch.bfloat16, device="cuda", **ENGINE_KNOBS)
+        eng = load_engine(path, dense_bf, acfg, speculative=False, **opts)
+        reset_counts(counters)
+        handles, dt, ttft, eng = drive(torch, eng, acfg, 6, 16)
+        calls = eng.stats["prefill_calls"] + eng.stats["decode_calls"]
+        t_launches = FL.LAUNCHES.n
+        ensure(t_launches == 3 * acfg.num_layers * calls
+               and dispatch.REF_ON_CUDA.n == 0,
+               f"fitted target: fused_lutmu {t_launches} for {calls} calls, "
+               f"ref {dispatch.REF_ON_CUDA.n}")
+        got = [list(h.generated) for h in handles]
+        mem_params = eng.params
+        mem_cfg = eng.cfg
+        rcfg = dataclasses.replace(mem_cfg, amm=dataclasses.replace(
+            mem_cfg.amm, backend="ref"))
+        want = eager_streams(torch, MD, mem_params, rcfg,
+                             prompts(acfg.vocab_size, 6), 16)
+        ensure(got == want, "fitted target served from disk: streams differ "
+               "from the plain ref path's")
+        n_tok = sum(len(s) for s in got)
+        out.update(target_tok_s=n_tok / dt, target_launches=t_launches)
+        print(f"[compile] fitted int8 target from disk: 6 x 16 tokens, "
+              f"{n_tok / dt:.2f} tok/s; fused_lutmu launches {t_launches} = "
+              f"3 x {acfg.num_layers} x {calls}; streams equal to the plain "
+              "ref path's (called eagerly)", flush=True)
+        del eng, handles
+
+        # the fitted bundle, speculative, through the verify kernel
+        seng = load_engine(path, dense_bf, acfg, verify_backend="fused", **opts)
+    ensure(isinstance(seng, SpeculativeEngine), f"got {type(seng)}")
+    reset_counts(counters)
+    sh, sdt, sttft, seng = drive(torch, seng, acfg, 6, 16)
+    rounds = seng.stats["decode_calls"]
+    ensure(FV.LAUNCHES.n == acfg.num_layers * rounds
+           and FV.PLAIN_ON_CUDA.n == 0 and dispatch.REF_ON_CUDA.n == 0,
+           f"fitted bundle: verify launches {FV.LAUNCHES.n} for {rounds} rounds")
+    ensure(all(h.done and len(h.generated) == 16 for h in sh),
+           "fitted bundle requests did not finish")
+    differ = compare_streams(
+        torch, "fitted-bundle-spec", sh, want,
+        lambda: load_engine(None, mem_params, mem_cfg, **opts))
+    out.update(acceptance=seng.acceptance_rate, spec_tok_s=96 / sdt,
+               verify_launches=FV.LAUNCHES.n)
+    print(spec_line("fitted-bundle-spec", sh, sdt, sttft, seng,
+                    torch.cuda.max_memory_allocated()) +
+          f"; verify_window launches {FV.LAUNCHES.n} = {acfg.num_layers} x "
+          f"{rounds} rounds; {differ} of {len(sh)} streams differ from the "
+          "target's", flush=True)
+    del seng, sh, mem_params, dense_bf
+    torch.cuda.empty_cache()
+    return out
+
+
+def compile_chain_phase(torch, mods, counters):
+    """``compile_chain`` of the SFC MLP (784 → 256 → 256 → 256 → 10, d_sub
+    8, depth 4, pruned, ReLU) on the card from seeded dense weights and
+    ``CHAIN_CALIB`` synthetic calibration rows, int8, ``autotune=True``
+    (each layer's ``fused_lutmu`` cluster size measured at batch 256 into
+    the current autotune cache); reloaded from disk, its recorded plans
+    reach every layer, and every layer is bit-equal to ``backend="ref"``
+    on the chain's own inputs.  Returns the launches of the reloaded
+    chain's forward."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.compiler import compile_chain
+    from repro_torch.core.lut_mu import AMMChain
+    from repro_torch.kernels import autotune as AT
+    FL, dispatch = mods
+    rng = np.random.default_rng(17)
+    dims = list(zip(CHAIN_WIDTHS[:-1], CHAIN_WIDTHS[1:]))
+    ws = [(rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+          for s in dims]
+    bs = [(0.1 * rng.standard_normal(s[1])).astype(np.float32) for s in dims]
+    centres = rng.standard_normal((32, CHAIN_WIDTHS[0]))
+    calib = torch.from_numpy((centres[rng.integers(0, 32, CHAIN_CALIB)]
+                              + 0.3 * rng.standard_normal(
+                                  (CHAIN_CALIB, CHAIN_WIDTHS[0]))).astype(
+        np.float32)).cuda()
+    books = [w // CHAIN_D_SUB for w in CHAIN_WIDTHS[:-1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = compile_chain(ws, bs, calib, num_codebooks=books,
+                            depths=[CHAIN_DEPTH] * len(books),
+                            activations=["relu"] * (len(books) - 1),
+                            resolution="int8", autotune=True,
+                            name="sfc-mlp", out=str(Path(tmp) / "sfc"))
+        compile_s = time.perf_counter() - t0
+        chain = AMMChain.load(Path(tmp) / "sfc", device="cuda")
+    recs = res.artifact.manifest["layers"]
+    plans = [AT.TileConfig.from_dict(r["tiles"]) for r in recs]
+    ensure([l.tiles for l in chain.layers] == plans
+           and chain.backends == tuple(r["backend"] for r in recs),
+           "reloaded chain lost its recorded plans")
+    heur = [AT.heuristic_tiles(256, r["num_codebooks"], r["cols"], CHAIN_DEPTH,
+                               torch.int8, device="cuda") for r in recs]
+    x = calib[:CHAIN_BATCH]
+    reset_counts(counters)
+    y = chain(x)
+    torch.cuda.synchronize()
+    n = len(chain.layers)
+    launches = FL.LAUNCHES.n
+    ensure(launches == n and dispatch.REF_ON_CUDA.n == 0,
+           f"compiled chain: fused_lutmu {launches}, ref "
+           f"{dispatch.REF_ON_CUDA.n} for {n} layers")
+    ensure(torch.equal(res.chain(x), y), "in-memory chain != reloaded chain")
+    h = x
+    for i, layer in enumerate(chain.layers):
+        apply = layer.apply_package if i > 0 else layer.__call__
+        got = apply(h, backend=chain.backends[i])
+        want = apply(h, backend="ref")
+        torch.cuda.synchronize()
+        ensure(torch.equal(got, want), f"compiled chain layer {i}: "
+               f"{chain.backends[i]} != ref")
+        h = torch.relu(got) if i < n - 1 else got
+    dense = x
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        dense = dense @ torch.from_numpy(w).cuda() + torch.from_numpy(b).cuda()
+        dense = torch.relu(dense) if i < n - 1 else dense
+    print(f"[compile-chain] SFC {'-'.join(map(str, CHAIN_WIDTHS))} int8 from "
+          f"{CHAIN_CALIB} calibration rows on the card, autotune=True: "
+          f"{compile_s:.1f}s; backends {chain.backends}; measured clusters "
+          f"{[p.cluster for p in plans]} (heuristic "
+          f"{[p.cluster for p in heur]}); reloaded: {n} layers bit-equal to "
+          f"backend='ref', fused_lutmu launches {launches}; output rel. "
+          f"error to the dense MLP {_rel_err(y, dense):.4f}; LUT "
+          f"{chain.lut_bytes()} bytes", flush=True)
+    return {"fused_lutmu": launches, "compile_s": compile_s,
+            "clusters": [p.cluster for p in plans]}
+
+
+def autotune_phase(torch, timer, mods, cache_path):
+    """``fused_lutmu`` cluster sizes measured at the four gate/up and down
+    decode (B=4) and prefill (B=32) int8 shapes, and ``verify_window`` split
+    counts at S = 128 and 4096 (bf16 KV), into the cache at ``cache_path``;
+    the cache re-read from disk gives the same plans; each measured plan's
+    output is bit-equal to the heuristic's (int8) or within ``VERIFY_TOL``
+    of it (bf16 verify); the measured plan's ms beside the heuristic's
+    (CUDA events, L2 flushed).  The heuristic on the card is the plan the
+    wrapper picks by itself.  Returns both plans and times by case."""
+    from repro_torch.kernels import autotune as AT
+    FL, FV = mods
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    g = 2**DEPTH
+    cache = AT.AutotuneCache(cache_path)
+    results, keys = {}, {}
+    for proj, b in (("gate_up", 4), ("down", 4), ("gate_up", 32), ("down", 32)):
+        c, n = SHAPES[proj]
+        x = torch.randn((b, c, DEPTH), generator=gen, device="cuda")
+        thr = torch.randn((c, g - 1), generator=gen, device="cuda")
+        lut = torch.randint(-128, 128, (c, g, n), generator=gen,
+                            dtype=torch.int8, device="cuda")
+        scale = torch.rand((n,), generator=gen, device="cuda") * 0.015 + 0.005
+        offset = torch.randn((n,), generator=gen, device="cuda")
+        args = (x, thr, lut, scale, offset)
+        heur = AT.heuristic_tiles(b, c, n, DEPTH, torch.int8, device="cuda")
+        hplan = AT.fused_plan(heur, b, c, DEPTH, torch.int8)
+        ensure(hplan == FL._plan_for(b, c, n, DEPTH, torch.int8, 0),
+               f"{proj} B={b}: heuristic {hplan} != the wrapper's plan")
+        n_cands = len(AT.candidate_tiles(b, c, n, DEPTH, torch.int8, "cuda"))
+        best = AT.get_tiles(b, c, n, DEPTH, torch.int8, allow_measure=True,
+                            cache=cache, device="cuda")
+        keys[AT.shape_key("cuda", "fused", b, c, n, DEPTH, torch.int8)] = best
+        mplan = AT.fused_plan(best, b, c, DEPTH, torch.int8)
+        want = FL.fused_lutmu(*args)
+        got = FL.fused_lutmu(*args, launch_plan=mplan)
+        torch.cuda.synchronize()
+        ensure(torch.equal(got, want), f"{proj} B={b}: measured plan "
+               f"(cluster {best.cluster}) != heuristic's output")
+        r = dict(heuristic=heur.cluster, measured=best.cluster,
+                 candidates=n_cands,
+                 heuristic_ms=timer.ms(lambda: FL.fused_lutmu(*args), 20),
+                 measured_ms=timer.ms(
+                     lambda: FL.fused_lutmu(*args, launch_plan=mplan), 20))
+        results[("fused_lutmu", proj, b)] = r
+        print(f"[autotune] fused_lutmu {proj:7s} B={b:<2d} int8: cluster "
+              f"measured {best.cluster} (of {n_cands} candidates) vs "
+              f"heuristic {heur.cluster}: {r['measured_ms']:.4f} vs "
+              f"{r['heuristic_ms']:.4f} ms; output bit-equal", flush=True)
+        del args, x, thr, lut
+    b, w, nkv, gq, hd, ps = VERIFY_SHAPE
+    for s_len in VERIFY_S:
+        q, kp, vp, pt, pos = verify_inputs(torch, s_len, "bfloat16", gen)
+        heur = AT.verify_heuristic_tiles(s_len, w, nkv, gq, hd, torch.bfloat16,
+                                         b=b, page_size=ps, device="cuda")
+        best = AT.get_verify_tiles(s_len, w, nkv, gq, hd, torch.bfloat16, b=b,
+                                   page_size=ps, allow_measure=True,
+                                   cache=cache, device="cuda")
+        keys[AT.verify_shape_key("cuda", s_len, w, nkv, gq, hd,
+                                 torch.bfloat16, b)] = best
+        args = (q, kp, vp, pt, pos, None)
+        want = FV.verify_window_attend_cuda(*args, splits=heur.splits)
+        got = FV.verify_window_attend_cuda(*args, splits=best.splits)
+        plain = FV.verify_window_attend_plain(*args)
+        torch.cuda.synchronize()
+        err = max((got - want).abs().max().item(),
+                  (got - plain).abs().max().item())
+        ensure(err <= VERIFY_TOL["bfloat16"], f"verify S={s_len}: measured "
+               f"{best.splits} splits off by {err}")
+        r = dict(heuristic=heur.splits, measured=best.splits, max_abs_err=err,
+                 heuristic_ms=timer.ms(lambda: FV.verify_window_attend_cuda(
+                     *args, splits=heur.splits), 20),
+                 measured_ms=timer.ms(lambda: FV.verify_window_attend_cuda(
+                     *args, splits=best.splits), 20))
+        results[("verify_window", s_len)] = r
+        print(f"[autotune] verify_window S={s_len:<4d} bf16: splits measured "
+              f"{best.splits} vs heuristic {heur.splits}: "
+              f"{r['measured_ms']:.4f} vs {r['heuristic_ms']:.4f} ms; max abs "
+              f"err {err:.3g} (tolerance {VERIFY_TOL['bfloat16']})", flush=True)
+        del q, kp, vp, pt, pos, args
+    reread = AT.AutotuneCache(cache_path)
+    for key, plan in keys.items():
+        cls = AT.VerifyTileConfig if "|verify|" in key else AT.TileConfig
+        ensure(reread.get(key, cls=cls) == plan,
+               f"cache re-read: {key} gives {reread.get(key, cls=cls)}")
+    print(f"[autotune] cache {len(reread)} entries re-read from disk: every "
+          "measured plan found", flush=True)
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 18: observed — recorder, kernel profiler, HTTP, quality probe
 # ---------------------------------------------------------------------------
 
@@ -1887,6 +2333,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # every phase up to the compile phases reads an empty autotune cache of
+    # its own, so each launch is the one its wrapper plans; nothing measures
+    tune_dir = tempfile.TemporaryDirectory()
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(Path(tune_dir.name) / "serve.json")
+    os.environ.pop("REPRO_AUTOTUNE", None)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2026,7 +2477,8 @@ def main() -> int:
     observed_spec(torch, cfg, params, SpeculativeEngine, FV, counters)
     # 17. sampled speculative serve, identical draft, scan then fused
     sampled_spec_phase(torch, cfg, params, SpeculativeEngine, FV, counters)
-    del params
+    del params, make_plain  # the closure holds the 40-layer params too
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 6. the unfused path at full width, depth cut to 4 layers
@@ -2118,6 +2570,28 @@ def main() -> int:
     print(f"[launches] artifact/bundle/chain runs: {alaunch} {claunch}",
           flush=True)
 
+    # 19. the offline compiler on the card: a fitted full-width bundle,
+    # compiled, written, served; the same fit at reduced width, card vs CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[compile] device memory in use before the compile: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    comp = compile_phase(torch, cfg, MD, (FL, FV, dispatch), counters,
+                         load_engine, SpeculativeEngine)
+    fit_card_vs_cpu(torch)
+    # 20. + 21. measured plans, each phase into a cache of its own
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(Path(tune_dir.name) / "chain.json")
+    chain_comp = compile_chain_phase(torch, (FL, dispatch), counters)
+    timer = Timer(torch)
+    tuned = autotune_phase(torch, timer, (FL, FV),
+                           Path(tune_dir.name) / "autotune.json")
+    del timer
+    tune_dir.cleanup()
+    print(f"[launches] compile runs: fitted target fused_lutmu "
+          f"{comp['target_launches']}, fitted bundle verify_window "
+          f"{comp['verify_launches']}, compiled chain fused_lutmu "
+          f"{chain_comp['fused_lutmu']}", flush=True)
+
     lutmu_shape = "down C=2176 N=5120, B=4, int8"
     int16_shape = "chain C=98 N=128, B=256, int16"
 
@@ -2153,9 +2627,13 @@ def main() -> int:
                                  "speculative",
                                  "B=4 W=5 n_kv=8 g=5 hd=128, S=128 (page_size "
                                  "16), bf16 KV", vres, VERIFY_JSON_CASE)}
+    # the measured plan beside the heuristic's at the reported case
+    measured = {"fused_lutmu": tuned[("fused_lutmu", "down", 4)],
+                "verify_window": tuned[("verify_window", 128)]}
     entries = []
     for name, (src, replaces, path, shape, res, case) in sources.items():
         r = res[case]
+        m = measured.get(name)
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name], "path": path,
@@ -2163,7 +2641,11 @@ def main() -> int:
             "max_abs_err": max(v["max_abs_err"] for v in res.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("floor_ms", "device_ms") if k in r}})
+            **{k: r[k] for k in ("floor_ms", "device_ms") if k in r},
+            **({} if m is None else {
+                "heuristic_plan": m["heuristic"], "measured_plan": m["measured"],
+                "heuristic_plan_ms": m["heuristic_ms"],
+                "measured_plan_ms": m["measured_ms"]})})
     ensure(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries),
            "a kernel has no time or no launches")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

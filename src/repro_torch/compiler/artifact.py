@@ -24,14 +24,12 @@ Two kinds:
     ``ServeEngine``).
 
 Tensors stay numpy arrays until ``to_chain`` / ``splice_lm_params`` put them
-on the caller's device.  Two differences from the JAX package:
-
-  * ``to_chain`` applies the recorded per-layer backends only when the
-    manifest's ``platform`` is the port's own (``"cuda"``); an artifact the
-    JAX package wrote re-decides each layer on ``"auto"``, as the JAX
-    package does on a platform other than the one it compiled for;
-  * recorded ``tiles`` are TPU block shapes and are ignored: the CUDA
-    wrappers plan their own launches.
+on the caller's device.  ``to_chain`` applies the recorded per-layer
+backends and launch plans (``tiles``, a ``kernels.autotune.TileConfig``)
+only when the manifest's ``platform`` is the port's own (``"cuda"``): an
+artifact the JAX package wrote records TPU block shapes, which are ignored,
+and re-decides each layer on ``"auto"``, as the JAX package does on a
+platform other than the one it compiled for.
 """
 from __future__ import annotations
 
@@ -53,6 +51,7 @@ from repro_torch.core import maddness as M
 from repro_torch.convert import to_tensor
 from repro_torch.core import pruning as P
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune as AT
 
 ARTIFACT_FORMAT = "repro-lutmu-artifact"
 ARTIFACT_VERSION = 1
@@ -60,9 +59,9 @@ ARTIFACT_VERSION = 1
 # decoding) is versioned on its own: a bundle directory holds its own
 # manifest plus two complete sub-artifacts
 BUNDLE_VERSION = 1
-# the ``platform`` this package records, and whose recorded backends
-# ``to_chain`` applies
-PLATFORM = "cuda"
+# the ``platform`` this package records, and whose recorded backends and
+# launch plans ``to_chain`` applies
+PLATFORM = AT.PLATFORM
 _TENSORS_FILE = "tensors.npz"
 _MANIFEST_FILE = "manifest.json"
 _BUNDLE_TARGET_DIR = "target"
@@ -112,10 +111,10 @@ class Artifact:
         """Rebuild the servable :class:`~repro_torch.core.lut_mu.AMMChain`
         on ``device``.
 
-        Recorded per-layer backends are applied when the manifest's
-        ``platform`` is this package's (override with
+        Recorded per-layer backends and launch plans are applied when the
+        manifest's ``platform`` is this package's (override with
         ``apply_recorded_backends``); otherwise ``"auto"`` re-decides per
-        shape.
+        shape and each wrapper plans its own launch.
         """
         if self.kind != "amm_chain":
             raise ArtifactError(f"kind {self.kind!r} is not an amm_chain")
@@ -140,9 +139,12 @@ class Artifact:
                                      dev),
                     consumer_codebooks=rec["consumer_codebooks"],
                     consumer_depth=rec["consumer_depth"])
+            tiles = None
+            if apply_recorded_backends and rec.get("tiles"):
+                tiles = AT.TileConfig.from_dict(rec["tiles"])
             layers.append(LM.AMMLinear(
                 params=params, out_plan=plan,
-                full_out_features=rec["out_features_full"]))
+                full_out_features=rec["out_features_full"], tiles=tiles))
         backends = (tuple(rec["backend"] for rec in self.manifest["layers"])
                     if apply_recorded_backends else None)
         return LM.AMMChain(
@@ -207,6 +209,10 @@ class Artifact:
 # ---------------------------------------------------------------------------
 # Save / load.
 # ---------------------------------------------------------------------------
+
+
+def tiles_to_json(tiles: Optional[AT.TileConfig]) -> Optional[dict]:
+    return None if tiles is None else tiles.to_dict()
 
 
 def save_artifact(directory, artifact: Artifact) -> Path:

@@ -14,13 +14,16 @@ picks a backend per shape/dtype/device and runs:
 
 On CPU tensors the kernel wrappers run their plain versions, so every
 backend executes in the CPU tests.  ``REPRO_LUTMU_BACKEND`` overrides
-``"auto"``.
+``"auto"``.  On CUDA tensors each launch follows a plan resolved through
+``kernels.autotune`` (an explicit ``tiles``, else the cache's entry for the
+shape, else the wrappers' own pick), as the JAX dispatch resolves tiles.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import os
+from typing import Optional
 
 import torch
 
@@ -29,6 +32,7 @@ from repro_torch.core.maddness import (HashTree, MaddnessParams,
                                        gather_split_values)
 from repro_torch.core.pruning import PruningPlan, pruned_to_split_values
 from repro_torch.kernels import _build
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels.lut_aggregate import lut_aggregate
 from repro_torch.kernels.maddness_encode import encode_onehot as encode_onehot_cuda
@@ -131,7 +135,9 @@ def _to_split_values(x: Tensor, params: MaddnessParams,
     return xs.to(torch.float32).contiguous()
 
 
-def _run_ref(xs: Tensor, params: MaddnessParams) -> Tensor:
+def _run_ref(xs: Tensor, params: MaddnessParams,
+             tiles: Optional[AT.TileConfig]) -> Tensor:
+    del tiles
     if xs.device.type == "cuda":
         REF_ON_CUDA.bump()
     onehot = encode_onehot(xs, params.tree)
@@ -139,27 +145,39 @@ def _run_ref(xs: Tensor, params: MaddnessParams) -> Tensor:
                            params.lut_offset)
 
 
-def _run_unfused(xs: Tensor, params: MaddnessParams) -> Tensor:
+def _run_unfused(xs: Tensor, params: MaddnessParams,
+                 tiles: Optional[AT.TileConfig]) -> Tensor:
     # int8 tables take an int8 one-hot as it is; float and int16 tables
     # a float32 one (the same 0/1 bits either way)
     out_dtype = (torch.int8 if params.lut.dtype == torch.int8
                  else torch.float32)
+    b, c, depth = xs.shape
+    plan = None if tiles is None else AT.encode_plan(tiles, b, c, depth)
     onehot = encode_onehot_cuda(xs, params.tree.thresholds,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, launch_plan=plan)
     return lut_aggregate(onehot, params.lut, params.lut_scale,
-                         params.lut_offset)
+                         params.lut_offset,
+                         split_k=None if tiles is None else tiles.split_k)
 
 
-def _run_fused(xs: Tensor, params: MaddnessParams) -> Tensor:
+def _run_fused(xs: Tensor, params: MaddnessParams,
+               tiles: Optional[AT.TileConfig]) -> Tensor:
+    b, c, depth = xs.shape
+    plan = (None if tiles is None
+            else AT.fused_plan(tiles, b, c, depth, params.lut.dtype))
     return FL.fused_lutmu(xs, params.tree.thresholds, params.lut,
-                          params.lut_scale, params.lut_offset)
+                          params.lut_scale, params.lut_offset,
+                          launch_plan=plan)
 
 
 _RUNNERS = {"ref": _run_ref, "unfused": _run_unfused, "fused": _run_fused}
 
 
 def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
-                 input_kind: str = "full") -> Tensor:
+                 input_kind: str = "full",
+                 tiles: Optional[AT.TileConfig] = None,
+                 autotune: bool = False,
+                 cache: Optional[AT.AutotuneCache] = None) -> Tensor:
     """The unified LUT-MU entry point: ``x`` → approximate ``x @ W``.
 
     Args:
@@ -170,6 +188,13 @@ def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
       backend: ``"auto"`` (see :func:`select_backend`) or one of
         ``"ref" | "unfused" | "fused"``.  ``REPRO_LUTMU_BACKEND`` overrides
         ``"auto"``.
+      tiles: an explicit launch plan (``autotune.TileConfig``); by default
+        on CUDA tensors the autotuner resolves one (cache → measured if
+        ``autotune`` → the wrappers' own pick).  CPU tensors run the plain
+        versions, which take no plan.
+      autotune: measure the ``fused`` cluster sizes of an unseen shape and
+        persist the winner (also ``REPRO_AUTOTUNE=1``).
+      cache: the autotune cache (default: ``autotune.get_default_cache()``).
 
     Returns:
       (B, N) float32.
@@ -189,4 +214,10 @@ def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
         _PROFILE_HOOK(backend=backend, input_kind=input_kind, b=int(b),
                       c=int(c), n=int(n), depth=int(depth),
                       lut_dtype=str(params.lut.dtype))
-    return _RUNNERS[backend](xs, params)
+    if backend == "ref" or xs.device.type != "cuda":
+        tiles = None
+    elif tiles is None:
+        tiles = AT.get_tiles(b, c, n, depth, params.lut.dtype, backend=backend,
+                             allow_measure=autotune, cache=cache,
+                             device=xs.device)
+    return _RUNNERS[backend](xs, params, tiles)

@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_lutmu_ref as fused_lutmu_plain
 
 __all__ = ["fused_lutmu", "fused_lutmu_plain", "LAUNCHES", "Plan", "plan",
-           "sized", "smem_bytes", "tile_bytes", "launch"]
+           "sized", "smem_bytes", "tile_bytes", "launch", "check_plan"]
 
 LAUNCHES = _build.LaunchCount()
 
@@ -143,6 +143,17 @@ def _max_clusters(dtype_code: int, b: int, depth: int, p: Plan) -> int:
     return n
 
 
+def check_plan(b: int, depth: int, lut_dtype, p: Plan) -> None:
+    """Raise unless the card runs at least one cluster of plan ``p`` (the
+    kernel's occupancy query; shared memory within ``MAX_SMEM``)."""
+    _build.require(p.smem <= MAX_SMEM and p.cluster <= MAX_CLUSTER,
+                   f"fused_lutmu plan {p} exceeds {MAX_SMEM} bytes of shared "
+                   f"memory or {MAX_CLUSTER} blocks per cluster")
+    n = _max_clusters(_build.DTYPE_CODES[lut_dtype], b, depth, p)
+    _build.require(n >= 1, f"fused_lutmu plan {p} fails the occupancy check "
+                   f"at B={b}, depth {depth}: no cluster fits an SM group")
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_for(b: int, c: int, n: int, depth: int, lut_dtype, device_index: int
               ) -> Plan:
@@ -155,7 +166,8 @@ def _plan_for(b: int, c: int, n: int, depth: int, lut_dtype, device_index: int
 
 def fused_lutmu(x_split: torch.Tensor, thresholds: torch.Tensor,
                 lut: torch.Tensor, lut_scale: torch.Tensor,
-                lut_offset: torch.Tensor) -> torch.Tensor:
+                lut_offset: torch.Tensor,
+                launch_plan: Optional[Plan] = None) -> torch.Tensor:
     """Split values → approximate matmul output.
 
     Args:
@@ -166,6 +178,8 @@ def fused_lutmu(x_split: torch.Tensor, thresholds: torch.Tensor,
         which is exact, and so bit-equal to the kernel, while every sum
         stays within 2**24: for any table when C ≤ 512.
       lut_scale / lut_offset: float32 epilogue, () or (N,).
+      launch_plan: a launch other than :func:`plan`'s (an autotuned one,
+        ``kernels/autotune.py``); the plain version ignores it.
 
     Returns:
       (B, N) float32.
@@ -173,7 +187,8 @@ def fused_lutmu(x_split: torch.Tensor, thresholds: torch.Tensor,
     if _build.on_cpu(x_split, thresholds, lut, lut_scale, lut_offset):
         return fused_lutmu_plain(x_split, thresholds, lut, lut_scale,
                                  lut_offset)
-    return launch(x_split, thresholds, lut, lut_scale, lut_offset)
+    return launch(x_split, thresholds, lut, lut_scale, lut_offset,
+                  launch_plan)
 
 
 def launch(x_split: torch.Tensor, thresholds: torch.Tensor, lut: torch.Tensor,
@@ -181,7 +196,8 @@ def launch(x_split: torch.Tensor, thresholds: torch.Tensor, lut: torch.Tensor,
            launch_plan: Optional[Plan] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, with :func:`plan`'s launch unless
     ``launch_plan`` names another (the card tests force every tile width
-    and cluster size)."""
+    and cluster size; the autotuner measures cluster sizes).  A named plan
+    that fails :func:`check_plan` raises."""
     b, c, depth = x_split.shape
     g = 2**depth
     _build.require(1 <= depth <= 8, f"tree depth must be in [1, 8], got {depth}")
@@ -204,6 +220,8 @@ def launch(x_split: torch.Tensor, thresholds: torch.Tensor, lut: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     if out.numel() == 0:
         return out
+    if launch_plan is not None:
+        check_plan(b, depth, lut.dtype, launch_plan)
     p = launch_plan or _plan_for(b, c, n, depth, lut.dtype,
                                  lut.device.index or 0)
     lib = _build.library("fused_lutmu")

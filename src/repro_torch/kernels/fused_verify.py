@@ -76,25 +76,27 @@ def reach(pos: int, w: int, window: int, s_len: int) -> Tuple[int, int]:
     return rows[0][0], rows[-1][1] + 1
 
 
+def split_cap(s_len: int, splits: int) -> int:
+    """Most positions one of ``splits`` blocks holds: a whole number of
+    ``_TILE_S`` tiles covering ``ceil(s_len / splits)``."""
+    return -(-(-(-s_len // splits)) // _TILE_S) * _TILE_S
+
+
 def verify_splits(s_len: int, one_wave: Optional[Callable[[int, int], bool]] = None
                   ) -> Tuple[int, int]:
     """``(splits, cap)`` for rows of ``s_len`` positions: a cluster of
     ``splits`` ≤ 8 blocks per (row, kv head, 32 query rows), one per
-    ``_SPLIT_SPAN`` positions, each holding at most ``cap`` positions (a
-    multiple of ``_TILE_S``).  ``one_wave(splits, cap)`` says whether every
+    ``_SPLIT_SPAN`` positions, each holding at most ``cap`` positions
+    (:func:`split_cap`).  ``one_wave(splits, cap)`` says whether every
     cluster of the grid runs at once; the count steps down (to half) to
     the first that does, else stays.  Fixed from S and the grid shape, so
     the host never reads ``pos``."""
     want = max(1, min(_MAX_SPLITS, -(-s_len // _SPLIT_SPAN)))
-
-    def cap_of(splits):
-        return -(-(-(-s_len // splits)) // _TILE_S) * _TILE_S
-
     if one_wave is not None:
         for splits in range(want, max(1, want // 2) - 1, -1):
-            if one_wave(splits, cap_of(splits)):
-                return splits, cap_of(splits)
-    return want, cap_of(want)
+            if one_wave(splits, split_cap(s_len, splits)):
+                return splits, split_cap(s_len, splits)
+    return want, split_cap(s_len, want)
 
 
 def split_slice(lo: int, hi: int, splits: int, i: int) -> Tuple[int, int]:
@@ -220,9 +222,56 @@ def verify_window_attend_plain(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
                                 window)
 
 
+def _rows_blocks(w: int, g: int) -> Tuple[int, int]:
+    """(query rows of a block, blocks of 32 rows per (row, kv head))."""
+    return min(w * g, _ROWS_PER_BLOCK), -(-(w * g) // _ROWS_PER_BLOCK)
+
+
+def _logits_in_smem(w: int, g: int, cap: int) -> bool:
+    # a block keeps its slice's logits (≤ 32 rows × cap) in shared memory
+    # when they fit the budget, else in a scratch allocated by the wrapper
+    return _rows_blocks(w, g)[0] * (cap + 4) * 4 <= _SMEM_LOGITS_MAX
+
+
+def max_clusters(kv_dtype, w: int, g: int, hd: int, ps: int, splits: int,
+                 cap: int) -> int:
+    """Clusters of ``splits`` blocks the card runs at once (the kernel's
+    occupancy query), logits where :func:`_logits_in_smem` puts them."""
+    return _max_clusters(_build.DTYPE_CODES[kv_dtype], w, g, hd, ps, splits,
+                         cap, _logits_in_smem(w, g, cap))
+
+
+def heuristic_splits(b: int, w: int, nkv: int, g: int, hd: int, ps: int,
+                     s_len: int, kv_dtype,
+                     query: Optional[Callable[..., int]] = max_clusters) -> int:
+    """:func:`verify_splits`' count for this grid: the most splits whose
+    clusters all run at once with the logits in shared memory, by
+    ``query`` (the card's occupancy; ``None``: no card, the count from S
+    alone)."""
+    halves = _rows_blocks(w, g)[1]
+
+    def one_wave(splits, cap):
+        return _logits_in_smem(w, g, cap) and b * nkv * halves <= query(
+            kv_dtype, w, g, hd, ps, splits, cap)
+
+    return verify_splits(s_len, one_wave if query is not None else None)[0]
+
+
+def check_splits(w: int, g: int, hd: int, ps: int, s_len: int, kv_dtype,
+                 splits: int) -> None:
+    """Raise unless ``splits`` is a count the kernel takes and the card
+    runs at least one cluster of it."""
+    _build.require(1 <= splits <= _MAX_SPLITS,
+                   f"verify splits must be in [1, {_MAX_SPLITS}], got {splits}")
+    n = max_clusters(kv_dtype, w, g, hd, ps, splits, split_cap(s_len, splits))
+    _build.require(n >= 1, f"verify_window with {splits} splits fails the "
+                   f"occupancy check at S={s_len}")
+
+
 def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
                               page_table: Tensor, pos: Tensor,
-                              window: Optional[int]) -> Tensor:
+                              window: Optional[int],
+                              splits: Optional[int] = None) -> Tensor:
     """Page gather + all W masked attends in one kernel.
 
     Args:
@@ -232,6 +281,10 @@ def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
       page_table: (B, max_pages) int32, trash-padded.
       pos: (B,) int32 first window position per row.
       window: the layer's window (``None`` or ``2**30`` = global).
+      splits: blocks per cluster; by default the autotune cache's entry
+        for this shape, else :func:`heuristic_splits` (``kernels/
+        autotune.py::get_verify_tiles``).  A count that fails
+        :func:`check_splits` raises.
 
     Returns:
       (B, W, n_kv, g, hd) float32.  CPU tensors take the plain version.
@@ -271,28 +324,21 @@ def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
     out = torch.empty((b, w, nkv, g, hd), dtype=torch.float32, device=qg.device)
     if out.numel() == 0:
         return out
-    halves = -(-(w * g) // _ROWS_PER_BLOCK)
-    kv_code = _build.DTYPE_CODES[k_pages.dtype]
-    rows = min(w * g, _ROWS_PER_BLOCK)
-
-    def in_smem_at(cap):
-        # a block keeps its slice's logits (≤ 32 rows × cap) in shared
-        # memory when they fit the budget, else in a scratch allocated here
-        return rows * (cap + 4) * 4 <= _SMEM_LOGITS_MAX
-
-    def one_wave(splits, cap):  # with the logits in shared memory
-        return in_smem_at(cap) and b * nkv * halves <= _max_clusters(
-            kv_code, w, g, hd, ps, splits, cap, True)
-
-    splits, cap = verify_splits(s_len, one_wave)
-    in_smem = in_smem_at(cap)
+    if splits is None:
+        from repro_torch.kernels import autotune as AT  # no import cycle
+        splits = AT.get_verify_tiles(s_len, w, nkv, g, hd, k_pages.dtype, b=b,
+                                     page_size=ps, device=qg.device).splits
+    check_splits(w, g, hd, ps, s_len, k_pages.dtype, splits)
+    cap = split_cap(s_len, splits)
+    in_smem = _logits_in_smem(w, g, cap)
+    halves = _rows_blocks(w, g)[1]
     scratch = (None if in_smem else
                torch.empty((b, nkv * halves, splits, _ROWS_PER_BLOCK, cap + 4),
                            dtype=torch.float32, device=qg.device))
     lib = _build.library("verify_window")
     err = lib.verify_window_launch(
         qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        kv_code, page_table.data_ptr(),
+        _build.DTYPE_CODES[k_pages.dtype], page_table.data_ptr(),
         pos.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
         b, w, nkv, g, hd, ps, max_pages, win, splits, cap, int(in_smem),

@@ -10,6 +10,7 @@ kernel does.  CPU tensors take the plain version,
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -46,8 +47,8 @@ def k_splits(b: int, k: int, n: int, lut_dtype, sms: int):
 
 
 def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
-                  lut_scale: torch.Tensor,
-                  lut_offset: torch.Tensor) -> torch.Tensor:
+                  lut_scale: torch.Tensor, lut_offset: torch.Tensor,
+                  split_k: Optional[int] = None) -> torch.Tensor:
     """``onehot (B, C, G)`` × ``lut (C, G, N)`` → (B, N) float32.
 
     int8 LUTs take the left operand as int8 and sum in int32; float32,
@@ -56,7 +57,9 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
     LUT to it as the TPU kernel does).  With a one-hot and an int16 table
     every sum is an integer, exact while it stays within 2**24: bit-equal
     to the plain version for any table when C ≤ 512.  Only the left operand's nonzero entries
-    are summed, which for a one-hot is the LUT-row gather.
+    are summed, which for a one-hot is the LUT-row gather.  ``split_k``
+    sets the K entries one split walks (an autotuned plan); by default
+    :func:`k_splits` picks it.
     """
     if _build.on_cpu(onehot, lut, lut_scale, lut_offset):
         return lut_aggregate_plain(onehot, lut, lut_scale, lut_offset)
@@ -77,7 +80,14 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     if out.numel() == 0:
         return out
-    splits, per = k_splits(b, k, n, lut.dtype, _build.sm_count(lut.device))
+    if split_k is None:
+        splits, per = k_splits(b, k, n, lut.dtype, _build.sm_count(lut.device))
+    else:
+        _build.require(split_k >= 1, f"split_k must be >= 1, got {split_k}")
+        per = min(split_k, k)
+        splits = math.ceil(k / per)
+        _build.require(splits <= _MAX_GRID_Z,
+                       f"{splits} K splits exceed the grid's {_MAX_GRID_Z}")
     acc_dtype = torch.int32 if lut.dtype == torch.int8 else torch.float32
     partial = (torch.empty((splits, b, n), dtype=acc_dtype, device=lut.device)
                if splits > 1 else None)

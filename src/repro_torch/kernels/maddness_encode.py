@@ -121,11 +121,14 @@ def _plan_for(b: int, c: int, depth: int, itemsize: int,
 
 
 def encode_onehot(x_split: torch.Tensor, thresholds: torch.Tensor, *,
-                  out_dtype=torch.float32) -> torch.Tensor:
-    """(B, C, I) float32, (C, 2**I - 1) float32 → one-hot (B, C, 2**I)."""
+                  out_dtype=torch.float32,
+                  launch_plan: Optional[Plan] = None) -> torch.Tensor:
+    """(B, C, I) float32, (C, 2**I - 1) float32 → one-hot (B, C, 2**I);
+    ``launch_plan`` as :func:`launch` takes it (the plain version ignores
+    it)."""
     if _build.on_cpu(x_split, thresholds):
         return encode_onehot_plain(x_split, thresholds, out_dtype)
-    return launch(x_split, thresholds, out_dtype)
+    return launch(x_split, thresholds, out_dtype, launch_plan)
 
 
 def launch(x_split: torch.Tensor, thresholds: torch.Tensor,

@@ -5,7 +5,8 @@ device and drives the paged continuous-batching engine over a synthetic
 request stream; with ``--amm`` the MLPs run through the LUT-MU path, and
 with ``--artifact`` the compiled tables of an ``amm_lm`` artifact or of a
 target+draft bundle are spliced into the dense params (both packages'
-artifacts load; ``--speculative`` serves a bundle's two halves).
+artifacts load; ``--speculative`` serves a bundle's two halves, and
+without ``--artifact`` compiles one from the dense params in process).
 
 Examples:
   # on the card, full width
@@ -14,6 +15,11 @@ Examples:
   # on the CPU, reduced widths (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --reduced --amm --device cpu
+
+  # speculative serving of a bundle compiled in process (int8 target,
+  # int4 draft, calibrated on 8 x 32 TokenStream tokens)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+      --reduced --speculative --device cpu
 
   # a bundle the JAX compiler wrote, served speculatively on the CPU,
   # sampled (the same seed gives the same streams)
@@ -165,10 +171,10 @@ def main(argv=None) -> None:
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft tokens proposed per verify step (default: "
                          "the bundle manifest's recorded value, else 4)")
-    ap.add_argument("--draft-resolution", default=None,
+    ap.add_argument("--draft-resolution", default="int4",
                     choices=("float32", "int8", "int4"),
-                    help="draft LUT width of an in-process bundle compile "
-                         "(ROADMAP A12)")
+                    help="draft LUT width for the in-process bundle compile "
+                         "(--speculative without a bundle --artifact)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature; 0 (default) = greedy argmax; "
                          "above 0 each request samples from its own seeded "
@@ -234,9 +240,6 @@ def main(argv=None) -> None:
     if args.engine == "fixed" or args.slots is not None:
         raise SystemExit("--engine fixed / --slots: the fixed-slot engine is "
                          "not ported yet (ROADMAP A10)")
-    if args.draft_resolution is not None:
-        raise SystemExit("--draft-resolution: the in-process bundle compile "
-                         "is not ported yet (ROADMAP A12)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -282,13 +285,26 @@ def main(argv=None) -> None:
             raise SystemExit(
                 f"--speculative needs a target+draft bundle artifact, got "
                 f"kind {art_kind!r} — compile one with `python -m "
-                "repro.compiler bundle`")
+                "repro_torch.compiler bundle`")
         else:
-            raise SystemExit(
-                "--speculative without a bundle --artifact compiles a bundle "
-                "in-process, and the compiler is not ported yet (ROADMAP "
-                "A12) — pass --artifact with a bundle from `python -m "
-                "repro.compiler bundle`")
+            if args.amm:
+                raise SystemExit("--speculative without an artifact "
+                                 "calibrates from the dense MLPs — drop "
+                                 "--amm (the compiled bundle IS the LUT-MU "
+                                 "path)")
+            from repro_torch.compiler import compile_lm_bundle
+            kwargs.setdefault("spec_k", 4)
+            calib = TokenStream(vocab_size=cfg.vocab_size, batch_size=8,
+                                seq_len=32)
+            log("serve", f"compiling in-process bundle (target=int8, "
+                f"draft={args.draft_resolution}) on {device}…")
+            res = compile_lm_bundle(
+                params, cfg, calib.batch(0)["tokens"],
+                target_resolution="int8",
+                draft_resolution=args.draft_resolution,
+                spec_k=kwargs["spec_k"])
+            engine = load_engine((res.target, res.draft), params, cfg,
+                                 **kwargs)
     else:
         # a bundle without --speculative serves its full-resolution target
         # half, the stream-defining model

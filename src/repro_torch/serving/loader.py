@@ -95,10 +95,8 @@ def load_engine(source, params: dict, cfg: ModelConfig, *,
             if speculative:
                 raise ValueError(
                     "speculative=True needs a target+draft bundle source, "
-                    f"got an {kind!r} artifact — the bundle compiler is not "
-                    "ported yet (ROADMAP A12): write one with "
-                    "repro_torch.compiler.save_bundle, or compile it with "
-                    "`python -m repro.compiler bundle`")
+                    f"got an {kind!r} artifact — compile one with "
+                    "`python -m repro_torch.compiler bundle`")
             return ServeEngine._from_artifact(source, params, cfg, **opts)
         raise ValueError(
             f"cannot serve artifact kind {kind!r} from {source!r}")

@@ -668,3 +668,133 @@ def test_cuda_verify_window_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         FV.verify_window_attend_cuda(qt, kt, vt, ptt.cpu(), post, None)
     assert FV.resolve_impl("auto", cuda_device) == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# autotuned launch plans (kernels/autotune.py) and the fit on the card
+# ---------------------------------------------------------------------------
+
+# (B, C, N): qwen3-14b's gate/up at decode, down at a prefill chunk, a
+# ragged one and the SFC chain's layer 0
+AUTOTUNE_CASES = [(4, 640, 8704), (32, 2176, 5120), (5, 7, 130), (256, 98, 128)]
+
+
+@pytest.fixture
+def empty_autotune_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)
+    return tmp_path / "tune.json"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", AUTOTUNE_CASES)
+@pytest.mark.parametrize("lut_dtype", ["int8", "int16", "float32"])
+def test_cuda_measured_plans_equal_the_heuristic(cuda_device, case, lut_dtype,
+                                                 empty_autotune_cache):
+    """Every measured cluster size gives the heuristic's output: bit-equal
+    on integer tables (exact int32 sums in any split), float32 within
+    rtol 1e-5 / atol 1e-4.  On the card the heuristic is the wrapper's own
+    plan, and a cache holding the measured plan reaches the kernel through
+    the dispatch."""
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels import dispatch as TD
+
+    b, c, n = case
+    depth = 4
+    dt = _TORCH[lut_dtype]
+    x, thr, lut, scale, offset = _inputs(b, c, n, depth, lut_dtype)
+    xt, tt, st, ot = _on(cuda_device, x, thr, scale, offset)
+    (lt,) = _on(cuda_device, lut, dtype=lut_dtype)
+    heur = AT.heuristic_tiles(b, c, n, depth, dt, device=cuda_device)
+    assert (AT.fused_plan(heur, b, c, depth, dt)
+            == FL._plan_for(b, c, n, depth, dt, 0))
+    want = FL.fused_lutmu(xt, tt, lt, st, ot)
+    best, timings = AT.measure_fused_tiles(b, c, n, depth, dt, iters=2,
+                                           device=cuda_device)
+    assert set(timings) == set(AT.candidate_tiles(b, c, n, depth, dt,
+                                                  cuda_device))
+    assert best in timings and heur in timings
+    for t in timings:
+        got = FL.fused_lutmu(xt, tt, lt, st, ot,
+                             launch_plan=AT.fused_plan(t, b, c, depth, dt))
+        torch.cuda.synchronize()
+        if lut_dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        else:
+            assert torch.equal(got, want), t
+    cache = AT.AutotuneCache(empty_autotune_cache)
+    cache.put(AT.shape_key("cuda", "fused", b, c, n, depth, dt), best)
+    params = TD.params_from_arrays(
+        torch.zeros((c, depth), dtype=torch.int32, device=cuda_device), tt, lt,
+        st, ot)
+    before = FL.LAUNCHES.n
+    got = TD.lutmu_matmul(xt, params, backend="fused", input_kind="split",
+                          cache=cache)
+    torch.cuda.synchronize()
+    assert FL.LAUNCHES.n == before + 1
+    if lut_dtype != "float32":
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_a_plan_failing_the_budget_raises(cuda_device):
+    import dataclasses
+
+    x, thr, lut, scale, offset = _inputs(4, 64, 256, 4, "int8")
+    xt, tt, st, ot = _on(cuda_device, x, thr, scale, offset)
+    (lt,) = _on(cuda_device, lut, dtype="int8")
+    p = FL.sized(4, 64, 4, 1, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        FL.fused_lutmu(xt, tt, lt, st, ot, launch_plan=dataclasses.replace(
+            p, smem=FL.MAX_SMEM + 16))
+    with pytest.raises(ValueError, match="splits"):
+        qt, kt, vt, ptt, post = _verify_inputs(cuda_device, VERIFY_CASES[0],
+                                               "float32")
+        FV.verify_window_attend_cuda(qt, kt, vt, ptt, post, None, splits=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [VERIFY_CASES[0], VERIFY_CASES[1]])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_measured_verify_splits_within_tol(cuda_device, case, kv_dtype,
+                                                empty_autotune_cache):
+    """Every measured split count (the full-width heads at S = 128 and
+    4096) against the plain version within ``VERIFY_TOL``; the heuristic
+    is the wrapper's own count."""
+    from repro_torch.kernels import autotune as AT
+
+    ps, mp, w, nkv, g, hd = case
+    s_len, b = ps * mp, 4
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}[kv_dtype]
+    qt, kt, vt, ptt, post = _verify_inputs(cuda_device, case, kv_dtype)
+    heur = AT.verify_heuristic_tiles(s_len, w, nkv, g, hd, dt, b=b,
+                                     page_size=ps, device=cuda_device)
+    assert heur == AT.get_verify_tiles(s_len, w, nkv, g, hd, dt, b=b,
+                                       page_size=ps, device=cuda_device)
+    best, timings = AT.measure_verify_tiles(s_len, w, nkv, g, hd, dt, b=b,
+                                            page_size=ps, iters=2,
+                                            device=cuda_device)
+    assert best in timings and heur in timings
+    want = FV.verify_window_attend_plain(qt, kt, vt, ptt, post, None)
+    for t in timings:
+        got = FV.verify_window_attend_cuda(qt, kt, vt, ptt, post, None,
+                                           splits=t.splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **VERIFY_TOL[kv_dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_fit_equals_the_cpu_fit(cuda_device):
+    """``chip_smoke.fit_card_vs_cpu``: the reduced-width fit on the card
+    against the same code on the CPU (trees equal but for named
+    near-ties, prototypes within tolerance, int8 codes within one step)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.fit_card_vs_cpu(torch)
+    assert set(out["excused"]) == {"up", "down"}

@@ -310,7 +310,7 @@ def test_launcher_observability_flags(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--slots", "2"], "A10"), (["--draft-resolution", "int4"], "A12"),
+    (["--slots", "2"], "A10"), (["--ckpt", "ckpt_dir"], "A13"),
     (["--mesh", "2x2"], "A11")])
 def test_launcher_unported_flags_name_their_item(flag, item):
     with pytest.raises(SystemExit, match=item):

@@ -30,14 +30,18 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 43, proc.stdout
-    # the artifact and observability slices' modules are among those
-    # imported
+    assert n_modules >= 48, proc.stdout
+    # the artifact, observability and compiler slices' modules are among
+    # those imported
     for name in ("repro_torch.compiler", "repro_torch.compiler.artifact",
                  "repro_torch.compiler.quantize", "repro_torch.core.lut_mu",
                  "repro_torch.serving.loader", "repro_torch.launch.serve",
                  "repro_torch.serving.obs", "repro_torch.serving.profiler",
-                 "repro_torch.serving.quality", "repro_torch.serving.http"):
+                 "repro_torch.serving.quality", "repro_torch.serving.http",
+                 "repro_torch.compiler.calibrate",
+                 "repro_torch.compiler.planner",
+                 "repro_torch.compiler.__main__", "repro_torch.kernels.ops",
+                 "repro_torch.kernels.autotune"):
         assert name in proc.stdout.split(), name
 
 

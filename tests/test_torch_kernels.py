@@ -274,9 +274,10 @@ def test_unfused_asks_for_an_int8_onehot_only_for_int8_tables(monkeypatch,
     asked = []
     real = TD.encode_onehot_cuda
 
-    def spy(xs, thresholds, *, out_dtype=torch.float32):
+    def spy(xs, thresholds, *, out_dtype=torch.float32, launch_plan=None):
         asked.append(out_dtype)
-        return real(xs, thresholds, out_dtype=out_dtype)
+        return real(xs, thresholds, out_dtype=out_dtype,
+                    launch_plan=launch_plan)
 
     monkeypatch.setattr(TD, "encode_onehot_cuda", spy)
     x, thr, lut, scale, offset = _inputs(5, 7, 40, 3, lut_dtype)

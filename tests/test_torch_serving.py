@@ -294,7 +294,7 @@ def test_launcher_serves_artifact_and_bundle(launcher_arts, capsys):
     (["--mesh", "2x2"], "A11"),
     (["--ckpt", "ckpt_dir"], "A13"),
     (["--engine", "fixed"], "A10"),
-    (["--speculative"], "A12"),
+    (["--speculative", "--amm"], "drop --amm"),
     (["--speculative", "--artifact", "ART"], "needs a target\\+draft bundle"),
     (["--artifact", "MISSING"], "cannot read artifact"),
 ])
