@@ -12,7 +12,10 @@ Phases, each fatal on failure:
    path's shapes (gate/up C=640 N=8704, down C=2176 N=5120; B=4 decode and
    B=32 prefill chunk; int8, plus one float32 and one bfloat16 LUT case;
    int16 at gate/up B=4 and at the SFC chain's layer 0, C=98 N=128
-   B=256): int8 and int16 bit for bit, float within the stated tolerance;
+   B=256; the ResNet-9 shapes of phase 23: a Kn2col conv1 tap C=8 N=128
+   B=262,144 float32 and int8, a res2a tap C=64 N=512 B=4096 and the
+   Im2col res1a C=128 N=128 B=65,536, float32): int8 and int16 bit for
+   bit, float within the stated tolerance;
    kernel, plain, bound and library (one ``torch.matmul`` of the float32
    one-hot × LUT) times; the encode with float32 and (int8 cases) int8
    output, each also with its profiler device time per call, beside the
@@ -148,11 +151,34 @@ Phases, each fatal on failure:
     (int8) or within ``VERIFY_TOL`` (bf16); the measured plan's ms beside
     the heuristic's.  Every phase before 20 reads an empty cache of its
     own (``REPRO_AUTOTUNE_CACHE``), so every launch on the serve path is
-    the one its wrapper plans.
+    the one its wrapper plans;
+22. case-mlp — the paper's SFC MLP (784 → 256 → 256 → 256 → 10) trained
+    on synthetic MNIST on the card, ``mlp_to_amm`` at int8 and float32,
+    the float32 chain retrained by ``retrain_chain`` (one encode launch per
+    stage, one aggregate launch per step); exact, chain and retrained
+    accuracies; layer by layer against ``backend="ref"``: int8 bit-equal,
+    retrained within ``FLOAT_RTOL``/``FLOAT_ATOL``; the int8 forward's
+    ``fused_lutmu`` launches (one per layer) and ms;
+23. case-resnet9 — ResNet-9 at (64, 128, 256, 512) on synthetic CIFAR, 150
+    SGD steps; Kn2col LUT-MUs for conv1 … res2b (63 taps) and Im2col for
+    res1a/res1b; one forward of 256 images through the kernels: 63
+    ``fused_lutmu`` launches (conv1's taps are 262,144 rows each), no
+    ``ref`` call on CUDA; each substituted conv on the same input within
+    the float tolerance of ``backend="ref"``; accuracies, LUT bytes Kn2col
+    vs Im2col, ms per forward; conv1's tap 0 at int8 through ``unfused``
+    at B = 262,144, bit-equal to ``ref``;
+24. train — qwen3-14b at full width, depth cut to 2 layers, bf16 compute,
+    ``grad_accum`` 2, 4 × 128 ``TokenStream`` tokens, 3 steps of
+    ``make_train_step``: ms per step, tokens/s, peak memory, losses; then
+    ``Trainer.run`` at reduced width under deterministic algorithms,
+    checkpoints every 5 steps, one injected failure: one recovery, losses
+    bitwise equal to an uninjected run's, the last checkpoint restored by
+    ``restore_into`` equal to the live state.
 
 The line before the last is ``{"kernels": [...]}`` (the ``fused_lutmu``
 and ``verify_window`` entries also carry the heuristic and measured plans
-and their ms at their reported case), the last
+and their ms at their reported case; the LUT-MU entries their ResNet-9
+cases and launches in phases 22-23), the last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
@@ -184,11 +210,18 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-3      # float32 sums of ≤ 2176 terms, in
 DEPTH = 4
 # (C, N): qwen3-14b's projections, and layer 0 of the SFC chain
 # (784 → 256 pruned to the next layer's 4 · 32 split dims)
-SHAPES = {"gate_up": (640, 8704), "down": (2176, 5120), "chain": (98, 128)}
+SHAPES = {"gate_up": (640, 8704), "down": (2176, 5120), "chain": (98, 128),
+          # ResNet-9 at widths (64, 128, 256, 512), 256 images: a Kn2col tap
+          # of conv1 (d_sub 8) and of res2a, and the Im2col res1a (C = cin)
+          "kn2col_conv1": (8, 128), "kn2col_res2a": (64, 512),
+          "im2col_res1a": (128, 128)}
 CASES = [("gate_up", 4, "int8"), ("down", 4, "int8"),
          ("gate_up", 32, "int8"), ("down", 32, "int8"),
          ("gate_up", 4, "float32"), ("down", 32, "bfloat16"),
-         ("gate_up", 4, "int16"), ("chain", 256, "int16")]
+         ("gate_up", 4, "int16"), ("chain", 256, "int16"),
+         ("kn2col_conv1", 262_144, "float32"), ("kn2col_conv1", 262_144, "int8"),
+         ("kn2col_res2a", 4096, "float32"), ("im2col_res1a", 65_536, "float32")]
+CNN_PROJ = ("kn2col_conv1", "kn2col_res2a", "im2col_res1a")
 JSON_CASE = ("down", 4, "int8")          # the case each kernel's JSON entry reports
 INT16_JSON_CASE = ("chain", 256, "int16")  # ... and each int16 instance's
 # the SFC MLP of the paper's case study (src/repro/models/cnn.py): widths,
@@ -2309,7 +2342,334 @@ def quality_phase(torch, ucfg, uparams, load_engine, counters, ME, LA):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: the paper's case studies and the training runtime
+# ---------------------------------------------------------------------------
+
+
+def _events_ms(torch, fn, iters: int = 3) -> float:
+    """Mean CUDA-event ms of ``fn`` over ``iters`` calls after one warm
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def case_mlp_phase(torch, mods, counters):
+    """22. The SFC MLP of the paper's Table I on synthetic MNIST, on the
+    card: trained, compiled at int8 and float32 (``mlp_to_amm``), the
+    float32 chain retrained (``retrain_chain``: the encode kernel once and
+    the aggregate kernel every step of each stage); accuracies; the int8
+    chain layer by layer bit-equal to ``backend="ref"``, the retrained
+    chain within ``FLOAT_RTOL``/``FLOAT_ATOL``; the int8 chain's forward
+    through ``fused_lutmu`` (one launch per layer, counts set to 0 just
+    before)."""
+    from repro_torch.core import lut_mu as LM
+    from repro_torch.data import synthetic_mnist
+    from repro_torch.models import cnn
+    FL, ME, LA, dispatch = mods
+    t0 = time.perf_counter()
+    x, y = synthetic_mnist(4096, seed=0)
+    xt, yt, x, y = x[3072:], y[3072:], x[:3072], y[:3072]
+    cfg = cnn.MLPConfig(sizes=CHAIN_WIDTHS)
+    n = len(cfg.sizes) - 1
+    params = cnn.mlp_train(cfg, x, y, steps=300, lr=0.1, device="cuda")
+    books = [s // CHAIN_D_SUB for s in cfg.sizes[:-1]]
+    depths = [CHAIN_DEPTH] * n
+    t_train = time.perf_counter() - t0
+    chains = {q: cnn.mlp_to_amm(params, cfg, x[:CHAIN_CALIB], books, depths,
+                                quantize_int8=q) for q in (True, False)}
+    t_fit = time.perf_counter() - t0 - t_train
+    ws = [params[f"w{i}"] for i in range(n)]
+    bs = [params[f"b{i}"] for i in range(n)]
+    reset_counts(counters)
+    retrained = LM.retrain_chain(chains[False], ws, bs, x[:CHAIN_CALIB],
+                                 steps=150)
+    torch.cuda.synchronize()
+    ensure(ME.LAUNCHES.n == n and LA.LAUNCHES.n == n * 150 + n - 1
+           and dispatch.REF_ON_CUDA.n == 0,
+           f"retrain_chain launches: encode {ME.LAUNCHES.n}, aggregate "
+           f"{LA.LAUNCHES.n} for {n} stages x 150 steps")
+    retrain_launches = (ME.LAUNCHES.n, LA.LAUNCHES.n)
+    t_retrain = time.perf_counter() - t0 - t_train - t_fit
+    acc = {"exact": cnn.mlp_accuracy(lambda b: cnn.mlp_forward(params, b, n),
+                                 xt, yt),
+           "int8": cnn.mlp_accuracy(lambda b: chains[True](b), xt, yt),
+           "float32": cnn.mlp_accuracy(lambda b: chains[False](b), xt, yt),
+           "retrained": cnn.mlp_accuracy(lambda b: retrained(b), xt, yt)}
+    ensure(acc["exact"] > 0.9, f"exact SFC MLP accuracy {acc['exact']}")
+    xb = torch.from_numpy(xt[:CHAIN_BATCH]).cuda()
+    errs = {}
+    for label, chain, exact in (("int8", chains[True], True),
+                                ("retrained", retrained, False)):
+        h = xb
+        worst = 0.0
+        for i, layer in enumerate(chain.layers):
+            apply = layer.apply_package if i > 0 else layer.__call__
+            got, want = apply(h), apply(h, backend="ref")
+            torch.cuda.synchronize()
+            worst = max(worst, (got - want).abs().max().item())
+            if exact:
+                ensure(torch.equal(got, want),
+                       f"{label} layer {i}: kernel != ref (max err {worst})")
+            else:
+                torch.testing.assert_close(got, want, rtol=FLOAT_RTOL,
+                                           atol=FLOAT_ATOL,
+                                           msg=f"{label} layer {i}")
+            h = torch.relu(want) if i < n - 1 else want
+        errs[label] = worst
+    reset_counts(counters)
+    out = chains[True](xb)
+    torch.cuda.synchronize()
+    launches = FL.LAUNCHES.n
+    ensure(launches == n and dispatch.REF_ON_CUDA.n == 0
+           and tuple(out.shape) == (CHAIN_BATCH, 10)
+           and bool(torch.isfinite(out).all()),
+           f"SFC int8 forward: fused_lutmu {launches}, ref "
+           f"{dispatch.REF_ON_CUDA.n}")
+    ms = _events_ms(torch, lambda: chains[True](xb), 10)
+    print(f"[case-mlp] SFC {'-'.join(map(str, CHAIN_WIDTHS))} on synthetic "
+          f"MNIST: train {t_train:.2f}s (300 SGD steps), mlp_to_amm int8 + "
+          f"float32 {t_fit:.2f}s, retrain_chain 150 steps/stage "
+          f"{t_retrain:.2f}s (encode {retrain_launches[0]}, aggregate "
+          f"{retrain_launches[1]} launches); accuracy exact "
+          f"{acc['exact']:.4f} int8 {acc['int8']:.4f} float32 "
+          f"{acc['float32']:.4f} retrained {acc['retrained']:.4f}; layer by "
+          f"layer vs ref: int8 bit-equal, retrained max err "
+          f"{errs['retrained']:.3g}; int8 forward B={CHAIN_BATCH}: "
+          f"fused_lutmu {launches} launches, {ms:.4f} ms; LUT bytes int8 "
+          f"{chains[True].lut_bytes()} retrained {retrained.lut_bytes()}; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"fused_lutmu": launches, "encode_onehot": retrain_launches[0],
+            "lut_aggregate": retrain_launches[1]}
+
+
+RESNET_IMAGES = 256            # images of the phase's forward
+RESNET_CALIB = 32              # calibration images of the fit
+RESNET_STEPS = 150             # SGD steps, batch 64
+
+
+def case_resnet9_phase(torch, mods, counters):
+    """23. ResNet-9 at its published widths on synthetic CIFAR, on the
+    card: a few SGD steps; Kn2col LUT-MUs for conv1 … res2b (7 layers × 9
+    taps) and Im2col for res1a/res1b; one forward of ``RESNET_IMAGES``
+    images through the kernels (conv1's taps are 262,144 rows: past the
+    old grid.y limit of ``lut_aggregate``) with 63 ``fused_lutmu``
+    launches and no ``ref`` call (counts set to 0 just before); each
+    substituted conv on the same input within ``FLOAT_RTOL``/
+    ``FLOAT_ATOL`` of ``backend="ref"``; conv1's tap 0 quantised to int8
+    on ``unfused`` at B = 262,144 bit-equal to ``ref``."""
+    from repro_torch.core import conv as CV
+    from repro_torch.core import maddness as M
+    from repro_torch.data import synthetic_cifar
+    from repro_torch.kernels.dispatch import lutmu_matmul
+    from repro_torch.models import cnn
+    FL, ME, LA, dispatch = mods
+    t0 = time.perf_counter()
+    x, y = synthetic_cifar(768 + RESNET_IMAGES, seed=0)
+    xt, yt, x, y = x[768:], y[768:], x[:768], y[:768]
+    cfg = cnn.ResNet9Config()
+    params = cnn.resnet9_train(cfg, x, y, steps=RESNET_STEPS, batch=64,
+                               device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    fns, fitted = cnn.resnet9_amm_conv_fns(params, x[:RESNET_CALIB])
+    torch.cuda.synchronize()
+    t_kn = time.perf_counter() - t0 - t_train
+    im_layers = ["res1a", "res1b"]
+    ifns, ifitted = cnn.resnet9_amm_conv_fns(params, x[:RESNET_CALIB],
+                                             mode="im2col", layers=im_layers)
+    torch.cuda.synchronize()
+    t_im = time.perf_counter() - t0 - t_train - t_kn
+    n_taps = sum(len(v) for v in fitted.values())
+    ensure(n_taps == 63, f"{n_taps} Kn2col taps fitted, not 63")
+    xd = torch.from_numpy(xt).cuda()
+    reset_counts(counters)
+    logits = cnn.resnet9_forward(params, xd, fns)
+    torch.cuda.synchronize()
+    launches = FL.LAUNCHES.n
+    ensure(launches == 63 and dispatch.REF_ON_CUDA.n == 0
+           and ME.LAUNCHES.n == 0 and LA.LAUNCHES.n == 0,
+           f"Kn2col forward: fused_lutmu {launches}, ref "
+           f"{dispatch.REF_ON_CUDA.n}, encode {ME.LAUNCHES.n}, aggregate "
+           f"{LA.LAUNCHES.n}")
+    ensure(tuple(logits.shape) == (RESNET_IMAGES, 10)
+           and bool(torch.isfinite(logits).all()), "Kn2col logits")
+    ms = _events_ms(torch, lambda: cnn.resnet9_forward(params, xd, fns))
+    exact_ms = _events_ms(torch, lambda: cnn.resnet9_forward(params, xd))
+    im_ms = _events_ms(torch, lambda: cnn.resnet9_forward(params, xd, ifns))
+    acc = {"exact": cnn.mlp_accuracy(lambda b: cnn.resnet9_forward(params, b),
+                                 xt, yt),
+           "kn2col": float((logits.argmax(-1).cpu().numpy() == yt).mean()),
+           "im2col": cnn.mlp_accuracy(
+               lambda b: cnn.resnet9_forward(params, b, ifns), xt, yt)}
+    # each substituted conv against the same taps on backend="ref", on the
+    # exact network's input of that layer
+    cap = cnn.capture_conv_inputs(params, xd)
+    worst = {}
+    for name, taps in list(fitted.items()) + [("im2col " + k, v) for k, v in
+                                              ifitted.items()]:
+        layer = name.split()[-1]
+        h = cap[layer]
+        if name.startswith("im2col"):
+            got = ifns[layer](h, params[layer])
+            want = CV.conv_im2col(h, params[layer], matmul=lambda a, _w, l=taps[0]:
+                                  l(a, backend="ref"))
+        else:
+            got = fns[layer](h, params[layer])
+            want = CV.conv_kn2col(h, params[layer], tap_matmuls=[
+                lambda a, l=l: l(a, backend="ref") for l in taps])
+        torch.cuda.synchronize()
+        worst[name] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=FLOAT_RTOL,
+                                   atol=FLOAT_ATOL, msg=name)
+    # conv1's tap 0 at int8 on unfused: 262,144 rows
+    tap = fitted["conv1"][0].params
+    q, scale, offset = M.quantize_lut_bits(tap.lut, 8, tap.lut_offset)
+    qp = M.MaddnessParams(tap.tree, None, q.contiguous(), scale, offset)
+    rows = CV.im2col_patches(cap["conv1"], 3)[..., :cap["conv1"].shape[-1]]
+    rows = rows.reshape(-1, cap["conv1"].shape[-1]).contiguous()
+    reset_counts(counters)
+    got = lutmu_matmul(rows, qp, backend="unfused")
+    torch.cuda.synchronize()
+    agg = (ME.LAUNCHES.n, LA.LAUNCHES.n)
+    want = lutmu_matmul(rows, qp, backend="ref")
+    ensure(rows.shape[0] == 262_144 and agg == (1, 1)
+           and torch.equal(got, want),
+           f"lut_aggregate at B={rows.shape[0]}: launches {agg}, max err "
+           f"{(got - want).abs().max().item()}")
+    kn_bytes = sum(l.lut_bytes() for k in im_layers for l in fitted[k])
+    im_bytes = sum(l.lut_bytes() for v in ifitted.values() for l in v)
+    print(f"[case-resnet9] widths {cfg.channels}, synthetic CIFAR: train "
+          f"{t_train:.2f}s ({RESNET_STEPS} SGD steps, batch 64); fit Kn2col 63 taps "
+          f"{t_kn:.2f}s, Im2col res1a/res1b {t_im:.2f}s; accuracy exact "
+          f"{acc['exact']:.4f} kn2col {acc['kn2col']:.4f} im2col "
+          f"{acc['im2col']:.4f} ({RESNET_IMAGES} held-out images); forward "
+          f"of {RESNET_IMAGES} images: kn2col {ms:.3f} ms (fused_lutmu "
+          f"{launches} launches, ref on CUDA 0), im2col {im_ms:.3f} ms, exact "
+          f"{exact_ms:.3f} ms; res1a+res1b LUT bytes kn2col {kn_bytes} im2col "
+          f"{im_bytes}; each conv vs ref max err "
+          f"{max(worst.values()):.3g}; lut_aggregate int8 B=262144 on "
+          f"unfused bit-equal to ref; {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return {"fused_lutmu": launches, "lut_aggregate": agg[1],
+            "encode_onehot": agg[0]}
+
+
+TRAIN_LAYERS = 2               # full-width training depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
+
+
+def train_phase(torch):
+    """24. qwen3-14b at full width, depth cut to ``TRAIN_LAYERS``, bf16
+    compute, ``grad_accum`` 2: ``TRAIN_STEPS`` steps of ``make_train_step``
+    on ``TokenStream`` batches (ms per step, tokens/s, peak memory, loss);
+    then ``Trainer.run`` at reduced width under deterministic algorithms,
+    checkpoints every 5 steps, with and without one injected failure:
+    ``recoveries == 1``, the losses bitwise equal, and the last checkpoint
+    restored through ``restore_into`` equals the live state."""
+    from repro_torch import pytree as T
+    from repro_torch.checkpoint import restore_into
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-14b"), num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in T.leaves(state.params))
+    step_fn = make_train_step(cfg, cosine_schedule(1e-4, 10, 100),
+                              compute_dtype=torch.bfloat16)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch_size=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ)
+    times, losses = [], []
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in stream.batch(step).items()}
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - s)
+    ensure(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] qwen3-14b full width, {TRAIN_LAYERS} layers "
+          f"({n_params / 1e9:.3f} B params), bf16 compute, grad_accum "
+          f"{cfg.grad_accum}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+          f"{step_ms:.1f} ms/step after the first ({1e3 * times[0]:.1f} ms), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB, losses {[round(v, 4) for v in losses]}",
+          flush=True)
+    del state, step_fn, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rcfg = get_config("qwen3-14b", reduced=True)
+    rstream = TokenStream(vocab_size=rcfg.vocab_size, batch_size=4, seq_len=32)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def run(name, hook=None):
+                tr = Trainer(rcfg, TrainerConfig(
+                    str(Path(tmp) / name), ckpt_every=5, lr=3e-3,
+                    warmup_steps=2, compute_dtype=torch.float32),
+                    rstream.batch, failure_hook=hook, device="cuda")
+                return tr, tr.run(12)
+
+            crashed = {"done": False}
+
+            def hook(step):
+                if step == 7 and not crashed["done"]:
+                    crashed["done"] = True
+                    raise RuntimeError("injected node failure")
+
+            t1, o1 = run("clean")
+            t2, o2 = run("failed", hook)
+            ensure(o2["recoveries"] == 1 and o1["recoveries"] == 0
+                   and o2["final_step"] == 12,
+                   f"recoveries {o2['recoveries']}, final {o2['final_step']}")
+            replayed = [m["loss"] for m in t2.metrics_log if "loss" in m]
+            ensure(len(replayed) == 12 + 2, f"{len(replayed)} losses logged")
+            ensure(replayed[7:9] == replayed[5:7],
+                   "replayed steps 5-6 differ from their first pass")
+            final = replayed[:7] + replayed[9:]
+            ensure(final == o1["losses"],
+                   f"losses after recovery {final} != {o1['losses']}")
+            ensure(o1["losses"][-1] < o1["losses"][0], "loss did not fall")
+            back = restore_into(t2.state, Path(tmp) / "failed" /
+                                "step_00000012")
+            ensure(all(torch.equal(a, b) for a, b in zip(
+                T.leaves(back), T.leaves(t2.state))),
+                   "restored checkpoint != live state")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[train] Trainer.run at reduced width, 12 steps, checkpoint every "
+          f"5: one injected failure at step 7, recoveries "
+          f"{o2['recoveries']}, replayed from step 5; losses bitwise equal "
+          f"to the uninjected run's "
+          f"{o1['losses'][0]:.4f} -> {o1['losses'][-1]:.4f}; restore_into of "
+          f"step 12 equals the live state; {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gb": peak / 1e9}
+
+
 def main() -> int:
+    # cuBLAS reads this when it makes its first handle; the trainer's phase
+    # (24) runs under deterministic algorithms, which raise without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2592,6 +2952,18 @@ def main() -> int:
           f"{comp['verify_launches']}, compiled chain fused_lutmu "
           f"{chain_comp['fused_lutmu']}", flush=True)
 
+    # 22. + 23. the paper's case studies through the kernels; 24. training
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_case = time.perf_counter()
+    case_mlp = case_mlp_phase(torch, (FL, ME, LA, dispatch), counters)
+    case_res = case_resnet9_phase(torch, (FL, ME, LA, dispatch), counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(torch)
+    print(f"[case] phases 22-24 in {time.perf_counter() - t_case:.1f}s",
+          flush=True)
+
     lutmu_shape = "down C=2176 N=5120, B=4, int8"
     int16_shape = "chain C=98 N=128, B=256, int16"
 
@@ -2630,10 +3002,26 @@ def main() -> int:
     # the measured plan beside the heuristic's at the reported case
     measured = {"fused_lutmu": tuned[("fused_lutmu", "down", 4)],
                 "verify_window": tuned[("verify_window", 128)]}
+    # the case studies' shapes, and their launches per forward
+    case_launches = {
+        "fused_lutmu": {"sfc_int8_forward": case_mlp["fused_lutmu"],
+                        "resnet9_kn2col_forward": case_res["fused_lutmu"]},
+        "encode_onehot": {"sfc_retrain_chain": case_mlp["encode_onehot"],
+                          "conv1_tap_unfused": case_res["encode_onehot"]},
+        "lut_aggregate": {"sfc_retrain_chain": case_mlp["lut_aggregate"],
+                          "conv1_tap_unfused": case_res["lut_aggregate"]}}
     entries = []
     for name, (src, replaces, path, shape, res, case) in sources.items():
         r = res[case]
         m = measured.get(name)
+        cnn = {}
+        if name in case_launches:
+            cnn = {"cnn_cases": {
+                f"{k[0]} B={k[1]} {k[2]}": {
+                    f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "max_abs_err")}
+                for k, v in kres[name].items() if k[0] in CNN_PROJ},
+                "case_launches": case_launches[name]}
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name], "path": path,
@@ -2645,7 +3033,7 @@ def main() -> int:
             **({} if m is None else {
                 "heuristic_plan": m["heuristic"], "measured_plan": m["measured"],
                 "heuristic_plan_ms": m["heuristic_ms"],
-                "measured_plan_ms": m["measured_ms"]})})
+                "measured_plan_ms": m["measured_ms"]}), **cnn})
     ensure(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries),
            "a kernel has no time or no launches")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

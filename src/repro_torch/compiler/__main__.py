@@ -10,13 +10,18 @@ Usage:
   PYTHONPATH=src python -m repro_torch.compiler bundle --arch qwen3-14b \\
       --reduced --device cpu --out artifacts/qwen_bundle
 
+  # train the demo MLP on synthetic MNIST and compile it (an amm_chain
+  # artifact), reloading it to check the round trip
+  PYTHONPATH=src python -m repro_torch.compiler mlp --device cpu \
+      --resolution int8 --out artifacts/mlp_int8 --verify
+
   # inspect / verify an artifact or bundle (either package's)
   PYTHONPATH=src python -m repro_torch.compiler inspect artifacts/qwen_amm
   PYTHONPATH=src python -m repro_torch.compiler verify artifacts/qwen_amm
 
-The demo MLP (``mlp``) needs the training code and ``--ckpt`` the
-checkpoint manager (ROADMAP A13); ``--mesh`` needs multi-device serving
-(ROADMAP A11).
+``lm`` and ``bundle`` take ``--ckpt DIR``: the params restored from a
+checkpoint of the dense model's params (either package's format).
+``--mesh`` needs multi-device serving (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -47,23 +52,63 @@ def _print_stages(clock, n_layers: int) -> None:
 
 
 def cmd_mlp(args) -> int:
-    print("mlp: the demo MLP trains with the training code and compiles "
-          "synthetic MNIST (models/cnn, data.synthetic_mnist), which are not "
-          "ported yet (ROADMAP A13)", file=sys.stderr)
-    return 2
+    from repro_torch.compiler import compile_chain, load_artifact
+    from repro_torch.data import synthetic_mnist
+    from repro_torch.device import resolve_device
+    from repro_torch.models import cnn
+
+    if args.verify and not args.out:
+        print("--verify needs --out (nothing to reload otherwise)",
+              file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    x, y = synthetic_mnist(args.samples, seed=1)
+    cfg = cnn.MLPConfig(sizes=tuple(args.sizes))
+    n_layers = len(cfg.sizes) - 1
+    nc = args.num_codebooks or [max(1, s // 8) for s in cfg.sizes[:-1]]
+    if len(nc) != n_layers:
+        print(f"--num-codebooks needs {n_layers} values", file=sys.stderr)
+        return 2
+    print(f"[compiler] training exact MLP {cfg.sizes} "
+          f"({args.train_steps} steps) on {device}…")
+    params = cnn.mlp_train(cfg, x, y, steps=args.train_steps, lr=0.1,
+                           device=device)
+    weights = [params[f"w{i}"].cpu().numpy() for i in range(n_layers)]
+    biases = [params[f"b{i}"].cpu().numpy() for i in range(n_layers)]
+    print(f"[compiler] calibrating on {args.calib} samples, "
+          f"resolution={args.resolution}…")
+    result = compile_chain(
+        weights, biases, torch.from_numpy(x[:args.calib]).to(device),
+        num_codebooks=nc, depths=[args.depth] * n_layers,
+        activations=["relu"] * (n_layers - 1),
+        resolution=args.resolution, prune=not args.no_prune,
+        autotune=args.autotune, name="mlp-demo", out=args.out)
+    _print_report(result.report)
+    acc = cnn.mlp_accuracy(lambda xb: result.chain(xb), x[:512], y[:512],
+                       device=device)
+    exact = cnn.mlp_accuracy(lambda xb: cnn.mlp_forward(params, xb, n_layers),
+                         x[:512], y[:512], device=device)
+    print(f"[compiler] accuracy: exact={exact:.3f} compiled={acc:.3f}")
+    if args.out:
+        print(f"[compiler] wrote artifact → {result.path}")
+        if args.verify:
+            chain = load_artifact(result.path).to_chain(device=device)
+            xb = torch.from_numpy(x[:64]).to(device)
+            ok = torch.equal(result.chain(xb), chain(xb))
+            print(f"[compiler] round-trip bit-identical: {ok}")
+            return 0 if ok else 1
+    return 0
 
 
 def _lm_setup(args):
     """Shared ``lm`` / ``bundle`` preamble → (cfg, params, tokens,
     device) or an error string."""
+    from repro_torch.checkpoint import restore_into
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
     from repro_torch.device import resolve_device
     from repro_torch.models import model as MD
 
-    if args.ckpt:
-        return None, ("--ckpt: checkpoint restore is not ported yet "
-                      "(ROADMAP A13)")
     if args.mesh:
         return None, ("--mesh: multi-device serving is not ported yet "
                       "(ROADMAP A11)")
@@ -73,6 +118,8 @@ def _lm_setup(args):
         cfg, amm=dataclasses.replace(cfg.amm, enabled=True))
     params = MD.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                             torch.float32)
+    if args.ckpt:  # a checkpoint of the same tree, either package's
+        params = restore_into(params, args.ckpt, device=device)
     ts = TokenStream(vocab_size=cfg.vocab_size, batch_size=args.calib_batch,
                      seq_len=args.calib_seq)
     tokens = np.asarray(ts.batch(0)["tokens"])
@@ -189,13 +236,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.compiler")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    mlp = sub.add_parser("mlp", help="compile the demo MLP (ROADMAP A13)")
+    mlp = sub.add_parser("mlp", help="train and compile the demo MLP")
+    mlp.add_argument("--sizes", type=int, nargs="+",
+                     default=[784, 128, 128, 10])
+    mlp.add_argument("--samples", type=int, default=2048)
+    mlp.add_argument("--calib", type=int, default=1024)
+    mlp.add_argument("--train-steps", type=int, default=250)
+    mlp.add_argument("--num-codebooks", type=int, nargs="+", default=None)
+    mlp.add_argument("--depth", type=int, default=4)
+    mlp.add_argument("--resolution", default="float32",
+                     choices=("float32", "int16", "int8", "int4"))
+    mlp.add_argument("--no-prune", action="store_true")
+    mlp.add_argument("--autotune", action="store_true")
+    mlp.add_argument("--out")
+    mlp.add_argument("--verify", action="store_true",
+                     help="reload the artifact and check bit-identity")
+    _device_arg(mlp)
     mlp.set_defaults(fn=cmd_mlp)
 
     lm = sub.add_parser("lm", help="compile an LM's MLP blocks (amm_lm)")
     lm.add_argument("--arch", required=True)
     lm.add_argument("--reduced", action="store_true")
-    lm.add_argument("--ckpt", help="restore params (ROADMAP A13)")
+    lm.add_argument("--ckpt", help="restore params from a checkpoint dir")
     lm.add_argument("--calib-batch", type=int, default=8)
     lm.add_argument("--calib-seq", type=int, default=32)
     lm.add_argument("--resolution", default=None,
@@ -214,7 +276,7 @@ def main(argv=None) -> int:
         help="compile a target+draft artifact pair for speculative decoding")
     bd.add_argument("--arch", required=True)
     bd.add_argument("--reduced", action="store_true")
-    bd.add_argument("--ckpt", help="restore params (ROADMAP A13)")
+    bd.add_argument("--ckpt", help="restore params from a checkpoint dir")
     bd.add_argument("--calib-batch", type=int, default=8)
     bd.add_argument("--calib-seq", type=int, default=32)
     bd.add_argument("--target-resolution", default="int8",
@@ -240,10 +302,7 @@ def main(argv=None) -> int:
     _device_arg(ver)
     ver.set_defaults(fn=cmd_verify)
 
-    # ``mlp`` takes the JAX CLI's flags only to name what it is waiting for
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.cmd != "mlp":
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
     return args.fn(args)
 
 

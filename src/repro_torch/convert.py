@@ -1,9 +1,13 @@
-"""Carry JAX params and configs across to the port.
+"""Carry JAX params, train states and configs across to the port, and the
+port's trees back as numpy arrays.
 
-``params_from_jax`` turns the JAX params tree — a nested dict whose leaves
-are arrays (numpy, or anything ``np.asarray`` takes), layers stacked on
-axis 0, weights ``(D, H·hd)`` — into the port's params with the same
+``params_from_jax`` turns a JAX params tree — a nested dict whose leaves
+are arrays (numpy, or anything ``np.asarray`` takes): the LM's, with layers
+stacked on axis 0 and weights ``(D, H·hd)``, or the case studies' MLP and
+ResNet-9 dicts (convolutions HWIO) — into the port's params with the same
 layout, so both packages compute the same function on the same tables.
+``train_state_from_jax`` does the same for a ``TrainState`` and its
+``AdamWState``.
 Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -35,6 +39,22 @@ def params_from_jax(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
     return to_tensor(tree, dev)
+
+
+def train_state_from_jax(state, device="cuda"):
+    """A JAX ``TrainState`` (params, ``AdamWState`` opt, step) → the port's
+    ``TrainState`` on ``device``, every leaf's dtype kept."""
+    from repro_torch.optim import AdamWState  # no cycle at import
+    from repro_torch.runtime.steps import TrainState
+
+    dev = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        params=params_from_jax(state.params, dev),
+        opt=AdamWState(step=to_tensor(opt.step, dev),
+                       mu=params_from_jax(opt.mu, dev),
+                       nu=params_from_jax(opt.nu, dev)),
+        step=to_tensor(state.step, dev))
 
 
 def config_from_jax(cfg) -> ModelConfig:

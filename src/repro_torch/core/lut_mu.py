@@ -13,9 +13,10 @@ The serving half of ``repro.core.lut_mu``:
     functions (on the device of their calibration input).
 
 Every forward goes through ``kernels.dispatch.lutmu_matmul``; the
-``backend`` keyword threads straight to it (default ``"auto"``).  The
-layer-wise LUT retraining (``retrain_chain``) comes with the training code
-(ROADMAP A13).
+``backend`` keyword threads straight to it (default ``"auto"``).
+:func:`retrain_chain` is the paper's layer-wise LUT retraining, through the
+straight-through path of ``core/ste.py`` (the encode and aggregate kernels
+on the card).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import maddness as M
 from repro_torch.core import pruning as P
+from repro_torch.core import ste as STE
 from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import dispatch as D
 
@@ -229,6 +231,58 @@ def fit_amm_chain(calib_x, weights: Sequence, biases: Sequence,
         layers.append(AMMLinear(params=p, out_plan=plan,
                                 full_out_features=full_out))
     return AMMChain(layers=layers, activation_names=acts)
+
+
+def retrain_chain(chain: AMMChain, weights: Sequence, biases: Sequence,
+                  calib_x, steps: int = 150, lr: float = 0.3,
+                  device=None) -> AMMChain:
+    """Layer-wise LUT retraining (the paper's accuracy recovery, via [25]).
+
+    Stage by stage: propagate the *approximate* full-width activations of
+    the retrained prefix, fine-tune the stage's **unpruned** float LUT
+    (bias folded into codebook 0) so its output matches the exact matmul of
+    that approximate input, then re-apply parameter pruning — exact, since
+    the MSE is separable by column.  Each stage encodes its input to a
+    float32 one-hot once (the encode kernel on the card) and every step
+    aggregates it with the LUT (the aggregate kernel) and takes the LUT's
+    gradient as ``core/ste.py`` does.  Runs on ``device`` (default: the
+    chain's)."""
+    dev = device if device is not None else chain.layers[0].params.lut.device
+    x = M.as_tensor(calib_x, torch.float32, dev)
+    new_layers: List[AMMLinear] = []
+    for i, layer in enumerate(chain.layers):
+        p = layer.params
+        w = M.as_tensor(weights[i], torch.float32, dev)
+        b = (torch.zeros((w.shape[1],), dtype=torch.float32, device=dev)
+             if biases[i] is None else M.as_tensor(biases[i], torch.float32,
+                                                   dev))
+        with M.exact_fp32_matmul():
+            target = x @ w + b  # exact matmul on the approximate input
+        lut_f, _, _ = M.build_lut(p.prototypes.to(dev), w, None,
+                                  quantize_int8=False)
+        lut_f[0] += b
+        onehot = STE.encode_float_onehot(x, p.tree)
+        for _ in range(steps):
+            lut_ = lut_f.requires_grad_(True)
+            y = STE.OneHotAggregate.apply(onehot, lut_)
+            loss = torch.mean((y - target) ** 2)
+            (g,) = torch.autograd.grad(loss, lut_)
+            lut_f = (lut_ - lr * g).detach()
+        if i < len(chain.layers) - 1:  # approximate full-width activations
+            y_full = STE.OneHotAggregate.apply(onehot, lut_f)
+            x = AMMChain._ACTS[chain.activation_names[i]](y_full)
+        lut_new = lut_f
+        offset_new = torch.zeros((lut_f.shape[-1],), dtype=torch.float32,
+                                 device=dev)
+        if layer.out_plan is not None:
+            keep = layer.out_plan.keep_idx.to(dev)
+            lut_new, offset_new = lut_f[..., keep], offset_new[keep]
+        new_p = M.MaddnessParams(
+            p.tree, p.prototypes, lut_new.contiguous(),
+            torch.ones((), dtype=torch.float32, device=dev), offset_new)
+        new_layers.append(AMMLinear(params=new_p, out_plan=layer.out_plan,
+                                    full_out_features=layer.full_out_features))
+    return AMMChain(layers=new_layers, activation_names=chain.activation_names)
 
 
 def unpruned_chain(chain: AMMChain, weights: Sequence,

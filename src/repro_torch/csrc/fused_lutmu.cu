@@ -297,8 +297,12 @@ fused_lutmu_kernel(const float* __restrict__ x, const float* __restrict__ thr,
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int n0 = static_cast<int>(blockIdx.x / cs) * TN;
-  const int b0 = blockIdx.y * kGroupRows;
+  // clusters of cs blocks along grid.x, N-tiles minor and row groups major
+  // (grid.y's 65,535 would cap the rows at 2,097,120)
+  const int tiles = (N + TN - 1) / TN;
+  const int cluster_id = static_cast<int>(blockIdx.x) / cs;
+  const int n0 = cluster_id % tiles * TN;
+  const int b0 = cluster_id / tiles * kGroupRows;
   const int rows = min(kGroupRows, B - b0);
   const int c_begin = min(C, rank * pl.per);
   const int ncb = min(C, c_begin + pl.per) - c_begin;
@@ -612,9 +616,10 @@ int launch(const Args& a, cudaStream_t stream) {
                       reinterpret_cast<uintptr_t>(a.lut) % 16 == 0;
   const unsigned tiles = static_cast<unsigned>((a.N + TN - 1) / TN);
   const unsigned groups = static_cast<unsigned>((a.B + kGroupRows - 1) / kGroupRows);
+  // the wrapper keeps tiles · cs · groups below 2**31
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      cluster_config(a.cs, dim3(tiles * a.cs, groups, 1), bytes, stream, attr);
+      cluster_config(a.cs, dim3(tiles * a.cs * groups, 1, 1), bytes, stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, fused_lutmu_kernel<T>, static_cast<const float*>(a.x),
       static_cast<const float*>(a.thr), static_cast<const T*>(a.lut),

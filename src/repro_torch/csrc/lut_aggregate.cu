@@ -30,7 +30,9 @@
 // entries.  Decode batches leave few (row, N-tile) blocks, so K is split
 // over gridDim.z, and the splits' partial sums go through the fixed-order
 // reduce + epilogue pass (common.cuh); with one
-// split the kernel applies the epilogue itself.
+// split the kernel applies the epilogue itself.  Row blocks and N-tiles
+// share grid.x (row block major): grid.y's 65,535 would cap the rows at
+// 262,140, which a Kn2col tap of a CNN batch passes.
 
 #include "common.cuh"
 
@@ -65,11 +67,13 @@ lut_aggregate_kernel(const L* __restrict__ lhs, const T* __restrict__ lut,
   __shared__ int cnt[kRows];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b0 = blockIdx.y * kRows;
+  const int tiles = (N + kThreads * V - 1) / (kThreads * V);
+  const int tile = static_cast<int>(blockIdx.x) % tiles;
+  const int b0 = static_cast<int>(blockIdx.x) / tiles * kRows;
   const int rows = min(kRows, B - b0);
   const int k0 = blockIdx.z * k_per_split;
   const int k1 = min(K, k0 + k_per_split);
-  const int n0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  const int n0 = (tile * kThreads + static_cast<int>(threadIdx.x)) * V;
   const bool active = n0 < N;
   const int n_left = N - n0;
   const bool full = vec_ok && n_left >= V;
@@ -184,7 +188,10 @@ void launch(const void* lhs, const void* lut, const void* scale,
   const int cols = kThreads * V;
   const bool vec_ok = (N % V == 0) &&
                       (reinterpret_cast<uintptr_t>(lut) % 16 == 0);
-  dim3 grid((N + cols - 1) / cols, (B + kRows - 1) / kRows, splits);
+  // the wrapper keeps the grid's blocks below 2**31
+  const unsigned blocks = static_cast<unsigned>(((N + cols - 1) / cols) *
+                                                ((B + kRows - 1) / kRows));
+  dim3 grid(blocks, 1, splits);
   lut_aggregate_kernel<L, T><<<grid, kThreads, 0, stream>>>(
       static_cast<const L*>(lhs), static_cast<const T*>(lut),
       static_cast<const float*>(scale), scale_stride,

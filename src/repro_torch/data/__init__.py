@@ -1,2 +1,8 @@
 """Synthetic data (numpy only)."""
-from repro_torch.data.pipeline import TokenStream  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    BatchSpec,
+    TokenStream,
+    synthetic_cifar,
+    synthetic_mnist,
+    token_batch_specs,
+)

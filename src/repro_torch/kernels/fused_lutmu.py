@@ -224,6 +224,11 @@ def launch(x_split: torch.Tensor, thresholds: torch.Tensor, lut: torch.Tensor,
         check_plan(b, depth, lut.dtype, launch_plan)
     p = launch_plan or _plan_for(b, c, n, depth, lut.dtype,
                                  lut.device.index or 0)
+    # clusters × row groups × N-tiles share grid.x (csrc/fused_lutmu.cu)
+    blocks = (math.ceil(n * lut.element_size() / p.tile_bytes) * p.cluster *
+              math.ceil(b / GROUP_ROWS))
+    _build.require(b < 2**31 and blocks < 2**31,
+                   f"{b} rows exceed the kernel's int32 indices and grid")
     lib = _build.library("fused_lutmu")
     err = lib.fused_lutmu_launch(
         x_split.data_ptr(), thresholds.data_ptr(), lut.data_ptr(),

@@ -66,6 +66,11 @@ def lut_aggregate(onehot: torch.Tensor, lut: torch.Tensor,
     b, c, g = onehot.shape
     _build.require(lut.dim() == 3 and tuple(lut.shape[:2]) == (c, g),
                    f"lut shape {tuple(lut.shape)} != ({c}, {g}, N)")
+    # row blocks × N-tiles share grid.x (csrc/lut_aggregate.cu)
+    blocks = math.ceil(b / _ROWS) * math.ceil(lut.shape[-1] /
+                                              block_cols(lut.dtype))
+    _build.require(b < 2**31 and blocks < 2**31,
+                   f"{b} rows exceed the kernel's int32 indices and grid")
     if lut.dtype == torch.int8:
         onehot = onehot.to(torch.int8)
     else:

@@ -39,6 +39,9 @@ Examples:
   # the HTTP front end: NDJSON token streams on localhost:8080
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --amm \\
       --http --port 8080 --metrics serve.prom
+
+``--ckpt DIR`` restores the params from a checkpoint of the same tree
+(either package's checkpoint manager wrote it).
 """
 from __future__ import annotations
 
@@ -46,9 +49,11 @@ import argparse
 import asyncio
 import dataclasses
 import time
+from pathlib import Path
 
 import torch
 
+from repro_torch.checkpoint import restore_into
 from repro_torch.compiler.artifact import ArtifactError, peek_manifest
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
@@ -187,8 +192,8 @@ def main(argv=None) -> None:
                     help="base sampling seed; request i uses seed+i")
     ap.add_argument("--mesh",
                     help="sharded serving on a 'DxM' mesh (ROADMAP A11)")
-    ap.add_argument("--ckpt", help="restore params from a checkpoint "
-                                   "(ROADMAP A13)")
+    ap.add_argument("--ckpt", help="restore params from a checkpoint dir "
+                                   "(a tree of the same leaves)")
     ap.add_argument("--prompt", action="append", metavar="TOKENS",
                     help="explicit prompt as space/comma-separated token ids "
                          "(repeatable); replaces the synthetic requests")
@@ -234,9 +239,6 @@ def main(argv=None) -> None:
     if args.mesh:
         raise SystemExit("--mesh: multi-device serving is not ported yet "
                          "(ROADMAP A11)")
-    if args.ckpt:
-        raise SystemExit("--ckpt: checkpoint restore is not ported yet "
-                         "(ROADMAP A13)")
     if args.engine == "fixed" or args.slots is not None:
         raise SystemExit("--engine fixed / --slots: the fixed-slot engine is "
                          "not ported yet (ROADMAP A10)")
@@ -252,6 +254,8 @@ def main(argv=None) -> None:
     # --artifact serves compiled tables spliced into a *dense* params tree
     params = MD.init_params(cfg, gen, dtype,
                             serving=args.amm and not args.artifact)
+    if args.ckpt:
+        params = restore_into(params, Path(args.ckpt), device=device)
     art_kind = _artifact_kind(args.artifact) if args.artifact else None
     # one recorder feeds the summary table, the Prometheus snapshot, the
     # Chrome trace and GET /metrics; without these flags engines keep the

@@ -73,3 +73,17 @@ def gated_mlp(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
               act: str = "silu") -> Tensor:
     h = ACTS[act](x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def softmax_cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean token-level CE.  logits (..., V), labels (...) int.
+
+    The gold logit is taken with a masked sum, as in the JAX package (a
+    gather along a sharded vocab axis would gather the whole logits)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    hit = iota == labels[..., None].to(torch.int64)
+    gold = torch.where(hit, logits, torch.zeros((), device=logits.device)
+                       ).sum(dim=-1)
+    return torch.mean(logz - gold)

@@ -1,6 +1,6 @@
-"""The paged serving path of a uniform dense LM (PyTorch), as in
-``repro.models.model``: embeddings → layer stack → head, for chunked
-prefill and batched decode against the paged KV cache.
+"""A uniform dense LM (PyTorch), as in ``repro.models.model``: embeddings
+→ layer stack → head, for training and scoring (:func:`forward`) and for
+chunked prefill and batched decode against the paged KV cache.
 
 Params keep the JAX layout: a nested dict whose ``layers`` entries are
 stacked over a leading layer axis ``(L, …)``.  The JAX ``lax.scan`` over
@@ -13,6 +13,7 @@ import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.fused_verify import GLOBAL_WINDOW
 from repro_torch.models import amm_mlp as AMM
@@ -157,6 +158,48 @@ def _block_apply(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
     if mlp_tap is not None:
         mlp_tap(layer_idx, mlp_in)
     return h + _mlp_out(lp, mlp_in, cfg, h.dtype)
+
+
+def _layer_views(layers: dict, n: int) -> list:
+    """The stacked ``(L, …)`` params as L per-layer dicts of views, made by
+    one ``unbind`` per stack (one backward node each, not L)."""
+    per = [dict() for _ in range(n)]
+    for k, v in layers.items():
+        parts = (_layer_views(v, n) if isinstance(v, dict)
+                 else torch.unbind(v, 0))
+        for l in range(n):
+            per[l][k] = parts[l]
+    return per
+
+
+def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
+            remat: bool = True, compute_dtype=torch.bfloat16,
+            extra_embeds: Optional[Tensor] = None) -> Tensor:
+    """tokens (B, S) → logits (B, S, V) float32, differentiable: the
+    training and scoring forward of a uniform dense stack.  ``remat``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations.  Hybrid, encoder, enc-dec and MoE stacks and frontend
+    embeddings are not ported (ROADMAP A10)."""
+    _check_uniform_dense(cfg)
+    if extra_embeds is not None:
+        raise NotImplementedError(
+            "frontend embeddings (VLM, enc-dec) are not ported yet "
+            "(ROADMAP A10)")
+    cd = compute_dtype
+    tokens = tokens.to(torch.int64)
+    b, s = tokens.shape
+    h = params["embed"].to(cd)[tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for l, (lp, win) in enumerate(zip(
+            _layer_views(params["layers"], cfg.num_layers),
+            window_flags(cfg))):
+        if remat:
+            h = checkpoint(_block_apply, cfg, lp, h, positions, win, l,
+                           use_reentrant=False)
+        else:
+            h = _block_apply(cfg, lp, h, positions, win, l)
+    return _head(params, h, cfg, cd)
 
 
 @torch.inference_mode()

@@ -798,3 +798,113 @@ def test_cuda_fit_equals_the_cpu_fit(cuda_device):
     spec.loader.exec_module(cs)
     out = cs.fit_card_vs_cpu(torch)
     assert set(out["excused"]) == {"up", "down"}
+
+
+# ---------------------------------------------------------------------------
+# the case studies' shapes: tall row counts, few codebooks, float32 tables
+# ---------------------------------------------------------------------------
+
+# (B, C, N) of a 256-image ResNet-9 forward at depth 4: a Kn2col tap of
+# conv1 (32×32 maps, 64 channels in d_sub 8), of res2a (4×4 maps, 512
+# channels), and the Im2col res1a (16×16 maps, 128 codebooks of K·K = 9
+# dims); B cut where the plain version's one-hot would not fit the test's
+# budget
+CNN_CASES = {"kn2col_conv1": (65536, 8, 128), "kn2col_res2a": (4096, 64, 512),
+             "im2col_res1a": (65536, 128, 128)}
+
+
+def _device_inputs(dev, b, c, n, depth, lut_dtype, seed=0):
+    """Inputs made on the card (tall B: no host round trip)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = 2**depth
+    x = torch.randn((b, c, depth), generator=gen, device=dev)
+    thr = torch.randn((c, g - 1), generator=gen, device=dev)
+    if lut_dtype == "int8":
+        lut = torch.randint(-128, 128, (c, g, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+    else:
+        lut = torch.randn((c, g, n), generator=gen, device=dev)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.015 + 0.005
+    offset = torch.randn((n,), generator=gen, device=dev)
+    return x, thr, lut, scale, offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CNN_CASES))
+@pytest.mark.parametrize("lut_dtype", ["float32", "int8"])
+def test_cuda_cnn_shapes_match_plain(cuda_device, shape, lut_dtype):
+    b, c, n = CNN_CASES[shape]
+    x, thr, lut, scale, offset = _device_inputs(cuda_device, b, c, n, 4,
+                                                lut_dtype)
+    got = FL.fused_lutmu(x, thr, lut, scale, offset)
+    assert_lut_sums(got, FL.fused_lutmu_plain(x, thr, lut, scale, offset),
+                    lut_dtype, c, scale)
+    out = torch.int8 if lut_dtype == "int8" else torch.float32
+    onehot = ME.encode_onehot(x, thr, out_dtype=out)
+    torch.testing.assert_close(onehot, ME.encode_onehot_plain(x, thr, out),
+                               rtol=0, atol=0)
+    got = LA.lut_aggregate(onehot, lut, scale, offset)
+    assert_lut_sums(got, LA.lut_aggregate_plain(onehot, lut, scale, offset),
+                    lut_dtype, c, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,b", [("lut_aggregate", 262_144),
+                                      ("lut_aggregate", 262_141),
+                                      ("fused_lutmu", 2_097_152),
+                                      ("fused_lutmu", 2_097_121)])
+@pytest.mark.parametrize("lut_dtype", ["float32", "int8"])
+def test_cuda_rows_past_the_grid_y_limit(cuda_device, kernel, b, lut_dtype):
+    """Row counts whose row blocks (4 rows) or row groups (32 rows) pass
+    CUDA's 65,535 grid.y limit: every row, the last included, is held to
+    the plain version.  Rows share grid.x with the N-tiles, so one wrapper
+    call is one launch of the kernel, counted once."""
+    c, n = 8, 128
+    x, thr, lut, scale, offset = _device_inputs(cuda_device, b, c, n, 4,
+                                                lut_dtype, seed=3)
+    if kernel == "fused_lutmu":
+        before = FL.LAUNCHES.n
+        got = FL.fused_lutmu(x, thr, lut, scale, offset)
+        assert FL.LAUNCHES.n == before + 1
+        want = FL.fused_lutmu_plain(x, thr, lut, scale, offset)
+    else:
+        onehot = ME.encode_onehot_plain(
+            x, thr, torch.int8 if lut_dtype == "int8" else torch.float32)
+        before = LA.LAUNCHES.n
+        got = LA.lut_aggregate(onehot, lut, scale, offset)
+        assert LA.LAUNCHES.n == before + 1
+        want = LA.lut_aggregate_plain(onehot, lut, scale, offset)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n)
+    assert_lut_sums(got, want, lut_dtype, c, scale)
+    assert_lut_sums(got[-5:], want[-5:], lut_dtype, c, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_ste_function_matches_cpu(cuda_device):
+    """The straight-through LUT-MU's forward (the encode and aggregate
+    kernels) and both gradients on the card against the same calls on the
+    CPU (the plain versions): float32 sums in another order."""
+    from repro_torch.core import ste as STE
+
+    b, d, n, c, depth = 300, 64, 48, 8, 4
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((b, d), generator=gen)
+    lut = torch.randn((c, 2**depth, n), generator=gen)
+    w = torch.randn((d, n), generator=gen) / 8
+    split = torch.randint(0, d // c, (c, depth), generator=gen,
+                          dtype=torch.int32)
+    thr = torch.randn((c, 2**depth - 1), generator=gen) * 0.5
+    g_out = torch.randn((b, n), generator=gen)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xx = x.to(dev, copy=True).requires_grad_(True)
+        ll = lut.to(dev, copy=True).requires_grad_(True)
+        enc0, agg0 = ME.LAUNCHES.n, LA.LAUNCHES.n
+        y = STE.ste_lut_matmul(xx, ll, w.to(dev), split.to(dev), thr.to(dev))
+        (y * g_out.to(dev)).sum().backward()
+        if dev == "cuda":
+            assert ME.LAUNCHES.n == enc0 + 1 and LA.LAUNCHES.n == agg0 + 1
+        outs[dev] = [t.detach().cpu() for t in (y, ll.grad, xx.grad)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

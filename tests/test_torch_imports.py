@@ -30,9 +30,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 48, proc.stdout
-    # the artifact, observability and compiler slices' modules are among
-    # those imported
+    assert n_modules >= 64, proc.stdout
+    # the artifact, observability, compiler, case-study and training
+    # slices' modules are among those imported
     for name in ("repro_torch.compiler", "repro_torch.compiler.artifact",
                  "repro_torch.compiler.quantize", "repro_torch.core.lut_mu",
                  "repro_torch.serving.loader", "repro_torch.launch.serve",
@@ -41,7 +41,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.compiler.calibrate",
                  "repro_torch.compiler.planner",
                  "repro_torch.compiler.__main__", "repro_torch.kernels.ops",
-                 "repro_torch.kernels.autotune"):
+                 "repro_torch.kernels.autotune", "repro_torch.core.conv",
+                 "repro_torch.core.ste", "repro_torch.core.ii_model",
+                 "repro_torch.models.cnn", "repro_torch.quant.fake_quant",
+                 "repro_torch.optim.adamw", "repro_torch.optim.compression",
+                 "repro_torch.runtime.steps", "repro_torch.runtime.trainer",
+                 "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+                 "repro_torch.pytree"):
         assert name in proc.stdout.split(), name
 
 

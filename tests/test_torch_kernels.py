@@ -128,12 +128,15 @@ def test_lut_aggregate_k_splits_cover_k(b, c, g, n, lut_dtype):
     assert LA.k_splits(4, 2176 * 16, 5120, torch.int8, 132)[0] > 1
 
 
-# the eight (B, C, N, LUT) cases of chip_smoke.py's kernel phase, depth 4
-# (the last two: int16 tables at gate/up and at the SFC chain's layer 0)
+# the (B, C, N, LUT) cases of chip_smoke.py's kernel phase, depth 4
+# (int16 tables at gate/up and at the SFC chain's layer 0, then ResNet-9's)
 CHIP_SMOKE_CASES = [(4, 640, 8704, "int8"), (4, 2176, 5120, "int8"),
                     (32, 640, 8704, "int8"), (32, 2176, 5120, "int8"),
                     (4, 640, 8704, "float32"), (32, 2176, 5120, "bfloat16"),
-                    (4, 640, 8704, "int16"), (256, 98, 128, "int16")]
+                    (4, 640, 8704, "int16"), (256, 98, 128, "int16"),
+                    # the ResNet-9 case study's Kn2col and Im2col taps
+                    (262_144, 8, 128, "float32"), (262_144, 8, 128, "int8"),
+                    (4096, 64, 512, "float32"), (65_536, 128, 128, "float32")]
 
 
 def test_fused_lutmu_plan_cases_are_chip_smokes():
@@ -190,7 +193,13 @@ def test_fused_lutmu_plan_fills_one_wave():
                      # N-tiles → clusters of 6; the chain's 8 row groups
                      # × 1 N-tile → 14 of 7 codebooks each
                      (4, 640, 8704, "int16"): 6,
-                     (256, 98, 128, "int16"): 14}
+                     (256, 98, 128, "int16"): 14,
+                     # the CNN taps have hundreds of row groups or more:
+                     # the grid fills the card without splitting codebooks
+                     (262_144, 8, 128, "float32"): 1,
+                     (262_144, 8, 128, "int8"): 1,
+                     (4096, 64, 512, "float32"): 1,
+                     (65_536, 128, 128, "float32"): 1}
     # a card that runs no cluster above 8 blocks, and 20 of 8 at once
     assert FL.plan(4, 2176, 5120, 4, 1, 132,
                    lambda p: 20 if p.cluster <= 8 else 0).cluster == 8

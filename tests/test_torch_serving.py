@@ -292,7 +292,6 @@ def test_launcher_serves_artifact_and_bundle(launcher_arts, capsys):
 
 @pytest.mark.parametrize("extra,message", [
     (["--mesh", "2x2"], "A11"),
-    (["--ckpt", "ckpt_dir"], "A13"),
     (["--engine", "fixed"], "A10"),
     (["--speculative", "--amm"], "drop --amm"),
     (["--speculative", "--artifact", "ART"], "needs a target\\+draft bundle"),
