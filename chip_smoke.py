@@ -175,6 +175,34 @@ Phases, each fatal on failure:
     bitwise equal to an uninjected run's, the last checkpoint restored by
     ``restore_into`` equal to the live state.
 
+25. families — (a, after 5) the fixed-slot engine on phase 5's 40-layer
+    params: ``load_engine(None, ..., engine="fixed", max_batch=4)`` serves
+    phase 5's 6 requests x 16 tokens, held to phase 5's streams by the
+    ``STREAM_MARGIN_TOL`` rule, ``fused_lutmu`` 120 launches per forward
+    (prefills eager, decodes replayed), ``ref`` never on CUDA; then 3+
+    consecutive decode replays bit-equal to eager ``MD.decode_step`` on a
+    copy of the cache (every slot's logits, the whole cache); tok/s, TTFT,
+    capture seconds and graph nodes beside phase 5's.  (After 24:) (b)
+    mamba2-370m at full width and depth, bf16, through the fixed engine
+    (4 slots, 6 x 16 greedy, staggered): each stream equal to the request
+    served alone through eager ``prefill`` + ``decode_step`` by the same
+    rule, decode replays bit-equal to eager, and a 2,048-token chunked-SSD
+    prefill of layer 0 (float32) against 2,048 ``mamba_decode_step``
+    calls within ``SSD_STATE_TOL``; (c) qwen3-moe-30b-a3b at full width
+    (128 experts, top-8), depth cut to ``MOE_LAYERS``, through the paged
+    and the fixed engine (6 x 16 greedy each; their streams are not
+    compared: capacity drops depend on the group size), every decode
+    replay bit-equal to its eager model function, an eager decode step
+    under ``set_sync_debug_mode("error")``, the MoE share of a replay's
+    kernel time; (d) whisper-tiny whole (1,500 seeded frames) and
+    internvl2-26b at full width, 2 layers (256 seeded patch embeddings),
+    float32: ``make_prefill_step`` then 16 ``make_decode_step`` steps
+    within ``TEACHER_REL`` of ``forward`` teacher-forced; (e) jamba-1.5-
+    large at reduced width (a full-width period is ≈ 90 GB) with LUT-MU
+    serving params through the fixed engine: ``fused_lutmu`` 3 launches
+    per dense layer per forward, decode replays bit-equal to eager.  The
+    phase's seconds on a line of their own.
+
 The line before the last is ``{"kernels": [...]}`` (the ``fused_lutmu``
 and ``verify_window`` entries also carry the heuristic and measured plans
 and their ms at their reported case; the LUT-MU entries their ResNet-9
@@ -2666,6 +2694,456 @@ def train_phase(torch):
             "peak_gb": peak / 1e9}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the fixed-slot engine and the non-paged families
+# ---------------------------------------------------------------------------
+
+FIXED_SLOTS = 4                # the fixed engine's slots (phase 5's max_batch)
+MOE_LAYERS = 12                # qwen3-moe-30b-a3b depth cut (1.25 GB a layer)
+SSD_TOKENS = 2048              # the chunked-SSD prefill held to the recurrence
+SSD_STATE_TOL = 1e-3           # max |Δ| / max |state|, float32, 2,048 steps
+TEACHER_REL = 2e-3             # tests/test_models_smoke.py's relative bound
+JAMBA_FULL_PERIOD_GB = 90      # one 8-layer jamba period at full width, bf16
+
+
+def tree_clone(t):
+    return {k: tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in t.items()}
+
+
+def tree_equal(torch, a, b) -> bool:
+    return all(tree_equal(torch, a[k], b[k]) if isinstance(a[k], dict)
+               else torch.equal(a[k], b[k]) for k in a)
+
+
+def fixed_twin(torch, eng, MD, log):
+    """Wrap the fixed engine's decode program so that every call is checked
+    as it happens: the replayed logits (every slot) and the whole cache
+    bit-equal to eager ``MD.decode_step`` on a copy of the cache taken just
+    before the call.  ``log`` gets one entry per call."""
+    import numpy as np
+    prog = eng._decode
+
+    def call(**arrays):
+        before = tree_clone(eng.cache)
+        out = prog(**arrays).clone()
+        want = MD.decode_step(eng.params, *(torch.from_numpy(
+            np.asarray(arrays[k], np.int32)).cuda() for k in ("token", "pos")),
+            before, eng.cfg, compute_dtype=eng.cd)
+        torch.cuda.synchronize()
+        ensure(prog.graph is not None, "fixed decode: no graph captured")
+        ensure(torch.equal(out, want), "fixed decode: replayed logits != "
+               f"eager (max diff {(out - want).abs().max().item()})")
+        ensure(tree_equal(torch, eng.cache, before),
+               "fixed decode: replayed cache != eager")
+        log.append(1)
+        return out
+
+    eng._decode = call
+    return prog
+
+
+def check_replays(torch, eng, MD, label, n_requests: int = 4,
+                  max_new: int = 5) -> int:
+    """At least 3 consecutive fixed decode steps of a live engine, each
+    replay bit-equal to eager (``fixed_twin``)."""
+    log = []
+    prog = fixed_twin(torch, eng, MD, log)
+    for p in prompts(eng.cfg.vocab_size, n_requests):
+        eng.submit(p, max_new_tokens=max_new)
+    eng.run_until_drained()
+    eng._decode = prog
+    ensure(len(log) >= 3, f"{label}: only {len(log)} decode replays checked")
+    return len(log)
+
+
+def fixed_eager_streams(torch, MD, ES, params, cfg, reqs, max_new: int,
+                        max_len: int):
+    """Greedy streams of ``reqs``, each request alone through eager
+    ``MD.prefill`` (its cache copied into slot 0 of a ``FIXED_SLOTS``-row
+    cache) and ``MD.decode_step`` at the engine's shapes, and each
+    position's top-2 logit margin."""
+    out, margins = [], []
+    cd = torch.bfloat16
+    for prompt in reqs:
+        cache = MD.init_cache(cfg, FIXED_SLOTS, max_len, cd, "cuda")
+        logits, one = MD.prefill(params, torch.tensor([prompt], device="cuda"),
+                                 cfg, max_len, compute_dtype=cd)
+        ES._splice_slot(cache, one, 0, FIXED_SLOTS)
+        rows = [logits[0, -1]]
+        while len(rows) < max_new:
+            token = torch.zeros((FIXED_SLOTS, 1), dtype=torch.int32,
+                                device="cuda")
+            token[0, 0] = rows[-1].argmax()
+            pos = torch.zeros((FIXED_SLOTS,), dtype=torch.int32, device="cuda")
+            pos[0] = len(prompt) + len(rows) - 1
+            rows.append(MD.decode_step(params, token, pos, cache, cfg,
+                                       compute_dtype=cd)[0, 0])
+        top = torch.topk(torch.stack(rows), 2).values
+        out.append([int(r.argmax()) for r in rows])
+        margins.append((top[:, 0] - top[:, 1]).tolist())
+    return out, margins
+
+
+def hold_streams(label, handles, want, margins) -> int:
+    """Streams equal to ``want``, or a first difference where the eager
+    top-2 margin is within STREAM_MARGIN_TOL; returns how many differ."""
+    differ = 0
+    for h, w, m in zip(handles, want, margins):
+        if h.generated == w:
+            continue
+        differ += 1
+        at = next(i for i, (a, b) in enumerate(zip(h.generated, w)) if a != b)
+        print(f"[{label}] req {h.request_id}: first difference at {at}, eager "
+              f"top-2 margin {m[at]:.4f} (tolerance {STREAM_MARGIN_TOL})",
+              flush=True)
+        ensure(m[at] <= STREAM_MARGIN_TOL,
+               f"{label}: req {h.request_id} differs at {at}, margin {m[at]}")
+    return differ
+
+
+def serve_line(label, handles, dt, ttft, engine) -> str:
+    n_tok = sum(len(h.generated) for h in handles)
+    return (f"[{label}] {len(handles)} requests x "
+            f"{len(handles[0].generated)} tokens: {n_tok / dt:.2f} tok/s "
+            f"({n_tok} in {dt:.3f}s); TTFT mean {sum(ttft) / len(ttft):.4f}s "
+            f"max {max(ttft):.4f}s; forward calls "
+            f"{engine.stats['prefill_calls']} prefill + "
+            f"{engine.stats['decode_calls']} decode; capture_s "
+            f"{fmt(engine.stats.get('capture_s', {}))}; graph nodes "
+            f"{engine.stats.get('graph_nodes')}")
+
+
+def step_ms(torch, engine, MD, iters: int = 5) -> str:
+    """Where an engine's serve time goes: its decode program replayed with
+    idle inputs (CUDA events over ``iters`` replays), and one 8-token
+    prefill — the paged engine's chunk program replayed with nothing valid
+    (trash page only), the fixed engine's eager ``MD.prefill`` (host clock,
+    synced).  Run after the engine drained: the replays write idle rows."""
+    import numpy as np
+    prog = engine._decode
+    rows = len(prog.inputs["token"])
+    arrays = {k: np.full(tuple(t.shape), 8 if k == "pos" else 0, np.int32)
+              for k, t in prog.inputs.items()}
+    if "table" in arrays:
+        arrays["table"][:] = engine.kv.trash
+
+    def events(fn):
+        fn()
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    dec = events(lambda: prog(**arrays))
+    toks = prompts(engine.cfg.vocab_size, 1)[0]
+    if hasattr(engine, "kv"):
+        pf = events(lambda: engine._prefill(
+            tokens=np.zeros((1, engine.prefill_chunk), np.int32), start=0,
+            n_valid=0, row=np.full((engine.max_pages_per_seq,),
+                                   engine.kv.trash, np.int32)))
+        how = "chunk program replayed, CUDA events"
+    else:
+        t = torch.tensor([toks], device="cuda")
+        MD.prefill(engine.params, t, engine.cfg, engine.max_len,
+                   compute_dtype=engine.cd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            MD.prefill(engine.params, t, engine.cfg, engine.max_len,
+                       compute_dtype=engine.cd)
+        torch.cuda.synchronize()
+        pf = 1e3 * (time.perf_counter() - t0) / iters
+        how = "eager MD.prefill, host clock"
+    return (f"decode replay {dec:.3f} ms ({rows} rows, CUDA events); "
+            f"{len(toks)}-token prefill {pf:.3f} ms ({how})")
+
+
+def fixed_qwen_phase(torch, cfg, params, MD, load_engine, FL, dispatch,
+                     plain_streams, phase5):
+    """(a) phase 5's 40-layer qwen3-14b through ``load_engine(...,
+    engine="fixed", max_batch=4)``: 6 requests x 16 greedy tokens held to
+    phase 5's streams by the STREAM_MARGIN_TOL rule (margins from the
+    paged engine), ``fused_lutmu`` 120 launches per forward (prefills
+    eager, decodes replayed), ``ref`` never on CUDA, then 3+ consecutive
+    decode replays bit-equal to eager.  Returns its fused_lutmu launches."""
+    from repro_torch.serving import FixedSlotEngine
+    t0 = time.perf_counter()
+    engine = load_engine(None, params, cfg, engine="fixed",
+                         max_batch=FIXED_SLOTS, max_len=128,
+                         compute_dtype=torch.bfloat16, device=DEVICE)
+    ensure(type(engine) is FixedSlotEngine and engine.slots == FIXED_SLOTS,
+           f"engine='fixed' built {type(engine).__name__}")
+    handles, dt, ttft, engine = drive(torch, engine, cfg, 6, 16)
+    calls = engine.stats["prefill_calls"] + engine.stats["decode_calls"]
+    launches = FL.LAUNCHES.n
+    ensure(launches == 3 * cfg.num_layers * calls,
+           f"fixed: fused_lutmu launches {launches} != {3 * cfg.num_layers}"
+           f" x {calls} forward calls")
+    ensure(dispatch.REF_ON_CUDA.n == 0, "fixed: the ref path ran on CUDA")
+    ensure(all(h.done and len(h.generated) == 16 for h in handles),
+           "fixed: requests did not finish")
+
+    def make_plain(c=cfg, p=params):
+        return load_engine(None, p, c, compute_dtype=torch.bfloat16,
+                           device=DEVICE, **ENGINE_KNOBS)
+
+    differ = compare_streams(torch, "fixed", handles, plain_streams,
+                             make_plain)
+    print(serve_line("fixed", handles, dt, ttft, engine) +
+          f"; fused_lutmu launches {launches} = {3 * cfg.num_layers} x "
+          f"{calls}; ref on CUDA 0; {differ} of {len(handles)} streams differ "
+          f"from phase 5's", flush=True)
+    print(f"[fixed] beside phase 5 (paged): {phase5['tok_s']:.2f} tok/s, "
+          f"TTFT mean {phase5['ttft']:.4f}s, graph nodes "
+          f"{phase5['graph_nodes']}; fixed: {step_ms(torch, engine, MD)}",
+          flush=True)
+    # the eager twins launch the kernels too: counted above, not after
+    n = check_replays(torch, engine, MD, "fixed")
+    print(f"[fixed] {n} consecutive decode replays bit-equal to eager "
+          f"MD.decode_step (logits of every slot, the whole cache)",
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return {"fused_lutmu": launches, "s": time.perf_counter() - t0}
+
+
+def mamba_phase(torch, MD, MB, ES, load_engine, get_config):
+    """(b) mamba2-370m at full width and depth through the fixed engine."""
+    cfg = get_config("mamba2-370m")
+    params = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                            torch.bfloat16)
+    n_params = sum(int(t.numel()) for t in _leaves(params))
+    engine = load_engine(None, params, cfg, max_batch=FIXED_SLOTS, max_len=128,
+                         compute_dtype=torch.bfloat16, device=DEVICE)
+    ensure(type(engine).__name__ == "FixedSlotEngine",
+           f"mamba2 dispatched to {type(engine).__name__}")
+    handles, dt, ttft, engine = drive(torch, engine, cfg, 6, 16)
+    want, margins = fixed_eager_streams(
+        torch, MD, ES, params, cfg, prompts(cfg.vocab_size, 6), 16, 128)
+    differ = hold_streams("mamba2", handles, want, margins)
+    print(serve_line("mamba2", handles, dt, ttft, engine) +
+          f"; {cfg.num_layers} layers, {n_params / 1e9:.3f} B params; "
+          f"{differ} of 6 streams differ from each request served alone "
+          f"(eager prefill + decode_step); {step_ms(torch, engine, MD)}",
+          flush=True)
+    n = check_replays(torch, engine, MD, "mamba2")
+    del engine
+    # the chunked SSD over 2,048 tokens against the recurrence, layer 0 in
+    # float32 (bf16 GEMMs of another row count would round differently)
+    lp = {k: v.float() for k, v in MD.layer_params(params["layers"],
+                                                   0)["mamba"].items()}
+    x = torch.randn((1, SSD_TOKENS, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    _, chunked = MB.mamba_forward(lp, x, cfg, return_state=True)
+    rec = MB.init_mamba_cache(cfg, 1, torch.float32, "cuda")
+    for t in range(SSD_TOKENS):
+        MB.mamba_decode_step(lp, x[:, t:t + 1], cfg, rec)
+    rel = {k: ((rec[k] - chunked[k]).abs().max()
+               / chunked[k].abs().max()).item() for k in ("ssm", "conv")}
+    ensure(max(rel.values()) <= SSD_STATE_TOL,
+           f"chunked SSD state vs recurrence: {rel}")
+    print(f"[mamba2] {n} decode replays bit-equal to eager; a {SSD_TOKENS}-"
+          f"token chunked-SSD prefill (chunk {cfg.ssm_chunk}) of layer 0 "
+          f"against {SSD_TOKENS} mamba_decode_step calls, float32: max |Δ| / "
+          f"max |state| ssm {rel['ssm']:.2e}, conv {rel['conv']:.2e} "
+          f"(tolerance {SSD_STATE_TOL})", flush=True)
+    del params
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def moe_phase(torch, MD, MOE, load_engine, get_config):
+    """(c) qwen3-moe-30b-a3b at full width, depth cut to MOE_LAYERS: the
+    paged and the fixed engine each serve 6 x 16 greedy tokens; every
+    decode replay checked against its eager model function; an eager
+    decode step under ``torch.cuda.set_sync_debug_mode("error")``; the MoE
+    share of a decode replay's kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              num_layers=MOE_LAYERS)
+    params = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                            torch.bfloat16)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    cd = torch.bfloat16
+    out = {}
+    for kind in ("paged", "fixed"):
+        engine = load_engine(None, params, cfg, engine=kind,
+                             compute_dtype=cd, device=DEVICE, **ENGINE_KNOBS)
+        handles, dt, ttft, engine = drive(torch, engine, cfg, 6, 16)
+        ensure(all(h.done and len(h.generated) == 16 for h in handles),
+               f"moe {kind}: requests did not finish")
+        print(serve_line(f"moe-{kind}", handles, dt, ttft, engine) +
+              f"; {cfg.num_experts} experts top-{cfg.num_experts_per_tok}, "
+              f"{MOE_LAYERS} layers, {gb:.2f} GB of params; "
+              f"{step_ms(torch, engine, MD)}", flush=True)
+        out[kind] = sum(len(h.generated) for h in handles) / dt
+        if kind == "paged":
+            log = []
+            kv = engine.kv.buffers
+            engine._decode = twin(
+                torch, engine._decode, lambda c, token, pos, table:
+                MD.paged_decode_step(params, token, pos, table, c[0], cfg,
+                                     compute_dtype=cd),
+                [kv], keep_rows(engine.kv.trash), log)
+            for p in prompts(cfg.vocab_size, 4):
+                engine.submit(p, max_new_tokens=5)
+            engine.run_until_drained()
+            ensure(len(log) >= 3, f"moe paged: {len(log)} replays checked")
+            n = len(log)
+        else:
+            n = check_replays(torch, engine, MD, "moe-fixed")
+            # the share of the MoE in a decode replay's kernel time
+            token = torch.zeros((FIXED_SLOTS, 1), dtype=torch.int32,
+                                device="cuda")
+            pos = torch.full((FIXED_SLOTS,), 8, dtype=torch.int32,
+                             device="cuda")
+            torch.cuda.set_sync_debug_mode("error")
+            MD.decode_step(params, token, pos, engine.cache, cfg,
+                           compute_dtype=cd)
+            torch.cuda.set_sync_debug_mode("default")
+            arrays = {"token": token.cpu().numpy(), "pos": pos.cpu().numpy()}
+            x = torch.randn((FIXED_SLOTS, 1, cfg.d_model), device="cuda",
+                            dtype=cd)
+            layers = [MD.layer_params(params["layers"], l)["moe"]
+                      for l in range(MOE_LAYERS)]
+            ms = {}
+            for name, fn in (
+                    ("replay", lambda: engine._decode(**arrays)),
+                    ("moe", lambda: [MOE.moe_apply(m, x, cfg)
+                                     for m in layers])):
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                ms[name], _ = kernel_busy_ms(torch, prof, 3)
+            share = ("not measured (the profiler saw no kernels)"
+                     if not ms["replay"] else
+                     f"{100 * ms['moe'] / ms['replay']:.1f}% "
+                     f"({ms['moe']:.3f} of {ms['replay']:.3f} kernel ms)")
+            print(f"[moe-fixed] MoE share of a decode replay's kernel time "
+                  f"(profiler; the {MOE_LAYERS} layers' moe_apply at the "
+                  f"decode shape eagerly, over the replay): {share}; an "
+                  "eager decode step under set_sync_debug_mode('error') ran "
+                  "without a host sync", flush=True)
+        print(f"[moe-{kind}] {n} decode replays bit-equal to eager (every "
+              "capture succeeded: no host sync inside)", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def teacher_phase(torch, MD, ST, get_config):
+    """(d) whisper-tiny whole with 1,500 seeded frames and internvl2-26b at
+    full width, 2 layers, with 256 seeded patch embeddings, float32 (the
+    JAX test's type): ``make_prefill_step`` of 8 tokens then 16
+    ``make_decode_step`` steps, each step's logits within TEACHER_REL of
+    the largest logit of ``forward`` teacher-forced on the same tokens."""
+    for arch, layers in (("whisper-tiny", None), ("internvl2-26b", 2)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        params = MD.init_params(cfg, gen, torch.float32)
+        t = cfg.num_frontend_tokens
+        extra = torch.randn((1, t, cfg.d_model), device="cuda",
+                            generator=gen) * 0.1
+        toks = torch.randint(0, cfg.vocab_size, (1, 24), device="cuda",
+                             generator=gen)
+        f32 = torch.float32
+        with torch.inference_mode():
+            full = MD.forward(params, toks, cfg, remat=False,
+                              extra_embeds=extra, compute_dtype=f32)
+        offset = t if cfg.family == "vlm" else 0
+        logits, cache = ST.make_prefill_step(cfg, offset + 32, f32)(
+            params, {"tokens": toks[:, :8], "frontend": extra})
+        decode = ST.make_decode_step(cfg, f32)
+        errs = [(logits[0, 0] - full[0, 7]).abs().max().item()]
+        for i in range(8, 24):
+            lg = decode(params, toks[:, i:i + 1],
+                        torch.tensor([offset + i], device="cuda"), cache)
+            errs.append((lg[0, 0] - full[0, i]).abs().max().item())
+        rel = max(errs) / full.abs().max().item()
+        ensure(math.isfinite(rel) and rel < TEACHER_REL,
+               f"{arch}: decode vs forward {rel}")
+        print(f"[teacher] {arch} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {t} frontend embeddings): prefill 8 + 16 "
+              f"decode steps against forward teacher-forced: max |Δ| / max "
+              f"|logit| {rel:.2e} (bound {TEACHER_REL})", flush=True)
+        del params, cache, full
+        torch.cuda.empty_cache()
+
+
+def jamba_phase(torch, MD, FL, dispatch, load_engine, get_config):
+    """(e) jamba-1.5-large at reduced width (one 8-layer period at full
+    width is ≈ 90 GB in bf16: the MoE layers alone ≈ 77 GB) with LUT-MU
+    serving params through the fixed engine: ``fused_lutmu`` 3 launches
+    per dense layer per forward, decode replays bit-equal to eager.
+    Returns its fused_lutmu launches."""
+    cfg = get_config("jamba-1.5-large-398b", reduced=True)
+    cfg = dataclasses.replace(cfg, amm=dataclasses.replace(
+        cfg.amm, enabled=True, backend="auto"))
+    params = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(9),
+                            torch.bfloat16, serving=True)
+    dense = sum(1 for i in range(cfg.num_layers) if not cfg.layer_is_moe(i))
+    engine = load_engine(None, params, cfg, max_batch=FIXED_SLOTS, max_len=64,
+                         compute_dtype=torch.bfloat16, device=DEVICE)
+    ensure(type(engine).__name__ == "FixedSlotEngine",
+           f"jamba dispatched to {type(engine).__name__}")
+    handles, dt, _, engine = drive(torch, engine, cfg, 6, 8)
+    calls = engine.stats["prefill_calls"] + engine.stats["decode_calls"]
+    launches = FL.LAUNCHES.n
+    ensure(all(h.done and len(h.generated) == 8 for h in handles),
+           "jamba: requests did not finish")
+    ensure(launches == 3 * dense * calls and dispatch.REF_ON_CUDA.n == 0,
+           f"jamba: fused_lutmu launches {launches} != 3 x {dense} x {calls}")
+    n = check_replays(torch, engine, MD, "jamba")
+    n_tok = sum(len(h.generated) for h in handles)
+    print(f"[jamba] reduced width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {dense} dense LUT-MU layers): 6 requests x 8 "
+          f"tokens {n_tok / dt:.2f} tok/s; fused_lutmu "
+          f"{launches} launches = 3 x {dense} x {calls} forward calls; {n} "
+          f"decode replays bit-equal to eager.  Full width does not fit one "
+          f"card: one 8-layer period is ≈ {JAMBA_FULL_PERIOD_GB} GB in bf16 "
+          f"(4 MoE layers of 16 x 3 x 8192 x 24576 ≈ 77 GB), so it waits "
+          f"for multi-device serving (ROADMAP A11)", flush=True)
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(torch, mods, load_engine, get_config):
+    """(b)-(e) of phase 25; returns the jamba fused_lutmu launches."""
+    MD, MB, MOE, ES, ST, FL, dispatch = mods
+    t0 = time.perf_counter()
+    mamba_phase(torch, MD, MB, ES, load_engine, get_config)
+    gc.collect()
+    moe_phase(torch, MD, MOE, load_engine, get_config)
+    gc.collect()
+    teacher_phase(torch, MD, ST, get_config)
+    launches = jamba_phase(torch, MD, FL, dispatch, load_engine, get_config)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fused_lutmu": launches, "s": time.perf_counter() - t0}
+
+
 def main() -> int:
     # cuBLAS reads this when it makes its first handle; the trainer's phase
     # (24) runs under deterministic algorithms, which raise without it
@@ -2685,8 +3163,12 @@ def main() -> int:
     from repro_torch.kernels import lut_aggregate as LA
     from repro_torch.kernels import maddness_encode as ME
     from repro_torch.kernels import ref
+    from repro_torch.models import mamba as MB
     from repro_torch.models import model as MD
+    from repro_torch.models import moe as MOE
+    from repro_torch.runtime import steps as ST
     from repro_torch.serving import SpeculativeEngine, load_engine
+    from repro_torch.serving import engine as ES
     from repro_torch.serving import sampling as S
     from repro_torch.serving import speculative as SPEC
 
@@ -2773,7 +3255,12 @@ def main() -> int:
     for h in handles:
         print(f"  req {h.request_id}: {h.prompt} -> {h.generated}")
     plain_streams = [list(h.generated) for h in handles]
+    phase5 = {"tok_s": n_tok / dt, "ttft": sum(ttft) / len(ttft),
+              "graph_nodes": engine.stats["graph_nodes"]}
     del engine, handles
+    # 25 (a). the fixed-slot engine on the same 40-layer params
+    fixed = fixed_qwen_phase(torch, cfg, params, MD, load_engine, FL,
+                             dispatch, plain_streams, phase5)
     profile = profile_phase(torch, cfg, params, MD, load_engine)
     # 16. the same serve sampled, and the sampler's share of a step
     _, sampled_streams = sampled_serve_phase(torch, cfg, params, load_engine,
@@ -2962,6 +3449,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_phase(torch)
     print(f"[case] phases 22-24 in {time.perf_counter() - t_case:.1f}s",
+          flush=True)
+
+    # 25 (b)-(e). the non-paged families and MoE at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = families_phase(torch, (MD, MB, MOE, ES, ST, FL, dispatch),
+                         load_engine, get_config)
+    launches["fused_lutmu"] += fixed["fused_lutmu"] + fam["fused_lutmu"]
+    print(f"[families] phase 25 in {fixed['s'] + fam['s']:.1f}s ((a) "
+          f"{fixed['s']:.1f}s, (b)-(e) {fam['s']:.1f}s); fused_lutmu "
+          f"launches (a) {fixed['fused_lutmu']} (e) {fam['fused_lutmu']}",
           flush=True)
 
     lutmu_shape = "down C=2176 N=5120, B=4, int8"

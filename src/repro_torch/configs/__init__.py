@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's launchers.
 
-The port serves the dense paged path first, so only ``qwen3-14b`` is
-registered; the other architectures join with their families.
+The ten architectures of the JAX package's registry, copied as data: the
+same published numbers and the same ``reduced()`` twins.
 """
 from __future__ import annotations
 
@@ -11,7 +11,16 @@ from typing import Dict
 from repro_torch.models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "qwen2.5-32b": "repro_torch.configs.qwen25_32b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,8 +1,9 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve``.
 
 Random-initialises serving params from a seeded ``torch.Generator`` on the
-device and drives the paged continuous-batching engine over a synthetic
-request stream; with ``--amm`` the MLPs run through the LUT-MU path, and
+device and drives a continuous-batching engine over a synthetic request
+stream: the paged engine for the families with a paged KV layout, fixed
+slots for the others (SSM, hybrid, enc-dec) or with ``--engine fixed``; with ``--amm`` the MLPs run through the LUT-MU path, and
 with ``--artifact`` the compiled tables of an ``amm_lm`` artifact or of a
 target+draft bundle are spliced into the dense params (both packages'
 artifacts load; ``--speculative`` serves a bundle's two halves, and
@@ -15,6 +16,10 @@ Examples:
   # on the CPU, reduced widths (the kernels' plain versions)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --reduced --amm --device cpu
+
+  # an SSM stack through the fixed-slot engine
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --reduced --engine fixed --device cpu
 
   # speculative serving of a bundle compiled in process (int8 target,
   # int4 draft, calibrated on 8 x 32 TokenStream tokens)
@@ -137,10 +142,11 @@ def main(argv=None) -> None:
                     help="LUT-MU engine backend (kernels.dispatch); 'auto' "
                          "picks per dtype/device")
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--max-batch", type=int, default=2,
-                    help="decode batch rows")
-    ap.add_argument("--slots", type=int, default=None,
-                    help="fixed-slot engine slots (ROADMAP A10)")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="decode batch rows (continuous-batching engine); "
+                         "also the slot count of the fixed-slot engine")
+    ap.add_argument("--slots", type=int, default=2,
+                    help="deprecated alias of --max-batch")
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16,
@@ -152,8 +158,9 @@ def main(argv=None) -> None:
                          "max_batch*ceil(max_len/page_size) turns on "
                          "eviction (host swap) under pressure")
     ap.add_argument("--engine", choices=("paged", "fixed"), default=None,
-                    help="force an engine; only the paged engine is ported "
-                         "(fixed slots: ROADMAP A10)")
+                    help="force an engine; default: paged (continuous "
+                         "batching) when the family supports it, else fixed "
+                         "slots")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable radix prefix reuse: every request "
                          "prefills from scratch")
@@ -239,9 +246,6 @@ def main(argv=None) -> None:
     if args.mesh:
         raise SystemExit("--mesh: multi-device serving is not ported yet "
                          "(ROADMAP A11)")
-    if args.engine == "fixed" or args.slots is not None:
-        raise SystemExit("--engine fixed / --slots: the fixed-slot engine is "
-                         "not ported yet (ROADMAP A10)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -274,13 +278,18 @@ def main(argv=None) -> None:
         rec.profiler = KernelProfiler(rec.registry, tracer=rec.tracer,
                                       every=args.profile_every)
         attach_dispatch_hook(rec.registry)
-    kwargs = dict(max_batch=args.max_batch, max_len=args.max_len,
+    use_paged = (args.engine or
+                 ("paged" if MD.supports_paged(cfg) else "fixed")) == "paged"
+    kwargs = dict(max_batch=args.max_batch or args.slots, max_len=args.max_len,
                   page_size=args.page_size, prefill_chunk=args.prefill_chunk,
                   num_pages=args.num_pages,
                   prefix_cache=not args.no_prefix_cache,
                   verify_backend=args.verify_backend, compute_dtype=dtype,
                   device=device, recorder=rec)
     if args.speculative:
+        if not use_paged:
+            raise SystemExit("--speculative needs the paged engine (family "
+                             "with paged KV, --engine paged)")
         if args.spec_k is not None:
             kwargs["spec_k"] = args.spec_k
         if art_kind == "bundle":

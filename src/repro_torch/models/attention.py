@@ -1,11 +1,13 @@
-"""GQA attention against the paged KV cache (PyTorch), as in
-``repro.models.attention``, and full-sequence causal attention (the quality
-probe's eager replay, ``model.capture_mlp_inputs``).
+"""GQA attention (PyTorch), as in ``repro.models.attention``: full-sequence
+attention (training, scoring, the quality probe's eager replay), prefill
+and decode against the fixed-slot cache, the paged KV cache, and Whisper's
+cross-attention.
 
-Weights are stored flat, ``(D, H·hd)``, as in the JAX package.  The paged
-cache is one layer's ``(P, page_size, n_kv, hd)`` page pool (the last page
-is the engine's trash page); the new tokens' K/V are written into it **in
-place** — the JAX functions return an updated copy instead.
+Weights are stored flat, ``(D, H·hd)``, as in the JAX package.  The slot
+cache is one layer's ``(B, S_max, n_kv, hd)``; the paged cache one layer's
+``(P, page_size, n_kv, hd)`` page pool (the last page is the engine's trash
+page).  The new tokens' K/V are written into either **in place** — the JAX
+functions return an updated copy instead.
 """
 from __future__ import annotations
 
@@ -145,6 +147,63 @@ def attention(params: dict, x: Tensor, cfg: ModelConfig, *,
         out = _direct_attention(qg, k, v, mask)
     out = out.reshape(b, s, nq * hd)
     return out.to(x.dtype) @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the slot cache: prefill and decode (the fixed-slot engine's path)
+# ---------------------------------------------------------------------------
+
+
+def _causal_mask(s: int, window: Optional[int], device) -> Tensor:
+    pos = torch.arange(s, device=device)
+    ok = pos[None, :] <= pos[:, None]
+    if window is not None:
+        ok = ok & (pos[None, :] > pos[:, None] - window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def prefill_with_cache(params: dict, x: Tensor, cfg: ModelConfig,
+                       positions: Tensor, window: Optional[int],
+                       cache_len: int) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """Full-sequence causal attention that also returns the populated KV
+    cache: ``(out (B, S, D), (k, v))`` with k/v ``(B, cache_len, n_kv,
+    hd)``, zero past S."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    qg = _grouped(q, cfg.num_kv_heads)
+    if s >= 4096:
+        out = _chunked_attention(qg, k, v, window, True)
+    else:
+        out = _direct_attention(qg, k, v, _causal_mask(s, window, x.device))
+    out = out.reshape(b, s, -1).to(x.dtype) @ params["wo"].to(x.dtype)
+    pad = (0, 0, 0, 0, 0, cache_len - s)
+    return out, (torch.nn.functional.pad(k, pad),
+                 torch.nn.functional.pad(v, pad))
+
+
+def decode_step(params: dict, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
+                cache_v: Tensor, pos: Tensor, window: Optional[int]) -> Tensor:
+    """One-token decode against a slot cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_max, n_kv, hd), written in place (int8
+    caches quantise on write); pos: (B,) per-row position of the new token
+    (row ``b``'s ``[0:pos[b]]`` is its history), or one position for every
+    row.  The read is the paged path's :func:`FV.decode_attend`.  Returns
+    (B, 1, D).
+    """
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    pos_b = pos.to(torch.int64).reshape(-1).expand(b)
+    q, k, v = _project_qkv(params, x, cfg, pos_b[:, None])
+    if cache_k.dtype == torch.int8:
+        k, v = _quantize_kv_int8(k, v)
+    rows = torch.arange(b, device=x.device)
+    cache_k[rows, pos_b] = k[:, 0].to(cache_k.dtype)  # in place
+    cache_v[rows, pos_b] = v[:, 0].to(cache_v.dtype)
+    out = FV.decode_attend(_grouped(q, nkv), cache_k, cache_v, pos_b, window)
+    out = out.reshape(b, 1, nq * hd).to(x.dtype).contiguous()
+    return out @ params["wo"].to(x.dtype)
 
 
 def _quantize_kv_int8(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
@@ -299,3 +358,51 @@ def paged_verify_window(params: dict, x: Tensor, cfg: ModelConfig,
     wo = params["wo"].to(x.dtype)
     return torch.cat([out[:, j].reshape(b, 1, nq * hd).to(x.dtype)
                       .contiguous() @ wo for j in range(w)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# cross attention (Whisper decoder → encoder states)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn_params(cfg: ModelConfig, gen: torch.Generator,
+                           dtype=torch.float32) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "wq": L.dense_init(gen, d, nq * hd, dtype),
+        "wk": L.dense_init(gen, d, nkv * hd, dtype),
+        "wv": L.dense_init(gen, d, nkv * hd, dtype),
+        "wo": L.dense_init(gen, nq * hd, d, dtype),
+    }
+
+
+def cross_attention(params: dict, x: Tensor, enc: Tensor,
+                    cfg: ModelConfig) -> Tensor:
+    """x: (B, S, D) decoder states; enc: (B, T, D) encoder states →
+    (B, S, D), unmasked."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, nq, hd)
+    k = (enc @ params["wk"].to(x.dtype)).reshape(b, t, nkv, hd)
+    v = (enc @ params["wv"].to(x.dtype)).reshape(b, t, nkv, hd)
+    mask = torch.zeros((s, t), dtype=torch.float32, device=x.device)
+    out = _direct_attention(_grouped(q, nkv), k, v, mask)
+    return out.reshape(b, s, nq * hd).to(x.dtype) @ params["wo"].to(x.dtype)
+
+
+def cross_decode(params: dict, x: Tensor, cross_k: Tensor, cross_v: Tensor,
+                 cfg: ModelConfig) -> Tensor:
+    """One decoder token's cross-attention against the cached encoder K/V
+    ``(B, T, n_kv, hd)``, in float32: x (B, 1, D) → (B, 1, D)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, 1, nq, hd)
+    lg = torch.einsum("bsngh,btnh->bngst", _grouped(q, nkv).float(),
+                      cross_k.float()) * (1.0 / math.sqrt(hd))
+    w = torch.softmax(lg, dim=-1)
+    out = torch.einsum("bngst,btnh->bsngh", w, cross_v.float())
+    return out.reshape(b, 1, nq * hd).to(x.dtype) @ params["wo"].to(x.dtype)

@@ -1,11 +1,18 @@
-"""A uniform dense LM (PyTorch), as in ``repro.models.model``: embeddings
-→ layer stack → head, for training and scoring (:func:`forward`) and for
-chunked prefill and batched decode against the paged KV cache.
+"""Model assembly (PyTorch), as in ``repro.models.model``: embeddings →
+layer stacks → head, for training and scoring (:func:`forward`), for
+prefill and decode against the fixed-slot cache (:func:`prefill`,
+:func:`decode_step`, the fixed-slot engine's path, every family) and for
+chunked prefill, batched decode and speculative verify against the paged
+KV cache (the uniform attention stacks: dense, MoE, VLM).
 
-Params keep the JAX layout: a nested dict whose ``layers`` entries are
-stacked over a leading layer axis ``(L, …)``.  The JAX ``lax.scan`` over
-layers is a Python loop over those stacks, and the paged cache
-``{"k","v"}`` of ``(L, P, page_size, n_kv, hd)`` is updated **in place**.
+Params keep the JAX layout, so ``convert.params_from_jax`` carries any
+family's tree across unchanged: a nested dict whose ``layers`` entries are
+stacked over a leading layer axis ``(L, …)``; Jamba's hybrid stack is one
+such stack per position of its period (``layers["pos{p}"]``, stacked over
+the ``L / period`` groups); Whisper adds an ``encoder`` tree, cross-
+attention in every decoder block and a learned decoder ``pos_embed``.  The
+JAX ``lax.scan`` over layers is a Python loop over those stacks, and every
+cache is updated **in place**.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from repro_torch.kernels.fused_verify import GLOBAL_WINDOW
 from repro_torch.models import amm_mlp as AMM
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -44,33 +53,70 @@ def resolve_verify_backend(backend: str = "auto") -> str:
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """Uniform attention stacks have a paged KV path; SSM, hybrid and
-    enc-dec families do not."""
+    """Families with a paged KV decode path: uniform attention stacks
+    (dense, MoE, VLM backbones).  SSM and hybrid caches are recurrent
+    state; enc-dec keeps its cross-attention cache per slot.  Those
+    families serve through the fixed-slot engine."""
     return not (cfg.family == "ssm" or cfg.is_hybrid or cfg.is_encdec)
 
 
-def _check_uniform_dense(cfg: ModelConfig) -> None:
-    if not supports_paged(cfg) or cfg.is_moe:
-        raise NotImplementedError(
-            f"the port serves uniform dense stacks only, not family "
-            f"{cfg.family!r} (ROADMAP A10)")
+def _check_paged(cfg: ModelConfig, what: str = "decode") -> None:
+    if not supports_paged(cfg):
+        raise ValueError(f"family {cfg.family!r} has no paged {what} path")
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype,
-                serving: bool) -> dict:
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _dense_mlp(cfg: ModelConfig, gen: torch.Generator, dtype) -> dict:
+    d = cfg.d_model
+    return {"w_gate": L.dense_init(gen, d, cfg.d_ff, dtype),
+            "w_up": L.dense_init(gen, d, cfg.d_ff, dtype),
+            "w_down": L.dense_init(gen, cfg.d_ff, d, dtype)}
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator, layer_idx: int,
+                dtype, serving: bool = False) -> dict:
+    """One decoder block's params; ``layer_idx`` decides attention or Mamba
+    and MoE or a dense (or, serving with ``cfg.amm.enabled``, LUT-MU)
+    MLP."""
     d = cfg.d_model
     dev = gen.device
-    p = {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
-         "attn": A.init_attn_params(cfg, gen, dtype),
-         "ln2": torch.zeros((d,), dtype=dtype, device=dev)}
-    if serving and cfg.amm.enabled and "mlp" in cfg.amm.targets:
+    p = {"ln1": torch.zeros((d,), dtype=dtype, device=dev)}
+    if cfg.layer_is_attn(layer_idx):
+        p["attn"] = A.init_attn_params(cfg, gen, dtype)
+    else:
+        p["mamba"] = MB.init_mamba_params(cfg, gen, dtype)
+    if cfg.family == "ssm":
+        return p  # mamba2: one mixer sub-block, no MLP
+    p["ln2"] = torch.zeros((d,), dtype=dtype, device=dev)
+    if cfg.layer_is_moe(layer_idx):
+        p["moe"] = MOE.init_moe_params(cfg, gen, dtype)
+    elif serving and cfg.amm.enabled and "mlp" in cfg.amm.targets:
         p["amm_mlp"] = AMM.init_amm_mlp_params(cfg, gen)
     else:
-        p["mlp"] = {
-            "w_gate": L.dense_init(gen, d, cfg.d_ff, dtype),
-            "w_up": L.dense_init(gen, d, cfg.d_ff, dtype),
-            "w_down": L.dense_init(gen, cfg.d_ff, d, dtype),
-        }
+        p["mlp"] = _dense_mlp(cfg, gen, dtype)
+    return p
+
+
+def _init_encoder_block(cfg: ModelConfig, gen: torch.Generator,
+                        dtype) -> dict:
+    d, dev = cfg.d_model, gen.device
+    return {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
+            "attn": A.init_attn_params(cfg, gen, dtype),
+            "ln2": torch.zeros((d,), dtype=dtype, device=dev),
+            "mlp": _dense_mlp(cfg, gen, dtype)}
+
+
+def _init_decdec_block(cfg: ModelConfig, gen: torch.Generator, idx: int,
+                       dtype) -> dict:
+    """Whisper decoder block: self-attention, cross-attention, MLP."""
+    p = _init_block(cfg, gen, idx, dtype)
+    p["ln_cross"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                device=gen.device)
+    p["cross"] = A.init_cross_attn_params(cfg, gen, dtype)
     return p
 
 
@@ -89,24 +135,49 @@ def _stack_into(dst: Optional[dict], src: dict, l: int, n: int) -> dict:
     return dst
 
 
+def _stacked(make_block: Callable[[], dict], n: int) -> dict:
+    """``n`` blocks stacked on a leading axis, made one at a time (no 2x
+    peak)."""
+    out = None
+    for l in range(n):
+        out = _stack_into(out, make_block(), l, n)
+    return out
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
                 serving: bool = False) -> dict:
-    """Random params of a uniform dense stack, made on ``gen``'s device;
-    with ``serving`` and ``cfg.amm.enabled`` the MLPs are LUT-MU tables.
-    The draws differ from ``jax.random``'s: tests carry JAX params across
-    with ``convert.params_from_jax`` instead."""
-    _check_uniform_dense(cfg)
-    d = cfg.d_model
+    """Random params of any family, made on ``gen``'s device, in the JAX
+    layout; with ``serving`` and ``cfg.amm.enabled`` the dense MLPs are
+    LUT-MU tables.  The draws differ from ``jax.random``'s: tests carry
+    JAX params across with ``convert.params_from_jax`` instead."""
+    d, dev = cfg.d_model, gen.device
     params = {
         "embed": L.embed_init(gen, cfg.vocab_size, d, dtype),
-        "final_norm": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
         "lm_head": L.dense_init(gen, d, cfg.vocab_size, dtype),
     }
-    layers = None
-    for l in range(cfg.num_layers):  # one layer at a time: no 2x peak
-        layers = _stack_into(layers, _init_block(cfg, gen, dtype, serving), l,
-                             cfg.num_layers)
-    params["layers"] = layers
+    if cfg.is_hybrid:
+        period = cfg.attn_every
+        params["layers"] = {
+            f"pos{p}": _stacked(lambda p=p: _init_block(cfg, gen, p, dtype,
+                                                        serving),
+                                cfg.num_layers // period)
+            for p in range(period)}
+    elif cfg.is_encdec:
+        params["encoder"] = {
+            "layers": _stacked(lambda: _init_encoder_block(cfg, gen, dtype),
+                               cfg.encoder_layers),
+            "pos_embed": L.embed_init(gen, cfg.num_frontend_tokens, d, dtype),
+            "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
+        }
+        params["layers"] = _stacked(
+            lambda: _init_decdec_block(cfg, gen, 0, dtype), cfg.num_layers)
+        params["pos_embed"] = L.embed_init(gen, cfg.max_seq_len, d, dtype)
+    else:
+        # uniform: every layer is built as layer ``moe_offset`` is
+        params["layers"] = _stacked(
+            lambda: _init_block(cfg, gen, cfg.moe_offset, dtype, serving),
+            cfg.num_layers)
     return params
 
 
@@ -136,7 +207,9 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd) -> Tensor:
-    """The per-block MLP shared by every serving path (dense or LUT-MU)."""
+    """The per-block MLP shared by every path (MoE, LUT-MU or dense)."""
+    if "moe" in lp:
+        return MOE.moe_apply(lp["moe"], mlp_in, cfg)
     if "amm_mlp" in lp:
         return AMM.amm_mlp_apply(lp["amm_mlp"], mlp_in, cfg)
     m = lp["mlp"]
@@ -144,16 +217,26 @@ def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd) -> Tensor:
                        m["w_down"].to(cd), cfg.act)
 
 
+# ---------------------------------------------------------------------------
+# forward (training / scoring)
+# ---------------------------------------------------------------------------
+
+
 def _block_apply(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
                  window, layer_idx: int, mlp_tap=None) -> Tensor:
-    """One block over a full sequence (no cache): attention, then the MLP
-    (dense or LUT-MU); ``mlp_tap(layer_idx, mlp_in)`` sees each MLP input.
-    Mamba and MoE blocks are not ported (ROADMAP A10)."""
-    if "mamba" in lp or "moe" in lp:
-        raise NotImplementedError(
-            "Mamba and MoE blocks are not ported yet (ROADMAP A10)")
-    h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                        cfg, positions=positions, window=window)
+    """One block over a full sequence (no cache): the mixer (attention or
+    Mamba), then the MLP (MoE, LUT-MU or dense) unless the block has none;
+    ``mlp_tap(layer_idx, mlp_in)`` sees each MLP input."""
+    if "mamba" in lp:
+        h = h + MB.mamba_forward(lp["mamba"],
+                                 L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
+        if "ln2" not in lp:
+            return h
+    else:
+        h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                            cfg, positions=positions, window=window)
+    if "ln_cross" in lp:
+        return h  # the enc-dec decoder applies cross-attention itself
     mlp_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if mlp_tap is not None:
         mlp_tap(layer_idx, mlp_in)
@@ -172,33 +255,108 @@ def _layer_views(layers: dict, n: int) -> list:
     return per
 
 
+def _apply(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``remat``
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _run_uniform_stack(cfg: ModelConfig, layers: dict, h: Tensor,
+                       positions: Tensor, remat: bool) -> Tensor:
+    for l, (lp, win) in enumerate(zip(_layer_views(layers, cfg.num_layers),
+                                      window_flags(cfg))):
+        h = _apply(remat, _block_apply, cfg, lp, h, positions, win, l)
+    return h
+
+
+def _run_hybrid_stack(cfg: ModelConfig, layers: dict, h: Tensor,
+                      positions: Tensor, remat: bool) -> Tensor:
+    """Jamba: the period's positions in order, group after group; each
+    layer recomputed on its own in the backward pass when ``remat``."""
+    period = cfg.attn_every
+    n_groups = cfg.num_layers // period
+    views = {f"pos{p}": _layer_views(layers[f"pos{p}"], n_groups)
+             for p in range(period)}
+    for g in range(n_groups):
+        for p in range(period):
+            h = _apply(remat, _block_apply, cfg, views[f"pos{p}"][g], h,
+                       positions, GLOBAL_WINDOW, p)
+    return h
+
+
+def _encoder_block(cfg: ModelConfig, lp: dict, h: Tensor) -> Tensor:
+    t = h.shape[1]
+    h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                        cfg, positions=torch.arange(t, device=h.device)[None],
+                        causal=False, window=None)
+    return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
+                        h.dtype)
+
+
+def _run_encoder(cfg: ModelConfig, enc_params: dict, frames: Tensor,
+                 remat: bool) -> Tensor:
+    """Whisper's bidirectional encoder over the frame embeddings
+    ``(B, T, D)``."""
+    t = frames.shape[1]
+    h = frames + enc_params["pos_embed"][:t].to(frames.dtype)
+    for lp in _layer_views(enc_params["layers"], cfg.encoder_layers):
+        h = _apply(remat, _encoder_block, cfg, lp, h)
+    return L.rms_norm(h, enc_params["final_norm"], cfg.norm_eps)
+
+
+def _decdec_block(cfg: ModelConfig, lp: dict, h: Tensor, enc: Tensor,
+                  positions: Tensor) -> Tensor:
+    h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                        cfg, positions=positions, window=None)
+    h = h + A.cross_attention(lp["cross"],
+                              L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+                              enc, cfg)
+    return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
+                        h.dtype)
+
+
+def _run_encdec_decoder(cfg: ModelConfig, layers: dict, h: Tensor,
+                        enc: Tensor, positions: Tensor,
+                        remat: bool) -> Tensor:
+    for lp in _layer_views(layers, cfg.num_layers):
+        h = _apply(remat, _decdec_block, cfg, lp, h, enc, positions)
+    return h
+
+
 def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
             remat: bool = True, compute_dtype=torch.bfloat16,
             extra_embeds: Optional[Tensor] = None) -> Tensor:
-    """tokens (B, S) → logits (B, S, V) float32, differentiable: the
-    training and scoring forward of a uniform dense stack.  ``remat``
-    recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
-    activations.  Hybrid, encoder, enc-dec and MoE stacks and frontend
-    embeddings are not ported (ROADMAP A10)."""
-    _check_uniform_dense(cfg)
-    if extra_embeds is not None:
-        raise NotImplementedError(
-            "frontend embeddings (VLM, enc-dec) are not ported yet "
-            "(ROADMAP A10)")
+    """tokens (B, S) [+ frontend embeddings (B, T, D)] → logits (B, S, V)
+    float32, differentiable: the training and scoring forward of every
+    family.  For enc-dec (Whisper) ``extra_embeds`` are the encoder's input
+    frames; for a VLM they are patch embeddings prepended to the tokens
+    (logits over the text positions only).  ``remat`` recomputes each layer
+    in the backward pass instead of keeping its activations."""
     cd = compute_dtype
     tokens = tokens.to(torch.int64)
     b, s = tokens.shape
+    dev = tokens.device
     h = params["embed"].to(cd)[tokens]
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    for l, (lp, win) in enumerate(zip(
-            _layer_views(params["layers"], cfg.num_layers),
-            window_flags(cfg))):
-        if remat:
-            h = checkpoint(_block_apply, cfg, lp, h, positions, win, l,
-                           use_reentrant=False)
-        else:
-            h = _block_apply(cfg, lp, h, positions, win, l)
+    if cfg.is_encdec:
+        if extra_embeds is None:
+            raise ValueError("an enc-dec model needs its frame embeddings "
+                             "(extra_embeds)")
+        enc = _run_encoder(cfg, params["encoder"], extra_embeds.to(cd), remat)
+        h = h + params["pos_embed"][:s].to(cd)
+        positions = torch.arange(s, device=dev).expand(b, s)
+        h = _run_encdec_decoder(cfg, params["layers"], h, enc, positions,
+                                remat)
+    else:
+        if extra_embeds is not None:  # VLM: prepend the patch embeddings
+            h = torch.cat([extra_embeds.to(cd), h], dim=1)
+        s_tot = h.shape[1]
+        positions = torch.arange(s_tot, device=dev).expand(b, s_tot)
+        run = _run_hybrid_stack if cfg.is_hybrid else _run_uniform_stack
+        h = run(cfg, params["layers"], h, positions, remat)
+        if extra_embeds is not None:
+            h = h[:, extra_embeds.shape[1]:]
     return _head(params, h, cfg, cd)
 
 
@@ -235,6 +393,208 @@ def _head(params: dict, h: Tensor, cfg: ModelConfig, cd) -> Tensor:
     return (h @ params["lm_head"].to(cd)).to(torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# serving against the fixed-slot cache: init, prefill, decode (every family)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """The fixed-slot cache of ``batch`` rows: attention K/V ``(L, B,
+    max_len, n_kv, hd)``, Mamba state ``{"conv", "ssm"}`` per layer; the
+    hybrid stack one of these per position of its period (``(L / period,
+    B, …)``); enc-dec adds the cross-attention K/V ``(L, B, T, n_kv, hd)``
+    and the encoder states ``(B, T, D)``."""
+    hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def attn_cache(n_layers):
+        return {"k": zeros(n_layers, batch, max_len, nkv, hd),
+                "v": zeros(n_layers, batch, max_len, nkv, hd)}
+
+    def mamba_cache(n_layers):
+        mc = MB.init_mamba_cache(cfg, batch, dtype, device)
+        return {"mamba": {k: v[None].repeat((n_layers,) + (1,) * v.dim())
+                          for k, v in mc.items()}}
+
+    if cfg.family == "ssm":
+        return mamba_cache(cfg.num_layers)
+    if cfg.is_hybrid:
+        n_groups = cfg.num_layers // cfg.attn_every
+        return {f"pos{p}": (attn_cache(n_groups) if cfg.layer_is_attn(p)
+                            else mamba_cache(n_groups))
+                for p in range(cfg.attn_every)}
+    if cfg.is_encdec:
+        c = attn_cache(cfg.num_layers)
+        t = cfg.num_frontend_tokens
+        c["cross_k"] = zeros(cfg.num_layers, batch, t, nkv, hd)
+        c["cross_v"] = zeros(cfg.num_layers, batch, t, nkv, hd)
+        c["enc"] = zeros(batch, t, cfg.d_model)
+        return c
+    return attn_cache(cfg.num_layers)
+
+
+def _decode_block(cfg: ModelConfig, lp: dict, h: Tensor, cache: dict,
+                  pos: Tensor, window, cd) -> Tensor:
+    """One uniform or hybrid block of a decode step; ``cache`` is this
+    layer's slice (``{"k", "v"}`` or ``{"mamba": …}``), written in
+    place."""
+    x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if "mamba" in lp:
+        h = h + MB.mamba_decode_step(lp["mamba"], x, cfg, cache["mamba"])
+        if "ln2" not in lp:
+            return h
+    else:
+        h = h + A.decode_step(lp["attn"], x, cfg, cache["k"], cache["v"], pos,
+                              window)
+    return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
+
+
+def _slice(tree: dict, i: int) -> dict:
+    """Entry ``i`` of every stacked leaf of a cache tree (views)."""
+    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+@torch.inference_mode()
+def decode_step(params: dict, token: Tensor, pos: Tensor, cache: dict,
+                cfg: ModelConfig, *, compute_dtype=torch.bfloat16) -> Tensor:
+    """One decode step of any family against the fixed-slot cache.
+
+    token: (B, 1) int; pos: (B,) per-row positions (tokens so far), or one
+    position for every row; cache: :func:`init_cache`'s tree, updated in
+    place.  Returns logits (B, 1, V) float32.
+    """
+    cd = compute_dtype
+    b = token.shape[0]
+    h = params["embed"].to(cd)[token.to(torch.int64)]  # (B, 1, D)
+    if cfg.is_hybrid:
+        period = cfg.attn_every
+        for g in range(cfg.num_layers // period):
+            for p in range(period):
+                key = f"pos{p}"
+                h = _decode_block(cfg, layer_params(params["layers"][key], g),
+                                  h, _slice(cache[key], g), pos, None, cd)
+    elif cfg.is_encdec:
+        pos_b = pos.to(torch.int64).reshape(-1).expand(b)
+        h = h + params["pos_embed"][pos_b][:, None].to(cd)
+        for l in range(cfg.num_layers):
+            lp = layer_params(params["layers"], l)
+            h = h + A.decode_step(lp["attn"],
+                                  L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                                  cache["k"][l], cache["v"][l], pos, None)
+            h = h + A.cross_decode(lp["cross"],
+                                   L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+                                   cache["cross_k"][l], cache["cross_v"][l],
+                                   cfg)
+            h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
+                             cd)
+    else:  # uniform: attention (dense, MoE, VLM) or Mamba (ssm)
+        for l, win in enumerate(window_flags(cfg)):
+            h = _decode_block(cfg, layer_params(params["layers"], l), h,
+                              _slice(cache, l), pos, win, cd)
+    return _head(params, h, cfg, cd)
+
+
+def _stack_caches(caches: list) -> dict:
+    """Per-layer cache trees → one tree stacked on a leading layer axis."""
+    first = caches[0]
+    return {k: (_stack_caches([c[k] for c in caches])
+                if isinstance(first[k], dict)
+                else torch.stack([c[k] for c in caches]))
+            for k in first}
+
+
+def _prefill_block(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
+                   window, max_len: int, cd) -> Tuple[Tensor, dict]:
+    """One uniform or hybrid block over the prompt; returns the new hidden
+    states and this layer's cache."""
+    x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if "mamba" in lp:
+        out, st = MB.mamba_forward(lp["mamba"], x, cfg, return_state=True)
+        h, cache = h + out, {"mamba": st}
+        if "ln2" not in lp:
+            return h, cache
+    else:
+        out, (k, v) = A.prefill_with_cache(lp["attn"], x, cfg, positions,
+                                           window, max_len)
+        h, cache = h + out, {"k": k, "v": v}
+    h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
+    return h, cache
+
+
+@torch.inference_mode()
+def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
+            extra_embeds: Optional[Tensor] = None,
+            compute_dtype=torch.bfloat16) -> Tuple[Tensor, dict]:
+    """Process whole prompts: ``(logits (B, 1, V) float32 at the last
+    position, cache)``, the cache shaped as :func:`init_cache`'s for B rows
+    and ``max_len`` positions.  SSM and hybrid layers run the chunked SSD
+    and keep its final state; ``extra_embeds`` are Whisper's frames or a
+    VLM's prepended patch embeddings (which then take the first cache
+    positions)."""
+    cd = compute_dtype
+    tokens = tokens.to(torch.int64)
+    b, s = tokens.shape
+    dev = tokens.device
+    h = params["embed"].to(cd)[tokens]
+    positions = torch.arange(s, device=dev).expand(b, s)
+    if cfg.is_encdec:
+        if extra_embeds is None:
+            raise ValueError("an enc-dec model needs its frame embeddings "
+                             "(extra_embeds)")
+        enc = _run_encoder(cfg, params["encoder"], extra_embeds.to(cd),
+                           remat=False)
+        h = h + params["pos_embed"][:s].to(cd)
+        nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        per = []
+        for l in range(cfg.num_layers):
+            lp = layer_params(params["layers"], l)
+            out, (k, v) = A.prefill_with_cache(
+                lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                positions, None, max_len)
+            h = h + out
+            h = h + A.cross_attention(
+                lp["cross"], L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+                enc, cfg)
+            xk = (enc @ lp["cross"]["wk"].to(cd)).reshape(b, -1, nkv, hd)
+            xv = (enc @ lp["cross"]["wv"].to(cd)).reshape(b, -1, nkv, hd)
+            h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
+                             cd)
+            per.append({"k": k, "v": v, "cross_k": xk, "cross_v": xv})
+        cache = dict(_stack_caches(per), enc=enc)
+    elif cfg.is_hybrid:
+        period = cfg.attn_every
+        per = {f"pos{p}": [] for p in range(period)}
+        for g in range(cfg.num_layers // period):
+            for p in range(period):
+                key = f"pos{p}"
+                h, c = _prefill_block(cfg, layer_params(params["layers"][key],
+                                                        g),
+                                      h, positions, None, max_len, cd)
+                per[key].append(c)
+        cache = {k: _stack_caches(v) for k, v in per.items()}
+    else:
+        if extra_embeds is not None:  # VLM: prepend the patch embeddings
+            h = torch.cat([extra_embeds.to(cd), h], dim=1)
+            positions = torch.arange(h.shape[1], device=dev).expand(
+                b, h.shape[1])
+        per = []
+        for l, win in enumerate(window_flags(cfg)):
+            h, c = _prefill_block(cfg, layer_params(params["layers"], l), h,
+                                  positions, win, max_len, cd)
+            per.append(c)
+        cache = _stack_caches(per)
+    return _head(params, h[:, -1:], cfg, cd), cache
+
+
+# ---------------------------------------------------------------------------
+# serving against the paged KV cache (uniform attention stacks)
+# ---------------------------------------------------------------------------
+
+
 @torch.inference_mode()
 def paged_decode_step(params: dict, token: Tensor, pos: Tensor,
                       page_table: Tensor, cache: Dict[str, Tensor],
@@ -247,7 +607,7 @@ def paged_decode_step(params: dict, token: Tensor, pos: Tensor,
     cache: ``{"k","v"}`` of (L, P, page_size, n_kv, hd), updated in place.
     Returns logits (B, 1, V) float32.
     """
-    _check_uniform_dense(cfg)
+    _check_paged(cfg, "decode")
     cd = compute_dtype
     h = params["embed"].to(cd)[token.to(torch.int64)]  # (B, 1, D)
     for l, win in enumerate(window_flags(cfg)):
@@ -275,7 +635,7 @@ def paged_prefill_chunk(params: dict, tokens: Tensor, start, n_valid,
     (1, 1, V) float32 at the chunk's last valid position (position 0 when
     ``n_valid`` is 0, a chunk that writes only the trash page).
     """
-    _check_uniform_dense(cfg)
+    _check_paged(cfg, "prefill")
     cd = compute_dtype
     start = torch.as_tensor(start, device=tokens.device)
     n_valid = torch.as_tensor(n_valid, device=tokens.device)
@@ -332,7 +692,7 @@ def _paged_verify_step_fused(params: dict, tokens: Tensor, pos: Tensor,
     """Layer-major verify window (see :func:`paged_verify_step`): per layer
     ``attention.paged_verify_window``, then the MLP and finally the head
     per token at ``(B, 1, D)``."""
-    _check_uniform_dense(cfg)
+    _check_paged(cfg, "decode")
     cd = compute_dtype
     w = tokens.shape[1]
     h = params["embed"].to(cd)[tokens.to(torch.int64)]  # (B, W, D)

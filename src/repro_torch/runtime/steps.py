@@ -1,11 +1,13 @@
-"""Train steps, as in ``repro.runtime.steps``.
+"""Train, prefill and decode steps, as in ``repro.runtime.steps``.
 
 ``make_train_step`` builds the step the trainer runs: the loss of
 ``models.model.forward`` in the compute dtype (float32 master weights of
 two or more dims cast first), float32 gradients accumulated over
-``cfg.grad_accum`` microbatches, global-norm clipping and AdamW.  The
-prefill and decode step builders wait for the non-paged serving path
-(ROADMAP A10).
+``cfg.grad_accum`` microbatches, global-norm clipping and AdamW.
+``make_prefill_step`` and ``make_decode_step`` build the fixed-slot
+cache's serving steps (``models.model.prefill`` and ``decode_step``);
+a batch's ``"frontend"`` entry is the frontend embeddings (Whisper's
+frames, a VLM's patches).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ def make_loss_fn(cfg: ModelConfig, remat: bool = True,
                 lambda a: a.to(compute_dtype)
                 if a.dtype == torch.float32 and a.dim() >= 2 else a, params)
         logits = MD.forward(params, batch["tokens"], cfg, remat=remat,
+                            extra_embeds=batch.get("frontend"),
                             compute_dtype=compute_dtype)
         return L.softmax_cross_entropy(logits, batch["labels"])
     return loss_fn
@@ -104,3 +107,24 @@ def make_train_step(cfg: ModelConfig, lr_schedule: Callable[[Tensor], Tensor],
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int,
+                      compute_dtype=torch.bfloat16):
+    """``(params, batch) → (logits (B, 1, V), cache)``: the prompts of
+    ``batch["tokens"]`` (and ``batch["frontend"]`` where the family takes
+    one) into a fresh cache of ``max_len`` positions."""
+    def prefill_step(params, batch):
+        return MD.prefill(params, batch["tokens"], cfg, max_len,
+                          extra_embeds=batch.get("frontend"),
+                          compute_dtype=compute_dtype)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    """``(params, token, pos, cache) → logits (B, 1, V)``, the cache
+    advanced in place."""
+    def decode_step(params, token, pos, cache):
+        return MD.decode_step(params, token, pos, cache, cfg,
+                              compute_dtype=compute_dtype)
+    return decode_step

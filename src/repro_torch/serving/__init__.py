@@ -1,12 +1,15 @@
 """Public serving surface of the port: :func:`load_engine` builds the
-paged :class:`ServeEngine` from params, an ``amm_lm`` artifact or a bundle's
-target half, or a :class:`SpeculativeEngine` (draft-propose / target-verify
-rounds on top of it) from a bundle or an artifact pair; ``submit()`` returns
+paged :class:`ServeEngine` (or, for the families without a paged layout or
+with ``engine="fixed"``, the :class:`FixedSlotEngine`) from params, an
+``amm_lm`` artifact or a bundle's target half, or a
+:class:`SpeculativeEngine` (draft-propose / target-verify rounds on top of
+the paged engine) from a bundle or an artifact pair; ``submit()`` returns
 a :class:`RequestHandle`.  :class:`AsyncServer` serves an engine over HTTP;
 a :class:`Recorder` (with an optional :class:`KernelProfiler` and
 :class:`QualityProbe`) observes it.
 """
-from repro_torch.serving.engine import Request, ServeEngine  # noqa: F401
+from repro_torch.serving.engine import (FixedSlotEngine, Request,  # noqa: F401
+                                        ServeEngine, make_engine)
 from repro_torch.serving.handle import RequestHandle  # noqa: F401
 from repro_torch.serving.http import AsyncServer  # noqa: F401
 from repro_torch.serving.kv_cache import (PageAllocator, PagedKVCache,  # noqa: F401
@@ -32,7 +35,9 @@ __all__ = [
     "AsyncServer",
     # engines (constructors are public; prefer load_engine)
     "ServeEngine",
+    "FixedSlotEngine",
     "SpeculativeEngine",
+    "make_engine",
     # request/sampling types
     "Request",
     "SamplingParams",

@@ -21,6 +21,14 @@ dense params.  ``speculative.py`` subclasses the engine
 through its per-step hooks: ``_swap_out``/``_swap_in``, ``_clone_pages``
 and ``_run_decode``, and its own programs.
 
+:class:`FixedSlotEngine` is the port of the JAX fixed-slot engine: one
+``(L, slots, max_len, …)`` cache, whole-prompt eager prefill on admission
+and one batched decode per step, the decode a ``StepProgram`` over the
+cache captured once.  It is the paged engine's differential oracle (their
+streams are equal, dense and int-LUT) and the serving path of the families
+without a paged layout: SSM, hybrid, enc-dec.  ``load_engine`` (and the
+deprecated :func:`make_engine`) pick the engine by family.
+
 Observability (``obs.py``): ``recorder=`` threads one recorder through the
 scheduler, the cache and its allocator, and the engine's own hook sites,
 the JAX engine's: request lifecycle, prefill and decode spans, tokens, pool
@@ -35,7 +43,9 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import List, Optional
+import warnings
+from collections import deque
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -127,7 +137,8 @@ class ServeEngine:
                  device="cuda", verify_backend: str = "auto", recorder=None):
         if not MD.supports_paged(cfg):
             raise ValueError(
-                f"family {cfg.family!r} has no paged decode path")
+                f"family {cfg.family!r} has no paged decode path — serve it "
+                "with FixedSlotEngine")
         self.cfg = cfg
         # speculative verify-window implementation, resolved once (env
         # override included); the plain engine never verifies but keeps it
@@ -417,3 +428,271 @@ class ServeEngine:
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)
+
+
+def _splice_slot(full: dict, one: dict, slot: int, slots: int) -> None:
+    """Copy a one-row prefill cache into row ``slot`` of the engine's
+    cache, in place (the captured decode program reads these buffers):
+    every leaf with a slot axis (``one.dim() >= 2 and full.shape[1] ==
+    slots``, the JAX engine's rule), cast to the leaf's type."""
+    for k, f in full.items():
+        o = one[k]
+        if isinstance(f, dict):
+            _splice_slot(f, o, slot, slots)
+        elif o.dim() >= 2 and f.shape[1] == slots:
+            f[:, slot].copy_(o[:, 0].to(f.dtype))
+
+
+class FixedSlotEngine:
+    """Continuous batching over fixed decode slots: one ``(L, slots,
+    max_len, …)`` cache and whole-prompt eager prefill on admission.  The
+    paged engine's differential-test oracle, and the serving path for the
+    SSM, hybrid and enc-dec families.
+
+    Admission is FIFO.  Each step admits into free slots (prefill, the
+    request's first token, the one-row cache copied into its slot), then
+    runs one decode of every slot at its own position — the ``_decode``
+    program, whose inputs are the tokens ``(slots, 1)`` and positions
+    ``(slots,)`` and which updates the cache in place — and retires
+    requests that reach their budget, eos or ``max_len - 1``.  Idle slots
+    decode too, into rows nobody reads.  On the card the program is
+    captured when the engine is made, before any slot holds a request: its
+    eager warm-up writes only idle rows.
+    """
+
+    def __init__(self, params: dict, cfg: ModelConfig, *, slots: int = 4,
+                 max_len: int = 256, compute_dtype=torch.float32,
+                 device="cuda", recorder=None):
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.max_len = max_len
+        self.cd = compute_dtype
+        self.device = resolve_device(device)
+        self.params = params
+        # the same zero-overhead-off observability as ServeEngine (no
+        # scheduler here, so the lifecycle hooks fire from the engine)
+        self.obs = recorder if recorder is not None else NULL_RECORDER
+        self.queue: Deque[Request] = deque()
+        self.active: Dict[int, Request] = {}  # slot -> request
+        self.pos = np.zeros(self.slots, dtype=np.int64)  # next position
+        self._uid = itertools.count()
+        self._driver = None  # a server driver that owns the loop, if any
+        self.stats = {"prefill_calls": 0, "decode_calls": 0}
+        self.cache = MD.init_cache(cfg, self.slots, max_len, compute_dtype,
+                                   self.device)
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        cache, cd = self.cache, compute_dtype
+
+        def decode(token, pos):
+            # each slot decodes at its own position, so staggered
+            # admissions give the streams of sequential decoding
+            return MD.decode_step(params, token, pos, cache, cfg,
+                                  compute_dtype=cd)
+
+        self._decode = self._program(
+            decode, "fixed_decode",
+            {"token": ((self.slots, 1), 0), "pos": ((self.slots,), 0)})
+        self._decode.build()  # now, while every slot is idle
+        self._sample_decode = self._sampler("sample_decode", self.slots)
+        self._sample_prefill = self._sampler("sample_prefill", 1)
+        # the sampler reads a prefill's last logits from one static buffer
+        self._prefill_logits = torch.zeros((1, cfg.vocab_size),
+                                           dtype=torch.float32,
+                                           device=self.device)
+        if self.obs:
+            for site, prog in (("fixed.decode", self._decode),
+                               ("sampling.sample_tokens", self._sample_decode),
+                               ("sampling.sample_tokens",
+                                self._sample_prefill)):
+                self.obs.register_jit_site(site, prog)
+            _bind_quality(self.obs, self.params, self.cfg)
+
+    @classmethod
+    def _from_artifact(cls, artifact_path, params: dict, cfg: ModelConfig,
+                       **kwargs) -> "FixedSlotEngine":
+        """Serve a compiled ``amm_lm`` artifact through fixed slots (see
+        :meth:`ServeEngine._from_artifact`)."""
+        params, cfg = _artifact_params_cfg(artifact_path, params, cfg,
+                                           kwargs.get("device", "cuda"))
+        return cls(params, cfg, **kwargs)
+
+    # -- API -------------------------------------------------------------
+    def submit(self, prompt: List[int],
+               sampling: Optional[SamplingParams] = None, *,
+               max_new_tokens: int = 16, eos_id: Optional[int] = None,
+               priority: int = 0) -> RequestHandle:
+        """Queue a request; returns a :class:`RequestHandle` (the contract
+        of :meth:`ServeEngine.submit`; admission ignores ``priority``)."""
+        del priority  # fixed-slot admission is strictly FIFO
+        if len(prompt) >= self.max_len:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens ≥ max_len {self.max_len}")
+        req = Request(uid=next(self._uid), prompt=list(prompt),
+                      max_new_tokens=max_new_tokens, eos_id=eos_id,
+                      sampling=sampling if sampling is not None
+                      else SamplingParams())
+        self.queue.append(req)
+        if self.obs:
+            self.obs.on_submit(req)
+        return RequestHandle(self, req)
+
+    def cancel(self, uid: int) -> bool:
+        """Drop a queued or active request.  False when the uid is unknown
+        or already finished."""
+        for req in list(self.queue):
+            if req.uid == uid:
+                self.queue.remove(req)
+                return self._mark_cancelled(req)
+        for slot, req in list(self.active.items()):
+            if req.uid == uid:
+                del self.active[slot]
+                return self._mark_cancelled(req)
+        return False
+
+    def _mark_cancelled(self, req: Request) -> bool:
+        req.state = SCH.DONE
+        req.cancelled = True
+        req.done = True
+        if self.obs:
+            self.obs.on_cancel(req)
+        return True
+
+    async def _advance_async(self) -> None:
+        await _step_engine_async(self)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue or self.active)
+
+    def step(self) -> List[Request]:
+        """One engine iteration: admit, one batched decode, retire."""
+        obs = self.obs
+        if obs:
+            prof = getattr(obs, "profiler", None)
+            if prof is not None:
+                prof.tick()
+        finished = self._admit()
+        if not self.active:
+            if obs:
+                obs.poll_jit()
+            return finished
+        token = np.zeros((self.slots, 1), dtype=np.int32)
+        for slot, req in self.active.items():
+            token[slot, 0] = req.generated[-1]
+        rows = list(self.active.items())
+        t0 = obs.now() if obs else 0.0
+        logits = _profiled_call(obs, "fixed.decode", self._decode,
+                                token=token, pos=self.pos.astype(np.int32))
+        self.stats["decode_calls"] += 1
+        nxt = self._sample(logits[:, 0], rows, self._sample_decode)
+        if obs:
+            t1 = obs.now()
+            obs.on_decode(rows, t0, t1)
+        for slot, req in rows:
+            tok = int(nxt[slot])
+            req.generated.append(tok)
+            self.pos[slot] += 1
+            if obs:
+                obs.on_tokens(req, 1, t1)
+            # a slot retires at max_len - 1, so every position an idle
+            # slot decodes at stays inside the cache
+            if (len(req.generated) >= req.max_new_tokens
+                    or (req.eos_id is not None and tok == req.eos_id)
+                    or self.pos[slot] >= self.max_len - 1):
+                self._retire(req, finished)
+                del self.active[slot]
+        if obs:
+            obs.poll_jit()
+        return finished
+
+    def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
+        """Step until idle; raise rather than return a partial result when
+        the step budget runs out with requests still live."""
+        done: List[Request] = []
+        for _ in range(max_steps):
+            done.extend(self.step())
+            if not self.has_work:
+                return done
+        raise RuntimeError(
+            f"run_until_drained: {max_steps} steps exhausted with "
+            f"{len(self.queue) + len(self.active)} request(s) still live "
+            f"({len(done)} finished) — raise max_steps for longer "
+            "workloads, or investigate a stuck schedule")
+
+    # -- internals ---------------------------------------------------------
+    _program = ServeEngine._program
+    _sampler = ServeEngine._sampler
+    _sample = ServeEngine._sample
+
+    def _retire(self, req: Request, finished: List[Request]) -> None:
+        req.done = True
+        req.state = SCH.DONE
+        finished.append(req)
+        if self.obs:
+            self.obs.on_finish(req)
+
+    def _admit(self) -> List[Request]:
+        """Fill free slots: each admitted prompt is prefilled alone and its
+        one-row cache copied into its slot."""
+        finished: List[Request] = []
+        free = [s for s in range(self.slots) if s not in self.active]
+        obs = self.obs
+        while free and self.queue:
+            slot = free.pop(0)
+            req = self.queue.popleft()
+            req.state = SCH.RUNNING  # for RequestHandle.status
+            if obs:
+                obs.on_admit(req)
+                t0 = obs.now()
+            tokens = torch.tensor([req.prompt], dtype=torch.int32,
+                                  device=self.device)
+            logits, one = MD.prefill(self.params, tokens, self.cfg,
+                                     self.max_len, compute_dtype=self.cd)
+            with torch.inference_mode():
+                _splice_slot(self.cache, one, slot, self.slots)
+                self._prefill_logits.copy_(logits[0, -1:])
+            del one
+            self.stats["prefill_calls"] += 1
+            req.generated.append(int(self._sample(
+                self._prefill_logits, [(0, req)], self._sample_prefill)[0]))
+            if obs:
+                t1 = obs.now()
+                obs.on_prefill(req, 0, len(req.prompt), t0, t1)
+                obs.on_tokens(req, 1, t1, source="prefill")
+            if req.budget_reached(self.max_len):
+                self._retire(req, finished)
+                free.insert(0, slot)
+                continue
+            self.active[slot] = req
+            self.pos[slot] = len(req.prompt)
+        return finished
+
+
+def _family_engine(params: dict, cfg: ModelConfig, **kwargs):
+    """The paged engine when the family has a paged KV layout, else fixed
+    slots (``max_batch`` becomes ``slots``; the paged-only knobs go)."""
+    if MD.supports_paged(cfg):
+        return ServeEngine(params, cfg, **kwargs)
+    return FixedSlotEngine(params, cfg, **_fixed_kwargs(kwargs))
+
+
+def _fixed_kwargs(kwargs: dict) -> dict:
+    """A paged engine's keywords for :class:`FixedSlotEngine`: ``max_batch``
+    becomes ``slots``, the paged-only knobs are dropped (in place)."""
+    slots = kwargs.pop("max_batch", None)
+    if slots is not None:
+        kwargs.setdefault("slots", slots)
+    for k in ("page_size", "prefill_chunk", "num_pages", "prefix_cache",
+              "verify_backend"):
+        kwargs.pop(k, None)
+    return kwargs
+
+
+def make_engine(params: dict, cfg: ModelConfig, **kwargs):
+    """Deprecated: use :func:`repro_torch.serving.load_engine` (``source=
+    None`` gives the same family dispatch)."""
+    warnings.warn(
+        "make_engine is deprecated; use repro_torch.serving.load_engine("
+        "None, params, cfg, ...)", DeprecationWarning, stacklevel=2)
+    return _family_engine(params, cfg, **kwargs)

@@ -22,7 +22,10 @@ sampled round and the sampler programs, each replay bit-equal to
 ``sampled_round`` or ``sample_tokens`` called eagerly on the same inputs.
 With a recorder and a kernel profiler attached, the replays stay bit-equal
 to their eager twins, every program builds once, and a profiled step
-synchronises the device while an unprofiled one does not.
+synchronises the device while an unprofiled one does not.  The
+fixed-slot engine's decode program is checked the same way on a dense
+(LUT-MU), an SSM, a hybrid (LUT-MU in its dense layers) and an MoE stack:
+every slot's logits and the whole cache, which has no trash page.
 """
 import dataclasses
 
@@ -35,9 +38,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused_lutmu as FL
 from repro_torch.kernels import fused_verify as FV
 from repro_torch.models import model as MD
-from repro_torch.serving import (KernelProfiler, Recorder, SamplingParams,
-                                 ServeEngine, SpeculativeEngine,
-                                 validate_chrome_trace, validate_prometheus)
+from repro_torch.serving import (FixedSlotEngine, KernelProfiler, Recorder,
+                                 SamplingParams, ServeEngine,
+                                 SpeculativeEngine, validate_chrome_trace,
+                                 validate_prometheus)
 from repro_torch.serving import sampling as S
 from repro_torch.serving.programs import StepProgram
 from repro_torch.serving.speculative import (greedy_round, prefill_pair,
@@ -415,3 +419,59 @@ def test_profiled_step_syncs_and_unprofiled_does_not(model, monkeypatch):
     assert all(d % 2 == 0 for active, d in steps if active), steps
     assert any(active and d >= 2 for active, d in steps), steps
     assert eng._decode.builds == eng._prefill.builds == 1
+
+
+def _tree_clone(t):
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in t.items()}
+
+
+def _tree_equal(a, b):
+    return all(_tree_equal(a[k], b[k]) if isinstance(a[k], dict)
+               else torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-370m",
+                                  "jamba-1.5-large-398b", "mixtral-8x7b"])
+def test_fixed_engine_replays_equal_eager(model, arch):
+    """Staggered admission into 3 slots, greedy and sampled requests, one
+    cancelled while active: every ``fixed_decode`` replay bit-equal to
+    eager ``MD.decode_step`` on a copy of the cache taken just before it,
+    each sampler replay to ``sample_tokens``."""
+    if arch == "qwen3-14b":
+        cfg, params, _ = model
+    else:
+        cfg = get_config(arch, reduced=True)
+        cfg = dataclasses.replace(cfg, amm=dataclasses.replace(
+            cfg.amm, enabled=cfg.is_hybrid, backend="auto"))
+        params = MD.init_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(1), CD, serving=True)
+    eng = FixedSlotEngine(params, cfg, slots=3, max_len=48,
+                          compute_dtype=CD, device="cuda")
+    prog, record = eng._decode, []
+
+    def call(**arrays):
+        before = _tree_clone(eng.cache)
+        out = prog(**arrays)
+        want = MD.decode_step(params, _dev(arrays["token"]),
+                              _dev(arrays["pos"]), before, cfg,
+                              compute_dtype=CD)
+        torch.cuda.synchronize()
+        assert prog.graph is not None
+        assert torch.equal(out, want) and _tree_equal(eng.cache, before)
+        record.append(1)
+        return out  # the static output: the sampler reads it in place
+
+    eng._decode = call
+    s_log = []
+    eng._sample_decode = _sample_twin(eng._sample_decode, s_log)
+    hs = [eng.submit(p[:20], _sampled(i), max_new_tokens=6)
+          for i, p in enumerate(PROMPTS)]
+    eng.step()
+    assert hs[1].cancel() and hs[1].status == "cancelled"
+    eng.run_until_drained()
+    assert all(h.done for h in hs) and not eng.has_work
+    assert all(len(h.generated) == 6 for i, h in enumerate(hs) if i != 1)
+    assert len(record) >= 6 and s_log, (len(record), s_log)
+    assert eng.stats["graph_nodes"]["fixed_decode"] > 0

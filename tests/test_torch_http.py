@@ -310,7 +310,17 @@ def test_launcher_observability_flags(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--slots", "2"], "A10"), (["--mesh", "2x2"], "A11")])
-def test_launcher_unported_flags_name_their_item(flag, item):
+    pytest.param(["--slots", "2"], None, id="flag0-A10"),
+    (["--mesh", "2x2"], "A11")])
+def test_launcher_unported_flags_name_their_item(flag, item, capsys):
+    """``--mesh`` names its ROADMAP item.  ``--slots`` (A10, refused until
+    ported) now serves: ``--slots 2`` is the deprecated spelling of
+    ``--max-batch 2``, the same streams; with ``--engine fixed`` too."""
+    if item is None:
+        _, slots = _launch(capsys, flag)
+        assert len(slots) == 3
+        assert _launch(capsys, ["--max-batch", "2"])[1] == slots
+        assert _launch(capsys, flag + ["--engine", "fixed"])[1] == slots
+        return
     with pytest.raises(SystemExit, match=item):
         port_serve.main(_LAUNCH + flag)

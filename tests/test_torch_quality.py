@@ -273,8 +273,24 @@ def test_full_sequence_attention_matches_jax(art, window, s, chunk):
 
 
 def test_block_apply_refuses_unported_blocks(art):
-    with pytest.raises(NotImplementedError, match="A10"):
-        MD._block_apply(art["tcfg"], {"moe": {}}, None, None, None, 0)
+    """A ``moe`` block (ROADMAP A10, refused until ported) now computes:
+    one mixtral block (attention + MoE, reduced) equals JAX's
+    ``_block_apply`` on the same params and input within 1e-5."""
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    jlp = JMD._init_block(cfg, jax.random.PRNGKey(7), 0, jnp.float32)
+    assert "moe" in jlp
+    x = np.random.default_rng(8).standard_normal(
+        (2, 6, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(6), (2, 6))
+    want = JMD._block_apply(cfg, jlp, jnp.asarray(x), jnp.asarray(pos), 8,
+                            JMD._id, 0)
+    got = MD._block_apply(config_from_jax(cfg),
+                          params_from_jax(jax.tree.map(np.asarray, jlp),
+                                          device="cpu"),
+                          torch.from_numpy(x), torch.from_numpy(pos.copy()), 8,
+                          0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
     ssm = config_from_jax(get_config("mamba2-370m", reduced=True))
     with pytest.raises(ValueError, match="uniform attention"):
         MD.capture_mlp_inputs({}, np.zeros((1, 2), np.int32), ssm)

@@ -36,8 +36,8 @@ from repro_torch.convert import config_from_jax, params_from_jax
 from repro_torch.launch import serve as port_serve
 from repro_torch.models.amm_mlp import init_amm_mlp_params
 from repro_torch.models.model import init_params as port_init_params
-from repro_torch.serving import (PageError, SamplingParams, ServeEngine,
-                                 load_engine)
+from repro_torch.serving import (FixedSlotEngine, PageError, SamplingParams,
+                                 ServeEngine, load_engine)
 
 PROMPTS = [[1, 2, 3], [7, 5], [9, 9, 9, 2], [4, 4, 1, 1, 5, 6, 7],
            list(range(1, 18))]
@@ -231,9 +231,17 @@ def test_load_engine_source_errors_match_jax(lm_arts, case):
         load_engine(source, lm_arts["tparams"], lm_arts["tcfg"], **kw,
                     **_port_opts())
     assert type(terr.value) is type(jerr.value)
-    with pytest.raises(NotImplementedError, match="A10"):
-        load_engine(path, lm_arts["tparams"], lm_arts["tcfg"], engine="fixed",
-                    **_port_opts())
+    # engine="fixed" on an artifact (ROADMAP A10, refused until ported):
+    # fixed slots serving the artifact's tables, JAX's streams
+    fixed = load_engine(path, lm_arts["tparams"], lm_arts["tcfg"],
+                        engine="fixed", **_port_opts())
+    assert type(fixed) is FixedSlotEngine and fixed.cfg.amm.enabled
+    assert fixed.slots == KNOBS["max_batch"]
+    if case == "bad_engine":  # one case serves both packages' fixed engines
+        want = _streams(jax_load_engine(path, lm_arts["params"],
+                                        lm_arts["cfg"], engine="fixed",
+                                        **KNOBS))
+        assert _streams(fixed) == want
 
 
 # ---------------------------------------------------------------------------
@@ -292,15 +300,26 @@ def test_launcher_serves_artifact_and_bundle(launcher_arts, capsys):
 
 @pytest.mark.parametrize("extra,message", [
     (["--mesh", "2x2"], "A11"),
-    (["--engine", "fixed"], "A10"),
+    pytest.param(["--engine", "fixed"], None, id="extra1-A10"),
     (["--speculative", "--amm"], "drop --amm"),
     (["--speculative", "--artifact", "ART"], "needs a target\\+draft bundle"),
     (["--artifact", "MISSING"], "cannot read artifact"),
 ])
-def test_launcher_exits_where_not_ported(launcher_arts, extra, message):
+def test_launcher_exits_where_not_ported(launcher_arts, extra, message,
+                                         capsys):
+    """Each flag the port refuses names why.  ``--engine fixed`` (ROADMAP
+    A10, refused until ported) now serves: the artifact through fixed
+    slots gives the paged engine's streams."""
     extra = [str(launcher_arts / "art") if a == "ART" else
              str(launcher_arts / "missing") if a == "MISSING" else a
              for a in extra]
+    if message is None:
+        art = ["--artifact", str(launcher_arts / "art")]
+        port_serve.main(BASE_ARGS + art + extra)
+        fixed = _served(capsys.readouterr().out, 2)
+        port_serve.main(BASE_ARGS + art)
+        assert fixed == _served(capsys.readouterr().out, 2)
+        return
     with pytest.raises(SystemExit, match=message):
         port_serve.main(BASE_ARGS + extra)
 

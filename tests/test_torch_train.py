@@ -173,9 +173,19 @@ def test_forward_loss_grads_match_jax_and_remat(tiny):
                          compute_dtype=torch.float32)
     assert logits.shape == (4, 16, jcfg.vocab_size)
     assert logits.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="A10"):
-        TMD.forward(params_from_jax(jp, "cpu"), tb["tokens"],
-                    dataclasses.replace(tcfg, family="hybrid", attn_every=2))
+    # a hybrid stack (ROADMAP A10, refused until ported) now computes:
+    # jamba (reduced, one period) equals JAX's forward, loss and logits
+    hcfg = dataclasses.replace(get_config("jamba-1.5-large-398b",
+                                          reduced=True), num_layers=4)
+    hp = jax.jit(lambda k: JMD.init_params(hcfg, k))(jax.random.PRNGKey(1))
+    hb = _batch(hcfg)
+    hl = JST.make_loss_fn(hcfg, remat=False, compute_dtype=jnp.float32)(
+        hp, {k: jnp.asarray(v) for k, v in hb.items()})
+    tl = TST.make_loss_fn(config_from_jax(hcfg), remat=True,
+                          compute_dtype=torch.float32)(
+        params_from_jax(hp, "cpu"),
+        {k: torch.from_numpy(v) for k, v in hb.items()})
+    np.testing.assert_allclose(float(tl), float(hl), rtol=1e-5)
 
 
 def test_train_step_grad_accum_matches_jax(tiny):
