@@ -203,6 +203,25 @@ Phases, each fatal on failure:
     per dense layer per forward, decode replays bit-equal to eager.  The
     phase's seconds on a line of their own.
 
+26. mesh — (a, after 25 (a)) the sharded serving path on one card:
+    ``make_serve_mesh("1x1", "cuda")`` (NCCL, world of one, a file store
+    in a temporary directory), ``load_engine(None, ..., mesh=mesh)`` serves
+    phase 5's 6 requests x 16 tokens: streams equal phase 5's,
+    ``fused_lutmu`` 120 launches per forward, 3+ decode replays bit-equal
+    to eager ``MD.paged_decode_step(..., par=...)``, the captured decode
+    program's graph nodes beside phase 5's and the NCCL kernels of one
+    replay (profiler); tok/s and TTFT beside phase 5's from the same call;
+    in phase 25 (c) qwen3-moe-30b-a3b through the fixed engine on the same
+    mesh, its replays bit-equal to eager.  (b, after 7) the per-shard
+    LUT-MU problem at tp 2, 4, 8 at the main path's shapes (gate/up
+    C=640 N=8704, down C=2176 N=5120; B 4 and 32; int8 and float32): each
+    codebook shard through ``fused_lutmu`` and through ``encode_onehot`` +
+    ``lut_aggregate`` with a unit epilogue, the partials summed on the card
+    in rank order, then one epilogue: int8 bit-equal to the unsharded
+    kernel, float32 within FLOAT_RTOL/ATOL; each per-shard kernel's ms
+    (CUDA events, L2 flushed) beside the unsharded kernel's and the
+    per-shard bound.
+
 The line before the last is ``{"kernels": [...]}`` (the ``fused_lutmu``
 and ``verify_window`` entries also carry the heuristic and measured plans
 and their ms at their reported case; the LUT-MU entries their ResNet-9
@@ -2720,16 +2739,19 @@ def fixed_twin(torch, eng, MD, log):
     """Wrap the fixed engine's decode program so that every call is checked
     as it happens: the replayed logits (every slot) and the whole cache
     bit-equal to eager ``MD.decode_step`` on a copy of the cache taken just
-    before the call.  ``log`` gets one entry per call."""
+    before the call (on a mesh with the engine's parallel context).  ``log`` gets one entry
+    per call."""
     import numpy as np
     prog = eng._decode
+    par = getattr(eng, "par", None)
 
     def call(**arrays):
         before = tree_clone(eng.cache)
         out = prog(**arrays).clone()
-        want = MD.decode_step(eng.params, *(torch.from_numpy(
-            np.asarray(arrays[k], np.int32)).cuda() for k in ("token", "pos")),
-            before, eng.cfg, compute_dtype=eng.cd)
+        inputs = [torch.from_numpy(np.asarray(arrays[k], np.int32)).cuda()
+                  for k in ("token", "pos")]
+        want = MD.decode_step(eng.params, *inputs, before, eng.cfg,
+                              compute_dtype=eng.cd, par=par)
         torch.cuda.synchronize()
         ensure(prog.graph is not None, "fixed decode: no graph captured")
         ensure(torch.equal(out, want), "fixed decode: replayed logits != "
@@ -2964,7 +2986,7 @@ def _leaves(tree):
             yield v
 
 
-def moe_phase(torch, MD, MOE, load_engine, get_config):
+def moe_phase(torch, MD, MOE, load_engine, get_config, on_mesh=False):
     """(c) qwen3-moe-30b-a3b at full width, depth cut to MOE_LAYERS: the
     paged and the fixed engine each serve 6 x 16 greedy tokens; every
     decode replay checked against its eager model function; an eager
@@ -3044,6 +3066,24 @@ def moe_phase(torch, MD, MOE, load_engine, get_config):
         print(f"[moe-{kind}] {n} decode replays bit-equal to eager (every "
               "capture succeeded: no host sync inside)", flush=True)
         del engine
+        torch.cuda.empty_cache()
+    if on_mesh:
+        # 26 (a): the same model through the fixed engine on a 1x1 mesh
+        from repro_torch.launch.mesh import make_serve_mesh
+        mesh = make_serve_mesh("1x1", "cuda")
+        engine = load_engine(None, params, cfg, engine="fixed", mesh=mesh,
+                             compute_dtype=cd, device=DEVICE, **ENGINE_KNOBS)
+        handles, dt, ttft, engine = drive(torch, engine, cfg, 6, 16)
+        ensure(all(h.done and len(h.generated) == 16 for h in handles),
+               "moe fixed on the mesh: requests did not finish")
+        line = serve_line("mesh-moe-fixed", handles, dt, ttft, engine)
+        n = check_replays(torch, engine, MD, "mesh-moe-fixed")
+        print(line + f"; {n} decode replays bit-equal to eager (with the "
+              f"parallel context); {out['fixed']:.2f} tok/s unsharded in "
+              "this call", flush=True)
+        del engine, mesh
+        gc.collect()
+        torch.distributed.destroy_process_group()
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -3130,18 +3170,218 @@ def jamba_phase(torch, MD, FL, dispatch, load_engine, get_config):
 
 
 def families_phase(torch, mods, load_engine, get_config):
-    """(b)-(e) of phase 25; returns the jamba fused_lutmu launches."""
+    """(b)-(e) of phase 25 (and the MoE part of 26 (a)); returns the jamba
+    fused_lutmu launches."""
     MD, MB, MOE, ES, ST, FL, dispatch = mods
     t0 = time.perf_counter()
     mamba_phase(torch, MD, MB, ES, load_engine, get_config)
     gc.collect()
-    moe_phase(torch, MD, MOE, load_engine, get_config)
+    moe_phase(torch, MD, MOE, load_engine, get_config, on_mesh=True)
     gc.collect()
     teacher_phase(torch, MD, ST, get_config)
     launches = jamba_phase(torch, MD, FL, dispatch, load_engine, get_config)
     gc.collect()
     torch.cuda.empty_cache()
     return {"fused_lutmu": launches, "s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: serving on a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_TPS = (2, 4, 8)           # the per-shard LUT-MU problem's TP degrees
+MESH_CASES = [(proj, b, lut) for proj in ("gate_up", "down") for b in (4, 32)
+              for lut in ("int8", "float32")]
+
+
+def nccl_kernels(torch, fn) -> int:
+    """Kernels whose name holds ``nccl`` in one call of ``fn``
+    (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "nccl" in e.key.lower())
+
+
+def mesh_serve_phase(torch, cfg, params, MD, load_engine, FL, dispatch,
+                     plain_streams, phase5):
+    """26 (a): phase 5's serve through a 1x1 NCCL mesh, the process group
+    destroyed at the end (the later phases capture their programs without
+    one).  Returns the fused_lutmu launches."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_serve_mesh
+    t0 = time.perf_counter()
+    mesh = make_serve_mesh("1x1", "cuda")
+    engine = load_engine(None, params, cfg, compute_dtype=torch.bfloat16,
+                         device=DEVICE, mesh=mesh, **ENGINE_KNOBS)
+    ensure(engine.par is not None and engine.par.tp == 1
+           and engine.par.dp == 1, "the engine is not on the mesh")
+    handles, dt, ttft, engine = drive(torch, engine, cfg, 6, 16)
+    calls = engine.stats["prefill_calls"] + engine.stats["decode_calls"]
+    launches = FL.LAUNCHES.n
+    ensure(launches == 3 * cfg.num_layers * calls,
+           f"mesh: fused_lutmu launches {launches} != {3 * cfg.num_layers} x "
+           f"{calls} forward calls")
+    ensure(dispatch.REF_ON_CUDA.n == 0, "mesh: ref LUT-MU ran on CUDA")
+    ensure([list(h.generated) for h in handles] == plain_streams,
+           "mesh: streams differ from phase 5's")
+    n_tok = sum(len(h.generated) for h in handles)
+    print(serve_line("mesh-1x1", handles, dt, ttft, engine) +
+          f"; streams equal phase 5's; fused_lutmu launches {launches} = "
+          f"{3 * cfg.num_layers} x {calls}; phase 5 in this call "
+          f"{phase5['tok_s']:.2f} tok/s, TTFT mean {phase5['ttft']:.4f}s",
+          flush=True)
+    # every decode replay of a few more requests against eager
+    log = []
+    prog = engine._decode
+    par = engine.par
+    engine._decode = twin(
+        torch, prog, lambda c, token, pos, table: MD.paged_decode_step(
+            engine.params, token, pos, table, c[0], cfg,
+            compute_dtype=torch.bfloat16, par=par),
+        [engine.kv.buffers], keep_rows(engine.kv.trash), log)
+    for p in prompts(cfg.vocab_size, 4):
+        engine.submit(p, max_new_tokens=5)
+    engine.run_until_drained()
+    engine._decode = prog
+    ensure(len(log) >= 3, f"mesh: only {len(log)} decode replays checked")
+    # the collectives a forward issues, and what the captured graph holds
+    before = par.collectives
+    arrays = {k: np.zeros(tuple(t.shape), np.int32)
+              for k, t in prog.inputs.items()}
+    arrays["table"][:] = engine.kv.trash
+    MD.paged_decode_step(engine.params, *(torch.from_numpy(arrays[k]).cuda()
+                                          for k in ("token", "pos", "table")),
+                         engine.kv.buffers, cfg, compute_dtype=torch.bfloat16,
+                         par=par)
+    per_step = par.collectives - before
+    nodes = engine.stats["graph_nodes"]["decode"]
+    plain_nodes = phase5["graph_nodes"]["decode"]
+    n_nccl = nccl_kernels(torch, lambda: prog(**arrays))
+    ensure(nodes > plain_nodes,
+           f"mesh: decode graph nodes {nodes} not above phase 5's "
+           f"{plain_nodes}")
+    print(f"[mesh-1x1] {len(log)} decode replays bit-equal to eager "
+          f"MD.paged_decode_step(par=...); collectives per decode step "
+          f"{per_step}; decode graph nodes {nodes} (phase 5 {plain_nodes}, "
+          f"+{nodes - plain_nodes}); NCCL kernels in one replay (profiler) "
+          f"{n_nccl}; graph nodes {engine.stats['graph_nodes']}; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    del engine, handles, prog, par, mesh
+    gc.collect()
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def shard_kernel_phase(torch, timer, mods):
+    """26 (b): the per-shard LUT-MU problem at tp 2, 4, 8.  Returns
+    ``{kernel: {case: {ms, unsharded_ms, bound_ms, bound_by}}}``."""
+    FL, ME, LA = mods
+    g = 2**DEPTH
+    gen = torch.Generator(device="cuda").manual_seed(2600)
+    t0 = time.perf_counter()
+    out = {"fused_lutmu": {}, "encode_onehot": {}, "lut_aggregate": {}}
+    for proj, b, lut_name in MESH_CASES:
+        c, n = SHAPES[proj]
+        x = torch.randn((b, c, DEPTH), generator=gen, device="cuda")
+        thr = torch.randn((c, g - 1), generator=gen, device="cuda")
+        if lut_name == "int8":
+            lut = torch.randint(-128, 128, (c, g, n), generator=gen,
+                                dtype=torch.int8, device="cuda")
+            oh_dtype = torch.int8
+        else:
+            lut = torch.randn((c, g, n), generator=gen, device="cuda")
+            oh_dtype = torch.float32
+        scale = torch.rand((n,), generator=gen, device="cuda") * 0.015 + 0.005
+        offset = torch.randn((n,), generator=gen, device="cuda")
+        one = torch.ones((), device="cuda")
+        zero = torch.zeros((), device="cuda")
+        exact = lut_name == "int8"
+        whole = {"fused_lutmu": lambda: FL.fused_lutmu(x, thr, lut, scale,
+                                                        offset),
+                 "unfused": lambda: LA.lut_aggregate(
+                     ME.encode_onehot(x, thr, out_dtype=oh_dtype), lut, scale,
+                     offset)}
+        want = {k: f() for k, f in whole.items()}
+        whole_ms = {"fused_lutmu": timer.ms(whole["fused_lutmu"], 10),
+                    "encode_onehot": timer.ms(
+                        lambda: ME.encode_onehot(x, thr, out_dtype=oh_dtype),
+                        10)}
+        oh_whole = ME.encode_onehot(x, thr, out_dtype=oh_dtype)
+        whole_ms["lut_aggregate"] = timer.ms(
+            lambda: LA.lut_aggregate(oh_whole, lut, scale, offset), 10)
+        for tp in MESH_TPS:
+            cl = c // tp
+            shards = [(x[:, r * cl:(r + 1) * cl].contiguous(),
+                       thr[r * cl:(r + 1) * cl].contiguous(),
+                       lut[r * cl:(r + 1) * cl].contiguous())
+                      for r in range(tp)]
+            for path in ("fused_lutmu", "unfused"):
+                parts = []
+                for xs, ts, ls in shards:
+                    if path == "fused_lutmu":
+                        parts.append(FL.fused_lutmu(xs, ts, ls, one, zero))
+                    else:
+                        parts.append(LA.lut_aggregate(
+                            ME.encode_onehot(xs, ts, out_dtype=oh_dtype), ls,
+                            one, zero))
+                acc = parts[0].clone()
+                for p_ in parts[1:]:
+                    acc += p_  # rank order
+                got = acc * scale + offset
+                torch.cuda.synchronize()
+                label = f"{path} tp={tp} {proj} B={b} {lut_name}"
+                if exact:
+                    ensure(torch.equal(got, want[path]),
+                           f"{label}: not bit-equal to the unsharded kernel")
+                else:
+                    torch.testing.assert_close(got, want[path],
+                                               rtol=FLOAT_RTOL,
+                                               atol=FLOAT_ATOL, msg=label)
+            xs, ts, ls = shards[0]
+            oh = ME.encode_onehot(xs, ts, out_dtype=oh_dtype)
+            rows = int(torch.unique(
+                ME.encode_onehot(xs, ts).argmax(-1)
+                + g * torch.arange(cl, device="cuda")[None]).numel())
+            item = ls.element_size()
+            key = f"tp={tp} {proj} B={b} {lut_name}"
+            io = b * n * 4
+            for name, fn, nbytes, ops in (
+                    ("fused_lutmu", lambda: FL.fused_lutmu(xs, ts, ls, one,
+                                                           zero),
+                     xs.numel() * 4 + ts.numel() * 4 + rows * n * item + io,
+                     b * cl * n),
+                    ("encode_onehot",
+                     lambda: ME.encode_onehot(xs, ts, out_dtype=oh_dtype),
+                     xs.numel() * 4 + ts.numel() * 4
+                     + oh.numel() * oh.element_size(), b * cl * (g - 1)),
+                    ("lut_aggregate", lambda: LA.lut_aggregate(oh, ls, one,
+                                                               zero),
+                     oh.numel() * oh.element_size() + rows * n * item + io,
+                     b * cl * n)):
+                bms, by = bound_ms(nbytes, ops, ADD_OPS_PER_S)
+                out[name][key] = dict(ms=timer.ms(fn, 10),
+                                      unsharded_ms=whole_ms[name],
+                                      bound_ms=bms, bound_by=by)
+                r = out[name][key]
+                print(f"[mesh-shard] {name:13s} {key:26s} per-shard "
+                      f"{r['ms']:.4f} ms (unsharded {r['unsharded_ms']:.4f}) "
+                      f"bound {bms:.5f} ({by})", flush=True)
+            del shards, oh
+        del x, thr, lut, oh_whole, want
+        torch.cuda.empty_cache()
+    print(f"[mesh-shard] {len(MESH_CASES)} cases x tp {MESH_TPS}: int8 "
+          "bit-equal to the unsharded kernels, float32 within "
+          f"{FLOAT_RTOL}/{FLOAT_ATOL}, fused and encode + aggregate; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3207,6 +3447,8 @@ def main() -> int:
     kres = kernel_checks(torch, timer, (FL, ME, LA, ref))
     # 7. the verify-window kernel at the full-width shapes
     vres = verify_kernel_checks(torch, timer, FV)
+    # 26 (b). the per-shard LUT-MU problem at tp 2, 4, 8
+    shard = shard_kernel_phase(torch, timer, (FL, ME, LA))
     del timer
     torch.cuda.empty_cache()
 
@@ -3261,6 +3503,9 @@ def main() -> int:
     # 25 (a). the fixed-slot engine on the same 40-layer params
     fixed = fixed_qwen_phase(torch, cfg, params, MD, load_engine, FL,
                              dispatch, plain_streams, phase5)
+    # 26 (a). the same serve through a 1x1 NCCL mesh
+    mesh_launches = mesh_serve_phase(torch, cfg, params, MD, load_engine, FL,
+                                     dispatch, plain_streams, phase5)
     profile = profile_phase(torch, cfg, params, MD, load_engine)
     # 16. the same serve sampled, and the sampler's share of a step
     _, sampled_streams = sampled_serve_phase(torch, cfg, params, load_engine,
@@ -3456,7 +3701,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam = families_phase(torch, (MD, MB, MOE, ES, ST, FL, dispatch),
                          load_engine, get_config)
-    launches["fused_lutmu"] += fixed["fused_lutmu"] + fam["fused_lutmu"]
+    launches["fused_lutmu"] += (fixed["fused_lutmu"] + fam["fused_lutmu"]
+                                + mesh_launches)
     print(f"[families] phase 25 in {fixed['s'] + fam['s']:.1f}s ((a) "
           f"{fixed['s']:.1f}s, (b)-(e) {fam['s']:.1f}s); fused_lutmu "
           f"launches (a) {fixed['fused_lutmu']} (e) {fam['fused_lutmu']}",
@@ -3531,7 +3777,8 @@ def main() -> int:
             **({} if m is None else {
                 "heuristic_plan": m["heuristic"], "measured_plan": m["measured"],
                 "heuristic_plan_ms": m["heuristic_ms"],
-                "measured_plan_ms": m["measured_ms"]}), **cnn})
+                "measured_plan_ms": m["measured_ms"]}), **cnn,
+            **({"tp_shards": shard[name]} if name in shard else {})})
     ensure(all(math.isfinite(e["ms"]) and e["launches"] > 0 for e in entries),
            "a kernel has no time or no launches")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -21,7 +21,8 @@ Usage:
 
 ``lm`` and ``bundle`` take ``--ckpt DIR``: the params restored from a
 checkpoint of the dense model's params (either package's format).
-``--mesh`` needs multi-device serving (ROADMAP A11).
+``--mesh DxM`` records the intended serving mesh in the manifest, which
+``launch.serve --mesh auto`` reads.
 """
 from __future__ import annotations
 
@@ -102,16 +103,22 @@ def cmd_mlp(args) -> int:
 
 def _lm_setup(args):
     """Shared ``lm`` / ``bundle`` preamble → (cfg, params, tokens,
-    device) or an error string."""
+    device, mesh_shape) or an error string."""
     from repro_torch.checkpoint import restore_into
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
     from repro_torch.device import resolve_device
     from repro_torch.models import model as MD
 
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    mesh_shape = None
     if args.mesh:
-        return None, ("--mesh: multi-device serving is not ported yet "
-                      "(ROADMAP A11)")
+        try:
+            data, model = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            return None, f"--mesh: {e}"
+        mesh_shape = {"data": data, "model": model}
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     cfg = dataclasses.replace(
@@ -123,7 +130,7 @@ def _lm_setup(args):
     ts = TokenStream(vocab_size=cfg.vocab_size, batch_size=args.calib_batch,
                      seq_len=args.calib_seq)
     tokens = np.asarray(ts.batch(0)["tokens"])
-    return (cfg, params, tokens, device), None
+    return (cfg, params, tokens, device, mesh_shape), None
 
 
 def cmd_lm(args) -> int:
@@ -134,7 +141,7 @@ def cmd_lm(args) -> int:
     if err:
         print(err, file=sys.stderr)
         return 2
-    cfg, params, tokens, device = setup
+    cfg, params, tokens, device, mesh_shape = setup
     resolution = args.resolution
     if args.float_luts:  # back-compat alias for the pre-resolution flag
         if resolution is not None and resolution != "float32":
@@ -148,7 +155,8 @@ def cmd_lm(args) -> int:
           f"on {device}…")
     clock = StageClock()
     result = compile_lm_amm(params, cfg, tokens, out=args.out,
-                            resolution=resolution, clock=clock)
+                            mesh_shape=mesh_shape, resolution=resolution,
+                            clock=clock)
     _print_stages(clock, cfg.num_layers)
     print(f"[compiler] amm_lm artifact ({result.artifact.resolution}): "
           f"{result.report['lut_bytes']} LUT bytes → "
@@ -164,7 +172,7 @@ def cmd_bundle(args) -> int:
     if err:
         print(err, file=sys.stderr)
         return 2
-    cfg, params, tokens, device = setup
+    cfg, params, tokens, device, mesh_shape = setup
     print(f"[compiler] one calibration pass for {cfg.num_layers} layers on "
           f"{device}, baking target={args.target_resolution} + "
           f"draft={args.draft_resolution}…")
@@ -173,6 +181,7 @@ def cmd_bundle(args) -> int:
         params, cfg, tokens, out=args.out,
         target_resolution=args.target_resolution,
         draft_resolution=args.draft_resolution, spec_k=args.spec_k,
+        mesh_shape=mesh_shape,
         clock=clock)
     _print_stages(clock, cfg.num_layers)
     r = result.report
@@ -266,7 +275,9 @@ def main(argv=None) -> int:
                          "(default int8)")
     lm.add_argument("--float-luts", action="store_true",
                     help="deprecated alias of --resolution float32")
-    lm.add_argument("--mesh", help="intended serving mesh 'DxM' (ROADMAP A11)")
+    lm.add_argument("--mesh",
+                    help="intended serving mesh 'DxM' (data x model), "
+                         "recorded in the manifest for --mesh auto serving")
     lm.add_argument("--out")
     _device_arg(lm)
     lm.set_defaults(fn=cmd_lm)
@@ -288,7 +299,8 @@ def main(argv=None) -> int:
     bd.add_argument("--spec-k", type=int, default=4,
                     help="suggested draft tokens per verify step, recorded "
                          "in the bundle manifest")
-    bd.add_argument("--mesh", help="intended serving mesh (ROADMAP A11)")
+    bd.add_argument("--mesh", help="intended serving mesh 'DxM' (recorded "
+                                   "in both halves' manifests)")
     bd.add_argument("--out")
     _device_arg(bd)
     bd.set_defaults(fn=cmd_bundle)

@@ -26,11 +26,13 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.maddness import (HashTree, MaddnessParams,
                                        contract_onehot, encode_onehot,
                                        gather_split_values)
 from repro_torch.core.pruning import PruningPlan, pruned_to_split_values
+from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import fused_lutmu as FL
@@ -199,7 +201,16 @@ def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
     Returns:
       (B, N) float32.
     """
-    xs = _to_split_values(x, params, input_kind)
+    return _run(_to_split_values(x, params, input_kind), params, backend,
+                tiles, autotune, cache, input_kind)
+
+
+def _run(xs: Tensor, params: MaddnessParams, backend: str,
+         tiles: Optional[AT.TileConfig], autotune: bool,
+         cache: Optional[AT.AutotuneCache], kind: str) -> Tensor:
+    """Pick the backend and launch plan for the problem of split values
+    ``xs`` (B, C, I), report it to the profile hook as ``kind``, and run
+    it."""
     b, c, depth = xs.shape
     n = params.lut.shape[-1]
     if backend == "auto":
@@ -211,7 +222,7 @@ def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
         raise ValueError(f"backend must be 'auto' or one of {BACKENDS}, "
                          f"got {backend!r}")
     if _PROFILE_HOOK is not None:
-        _PROFILE_HOOK(backend=backend, input_kind=input_kind, b=int(b),
+        _PROFILE_HOOK(backend=backend, input_kind=kind, b=int(b),
                       c=int(c), n=int(n), depth=int(depth),
                       lut_dtype=str(params.lut.dtype))
     if backend == "ref" or xs.device.type != "cuda":
@@ -221,3 +232,83 @@ def lutmu_matmul(x: Tensor, params: MaddnessParams, *, backend: str = "auto",
                              allow_measure=autotune, cache=cache,
                              device=xs.device)
     return _RUNNERS[backend](xs, params, tiles)
+
+
+def lutmu_matmul_sharded(x: Tensor, params: MaddnessParams, *, mesh,
+                         axis: str = "model", backend: str = "auto",
+                         input_kind: str = "full",
+                         tiles: Optional[AT.TileConfig] = None,
+                         autotune: bool = False,
+                         cache: Optional[AT.AutotuneCache] = None,
+                         codebooks: Optional[int] = None) -> Tensor:
+    """Codebook-sharded LUT-MU on a ``DeviceMesh``: per-shard aggregate +
+    all-reduce, no gathers (the counterpart of the JAX ``shard_map``
+    version).
+
+    ``params`` holds this rank's shard of the codebook axis as
+    ``distributed.sharding.shard_params`` places it on ``axis``; its
+    epilogue vectors are whole.  ``codebooks`` is the whole table's
+    codebook count C (default: the local count times the axis size).  The
+    rank runs the chosen backend over its local codebooks with a unit scale
+    and a zero offset, the pre-epilogue partials are summed over ``axis``,
+    and the dequant epilogue runs once on the sum.  ``x``, per
+    ``input_kind``: ``"full"`` (B, D) activations; ``"split"`` split values
+    of this rank's codebooks (B, C/tp, I) or of all of them (B, C, I);
+    ``"package"`` the whole (B, I·C) package.  Its rows are whatever this
+    rank holds: under a mesh the model's rows are already split over the
+    data axes, and the sum runs over ``axis`` only.
+
+    Integer LUTs stay bit-identical to :func:`lutmu_matmul`: each rank's
+    int32 partial is exact in float32 (below 2**24), so the sum and the one
+    epilogue reproduce its arithmetic.  Float LUTs reassociate the codebook
+    sum across shards.
+
+    Backend and launch plan (``backend``, ``tiles``, ``autotune``,
+    ``cache``, as :func:`lutmu_matmul` takes them) are chosen for the
+    per-shard problem (B, C/tp), the shape the kernel runs.  Falls back to
+    :func:`lutmu_matmul` on the tables as given when the axis has one rank
+    or C does not divide by it (the rules replicate such tables).
+    """
+    tp = mesh_shape(mesh)[axis]
+    c_loc = params.tree.num_codebooks
+    c = c_loc * tp if codebooks is None else int(codebooks)
+    if tp <= 1 or c % tp != 0:
+        return lutmu_matmul(x, params, backend=backend, input_kind=input_kind,
+                            tiles=tiles, autotune=autotune, cache=cache)
+    if c_loc * tp != c:
+        raise ValueError(f"params hold {c_loc} codebooks, a {tp}-way shard "
+                         f"of {c} holds {c // tp}")
+    rank = mesh.get_local_rank(axis)
+    if input_kind == "full":
+        xs = local_split_values(x, params, rank, c)
+    elif input_kind in ("split", "package"):
+        if input_kind == "package":
+            x = pruned_to_split_values(x, PruningPlan(
+                keep_idx=torch.zeros((0,), dtype=torch.int64),
+                consumer_codebooks=c, consumer_depth=params.tree.depth))
+        if x.shape[1] == c:
+            x = x.narrow(1, rank * c_loc, c_loc)
+        xs = x.to(torch.float32).contiguous()
+    else:
+        raise ValueError(
+            f"input_kind must be one of {INPUT_KINDS}, got {input_kind!r}")
+    # unit scale / zero offset: the epilogue runs once, after the sum
+    unit = params_from_arrays(
+        params.tree.split_dims, params.tree.thresholds, params.lut,
+        torch.ones((), dtype=torch.float32, device=xs.device),
+        torch.zeros((), dtype=torch.float32, device=xs.device))
+    acc = _run(xs, unit, backend, tiles, autotune, cache,
+               "sharded:" + input_kind).contiguous()
+    dist.all_reduce(acc, group=mesh.get_group(axis))
+    return acc * params.lut_scale + params.lut_offset
+
+
+def local_split_values(x: Tensor, params: MaddnessParams, rank: int,
+                       codebooks: int) -> Tensor:
+    """The split values of a codebook shard: full activations (B, D), whose
+    D splits into ``codebooks`` equal subspaces, → (B, C_local, I) of the
+    shard at ``rank`` (its tree's split dims index its own subspaces)."""
+    c_loc = params.tree.num_codebooks
+    width = x.shape[1] // codebooks * c_loc
+    return _to_split_values(x.narrow(1, rank * width, width), params, "full")
+

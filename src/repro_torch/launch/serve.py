@@ -45,8 +45,16 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --amm \\
       --http --port 8080 --metrics serve.prom
 
+  # sharded serving on a data x model mesh: one process per rank (gloo on
+  # the CPU, NCCL on cards); 1x1 needs no launcher
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+      --reduced --amm --device cpu --mesh 1x1
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen3-14b --reduced --amm --device cpu --mesh 2x2
+
 ``--ckpt DIR`` restores the params from a checkpoint of the same tree
-(either package's checkpoint manager wrote it).
+(either package's checkpoint manager wrote it).  On a mesh every rank
+serves the same schedule and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -57,12 +65,14 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import restore_into
 from repro_torch.compiler.artifact import ArtifactError, peek_manifest
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import model as MD
 from repro_torch.serving import (AsyncServer, KernelProfiler, QualityProbe,
                                  Recorder, SamplingParams,
@@ -92,6 +102,41 @@ def _artifact_kind(path):
         return peek_manifest(path).get("kind")
     except (ArtifactError, OSError) as e:
         raise SystemExit(f"cannot read artifact {path!r}: {e}")
+
+
+def _resolve_mesh(args, device):
+    """``--mesh DxM`` → mesh; ``--mesh auto`` reads the artifact manifest."""
+    if not args.mesh:
+        return None
+    if args.mesh != "auto":
+        try:
+            return make_serve_mesh(args.mesh, device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}")
+    if not args.artifact:
+        raise SystemExit("--mesh auto needs --artifact (the manifest records "
+                         "the intended mesh)")
+    try:
+        art_path = args.artifact
+        if _artifact_kind(art_path) == "bundle":
+            art_path = str(Path(art_path) / "target")
+        manifest = peek_manifest(art_path)
+    except (ArtifactError, OSError) as e:
+        raise SystemExit(f"--mesh auto: cannot load artifact "
+                         f"{args.artifact!r}: {e}")
+    want = manifest.get("mesh")
+    if not want:
+        log("serve", "artifact records no intended mesh; serving unsharded")
+        return None
+    spec = f"{want['data']}x{want['model']}"
+    try:
+        mesh = make_serve_mesh(spec, device)
+    except ValueError as e:
+        log("serve", f"artifact-recorded mesh unusable ({e}); "
+            "serving unsharded")
+        return None
+    log("serve", f"using artifact-recorded mesh {spec}")
+    return mesh
 
 
 def _report(rec, args) -> None:
@@ -198,7 +243,10 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="base sampling seed; request i uses seed+i")
     ap.add_argument("--mesh",
-                    help="sharded serving on a 'DxM' mesh (ROADMAP A11)")
+                    help="serve sharded on a 'DxM' (data x model) mesh, one "
+                         "process per rank (torchrun --nproc-per-node D*M; "
+                         "1x1 needs no launcher), or 'auto' to use the mesh "
+                         "recorded in the --artifact manifest")
     ap.add_argument("--ckpt", help="restore params from a checkpoint dir "
                                    "(a tree of the same leaves)")
     ap.add_argument("--prompt", action="append", metavar="TOKENS",
@@ -243,23 +291,35 @@ def main(argv=None) -> None:
                     help="print the sliding-window SLO health report after "
                          "serving; live snapshot at GET /slo")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh: multi-device serving is not ported yet "
-                         "(ROADMAP A11)")
 
     device = resolve_device(args.device)
+    mesh = _resolve_mesh(args, device)
+    try:
+        _serve(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, mesh) -> None:
+    # on a mesh every rank serves the same schedule; rank 0 reports
+    lead = mesh is None or dist.get_rank() == 0
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.amm:
         cfg = dataclasses.replace(
             cfg, amm=dataclasses.replace(cfg.amm, enabled=True,
                                          backend=args.amm_backend))
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    gen = torch.Generator(device=device).manual_seed(0)
+    # on a mesh the whole tree is made on the host and the engine moves
+    # only this rank's shards to the card (the seed's weights are then
+    # the host generator's, as with --device cpu)
+    where = device if mesh is None else torch.device("cpu")
+    gen = torch.Generator(device=where).manual_seed(0)
     # --artifact serves compiled tables spliced into a *dense* params tree
     params = MD.init_params(cfg, gen, dtype,
                             serving=args.amm and not args.artifact)
     if args.ckpt:
-        params = restore_into(params, Path(args.ckpt), device=device)
+        params = restore_into(params, Path(args.ckpt), device=where)
     art_kind = _artifact_kind(args.artifact) if args.artifact else None
     # one recorder feeds the summary table, the Prometheus snapshot, the
     # Chrome trace and GET /metrics; without these flags engines keep the
@@ -285,11 +345,14 @@ def main(argv=None) -> None:
                   num_pages=args.num_pages,
                   prefix_cache=not args.no_prefix_cache,
                   verify_backend=args.verify_backend, compute_dtype=dtype,
-                  device=device, recorder=rec)
+                  device=device, recorder=rec, mesh=mesh)
     if args.speculative:
         if not use_paged:
             raise SystemExit("--speculative needs the paged engine (family "
                              "with paged KV, --engine paged)")
+        if mesh is not None:
+            raise SystemExit("--speculative serving is single-device for "
+                             "now (mesh support is a ROADMAP open item)")
         if args.spec_k is not None:
             kwargs["spec_k"] = args.spec_k
         if art_kind == "bundle":
@@ -324,7 +387,12 @@ def main(argv=None) -> None:
         engine = load_engine(args.artifact, params, cfg,
                              engine=args.engine or "auto", speculative=False,
                              **kwargs)
+    del params  # the engine holds what it serves (on a mesh: its shards)
     if args.http:
+        if mesh is not None and dist.get_world_size() > 1:
+            raise SystemExit("--http serves from one process; a mesh of "
+                             "more than one rank serves a batch (drop "
+                             "--http)")
         _serve_http(engine, args, rec)
         return
     for i, prompt in enumerate(cli_prompts(args.prompt, args.requests,
@@ -335,6 +403,8 @@ def main(argv=None) -> None:
     t0 = time.time()
     done = engine.run_until_drained()
     dt = time.time() - t0
+    if not lead:
+        return
     n_tok = sum(len(r.generated) for r in done)
     print(f"{len(done)} requests, {n_tok} tokens, {dt:.1f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s) on {device}")

@@ -83,23 +83,42 @@ def _params(p: dict, tree: str, proj: str) -> M.MaddnessParams:
                                 p[f"lut_{proj}_offset"])
 
 
-def amm_mlp_apply(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+def amm_mlp_apply(params: dict, x: Tensor, cfg: ModelConfig,
+                  par=None) -> Tensor:
     """(B, S, D) → (B, S, D) through the pruned LUT-MU MLP chain; every
-    matmul goes through ``dispatch.lutmu_matmul`` with ``cfg.amm.backend``."""
+    matmul goes through ``dispatch.lutmu_matmul`` with ``cfg.amm.backend``.
+
+    On a mesh (``par``, a ``distributed.sharding.ParallelContext``) the
+    tables are this rank's codebook shards and every matmul runs through
+    ``dispatch.lutmu_matmul_sharded``: per-shard partials summed over
+    ``model``, so no table is ever gathered.  Gate and up still share the
+    split-value gather (this rank's codebooks); the down projection reads
+    the whole pruned package."""
     b, s, d = x.shape
     be = cfg.amm.backend
+    if par is None:
+        def matmul(v, p, kind, c):
+            return D.lutmu_matmul(v, p, backend=be, input_kind=kind)
+    else:
+        def matmul(v, p, kind, c):
+            return D.lutmu_matmul_sharded(v, p, mesh=par.mesh, backend=be,
+                                          input_kind=kind, codebooks=c)
+    c_up, c_down = cfg.d_model // cfg.amm.d_sub, cfg.d_ff // cfg.amm.d_sub
     gate_p = _params(params, "up", "gate")
     up_p = _params(params, "up", "up")
-    xs = M.gather_split_values(x.reshape(b * s, d).to(torch.float32),
-                               gate_p.tree)
-    gate = D.lutmu_matmul(xs, gate_p, backend=be, input_kind="split")
-    up = D.lutmu_matmul(xs, up_p, backend=be, input_kind="split")
+    xt = x.reshape(b * s, d).to(torch.float32)
+    if par is not None and par.tp > 1 and c_up % par.tp == 0:
+        xs = D.local_split_values(xt, gate_p, par.tp_rank, c_up)
+    else:
+        xs = M.gather_split_values(xt, gate_p.tree)
+    gate = matmul(xs, gate_p, "split", c_up)
+    up = matmul(xs, up_p, "split", c_up)
     h = F.silu(gate) * up
     # gate/up emitted the cluster-ordered pruned package when pruning is on
     down_kind = "package" if cfg.amm.prune else "full"
     down_p = _params(params, "down", "down")
-    out = D.lutmu_matmul(h, down_p, backend=be, input_kind=down_kind)
-    if LU._PROBE_TAP is not None:
+    out = matmul(h, down_p, down_kind, c_down)
+    if LU._PROBE_TAP is not None and par is None:
         # quality-probe tap: eager calls only (the probe's replay), never
         # inside a captured step program
         LU._tap_eager("gate", xs, gate_p, gate, "split")

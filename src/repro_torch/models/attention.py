@@ -217,34 +217,46 @@ def _quantize_kv_int8(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
 def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
                       k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
                       pos: Tensor, window: Optional[int],
-                      write_ok: Optional[Tensor] = None) -> Tensor:
+                      write_ok: Optional[Tensor] = None, par=None) -> Tensor:
     """One-token decode against one layer's paged KV cache.
 
     x: (B, 1, D); k_pages/v_pages: (P, page_size, n_kv, hd), written in
     place; page_table: (B, max_pages) int32, trash-padded; pos: (B,) write
     index per row.  ``write_ok`` ((B,) bool) sends a row's K/V write to the
     trash page.  Returns the attention output (B, 1, D).
+
+    On a mesh (``par``) ``x`` holds this data rank's rows of the batch and
+    the other inputs the whole batch: every data rank keeps every page
+    (ROADMAP C9), so the step's K/V are gathered over ``data`` and each
+    rank writes every row's, then attends its own rows.
     """
-    b = x.shape[0]
+    b_all = page_table.shape[0]
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    pos_b = pos.to(torch.int64).reshape(-1).expand(b)
+    pos_all = pos.to(torch.int64).reshape(-1).expand(b_all)
+    split = par is not None and par.rows_split(b_all)
+    pos_b = par.local_rows(pos_all) if split else pos_all
+    b = pos_b.shape[0]
     q, k, v = _project_qkv(params, x, cfg, pos_b[:, None])
     if k_pages.dtype == torch.int8:
         k, v = _quantize_kv_int8(k, v)
+    if split:
+        k, v = par.gather_rows(k, b_all), par.gather_rows(v, b_all)
     ps = k_pages.shape[1]
     trash = k_pages.shape[0] - 1
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(b_all, device=x.device)
     # a position past the table (a masked step of the speculative loops)
     # clamps onto the last entry, as the JAX gather does; write_ok then
     # sends its write to the trash page
-    page_idx = torch.clamp(pos_b // ps, max=page_table.shape[1] - 1)
+    page_idx = torch.clamp(pos_all // ps, max=page_table.shape[1] - 1)
     phys = page_table.to(torch.int64)[rows, page_idx]
     if write_ok is not None:
         phys = torch.where(write_ok, phys, torch.full_like(phys, trash))
-    off = pos_b % ps
+    off = pos_all % ps
     k_pages[phys, off] = k[:, 0].to(k_pages.dtype)  # in place
     v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
+    if split:
+        page_table = par.local_rows(page_table)
     k_view, v_view = FV.paged_view(k_pages, v_pages, page_table)
     out = FV.decode_attend(_grouped(q, nkv), k_view, v_view, pos_b, window)
     # contiguous before the product: a strided operand can take another

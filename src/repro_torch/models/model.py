@@ -206,15 +206,66 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd) -> Tensor:
-    """The per-block MLP shared by every path (MoE, LUT-MU or dense)."""
+def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd,
+             par=None) -> Tensor:
+    """The per-block MLP shared by every path (MoE, LUT-MU or dense).  On a
+    mesh the dense MLP is column-parallel (gate, up) then row-parallel
+    (down), its partials summed over ``model``."""
     if "moe" in lp:
-        return MOE.moe_apply(lp["moe"], mlp_in, cfg)
+        return MOE.moe_apply(lp["moe"], mlp_in, cfg, par=par)
     if "amm_mlp" in lp:
-        return AMM.amm_mlp_apply(lp["amm_mlp"], mlp_in, cfg)
+        return AMM.amm_mlp_apply(lp["amm_mlp"], mlp_in, cfg, par=par)
     m = lp["mlp"]
-    return L.gated_mlp(mlp_in, m["w_gate"].to(cd), m["w_up"].to(cd),
-                       m["w_down"].to(cd), cfg.act)
+    out = L.gated_mlp(mlp_in, m["w_gate"].to(cd), m["w_up"].to(cd),
+                      m["w_down"].to(cd), cfg.act)
+    if par is not None and par.mlp_tp:
+        out = par.reduce_tp(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# on a mesh: the parallel context's reads (distributed/sharding.py)
+# ---------------------------------------------------------------------------
+
+
+def _layer(layers: dict, l: int, par=None, path: str = "layers") -> dict:
+    """Layer ``l``'s params as the model reads them: views off a mesh, the
+    gathered-at-use weights on one (``par``)."""
+    if par is None:
+        return layer_params(layers, l)
+    return par.layer(layers, l, path)
+
+
+def _acfg(cfg: ModelConfig, par) -> ModelConfig:
+    """The config an attention block runs at (its local heads under
+    attention TP)."""
+    return cfg if par is None else par.attn_cfg(cfg)
+
+
+def _attn_sum(out: Tensor, par) -> Tensor:
+    """A row-parallel ``wo``'s partials summed over ``model``."""
+    if par is not None and par.attn_tp:
+        return par.reduce_tp(out)
+    return out
+
+
+def _embed(params: dict, tokens: Tensor, cd, par=None) -> Tensor:
+    """Token embeddings; on a mesh a vocab-parallel lookup: each rank looks
+    up the ids in its vocab shard (zeros elsewhere), summed over
+    ``model``."""
+    tokens = tokens.to(torch.int64)
+    if par is None:
+        return params["embed"].to(cd)[tokens]
+    emb = par.leaf(params, "embed").to(cd)
+    if not par.vocab_tp:
+        return emb[tokens]
+    n = emb.shape[0]
+    ids = tokens - par.tp_rank * n
+    ok = (ids >= 0) & (ids < n)
+    h = emb[torch.clamp(ids, 0, n - 1)]
+    h = torch.where(ok[..., None], h, torch.zeros((), dtype=cd,
+                                                  device=h.device))
+    return par.reduce_tp(h)
 
 
 # ---------------------------------------------------------------------------
@@ -286,23 +337,32 @@ def _run_hybrid_stack(cfg: ModelConfig, layers: dict, h: Tensor,
     return h
 
 
-def _encoder_block(cfg: ModelConfig, lp: dict, h: Tensor) -> Tensor:
+def _encoder_block(cfg: ModelConfig, lp: dict, h: Tensor,
+                   par=None) -> Tensor:
     t = h.shape[1]
-    h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                        cfg, positions=torch.arange(t, device=h.device)[None],
-                        causal=False, window=None)
+    h = h + _attn_sum(A.attention(
+        lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), _acfg(cfg, par),
+        positions=torch.arange(t, device=h.device)[None], causal=False,
+        window=None), par)
     return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
-                        h.dtype)
+                        h.dtype, par)
 
 
 def _run_encoder(cfg: ModelConfig, enc_params: dict, frames: Tensor,
-                 remat: bool) -> Tensor:
+                 remat: bool, par=None) -> Tensor:
     """Whisper's bidirectional encoder over the frame embeddings
     ``(B, T, D)``."""
     t = frames.shape[1]
-    h = frames + enc_params["pos_embed"][:t].to(frames.dtype)
-    for lp in _layer_views(enc_params["layers"], cfg.encoder_layers):
-        h = _apply(remat, _encoder_block, cfg, lp, h)
+    if par is None:
+        pos_embed = enc_params["pos_embed"]
+        views = _layer_views(enc_params["layers"], cfg.encoder_layers)
+    else:
+        pos_embed = par.leaf({"encoder": enc_params}, "encoder/pos_embed")
+        views = [par.layer(enc_params["layers"], l, "encoder/layers")
+                 for l in range(cfg.encoder_layers)]
+    h = frames + pos_embed[:t].to(frames.dtype)
+    for lp in views:
+        h = _apply(remat, _encoder_block, cfg, lp, h, par)
     return L.rms_norm(h, enc_params["final_norm"], cfg.norm_eps)
 
 
@@ -388,9 +448,19 @@ def capture_mlp_inputs(params: dict, tokens, cfg: ModelConfig, *,
     return captured
 
 
-def _head(params: dict, h: Tensor, cfg: ModelConfig, cd) -> Tensor:
+def _head(params: dict, h: Tensor, cfg: ModelConfig, cd, par=None,
+          batch: Optional[int] = None) -> Tensor:
+    """Final norm and logits (float32).  On a mesh the vocab-parallel
+    logits are gathered over ``model`` and the rows of a ``batch`` split
+    over ``data`` over ``data``, so every rank samples from the whole
+    vocabulary of every row, as on one device."""
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"].to(cd)).to(torch.float32)
+    if par is None:
+        return (h @ params["lm_head"].to(cd)).to(torch.float32)
+    logits = (h @ par.leaf(params, "lm_head").to(cd)).to(torch.float32)
+    if par.vocab_tp:
+        logits = par.gather_tp(logits, -1)
+    return par.gather_rows(logits, h.shape[0] if batch is None else batch)
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +507,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_block(cfg: ModelConfig, lp: dict, h: Tensor, cache: dict,
-                  pos: Tensor, window, cd) -> Tensor:
+                  pos: Tensor, window, cd, par=None) -> Tensor:
     """One uniform or hybrid block of a decode step; ``cache`` is this
     layer's slice (``{"k", "v"}`` or ``{"mamba": …}``), written in
     place."""
@@ -447,9 +517,11 @@ def _decode_block(cfg: ModelConfig, lp: dict, h: Tensor, cache: dict,
         if "ln2" not in lp:
             return h
     else:
-        h = h + A.decode_step(lp["attn"], x, cfg, cache["k"], cache["v"], pos,
-                              window)
-    return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
+        h = h + _attn_sum(A.decode_step(lp["attn"], x, _acfg(cfg, par),
+                                        cache["k"], cache["v"], pos, window),
+                          par)
+    return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd,
+                        par)
 
 
 def _slice(tree: dict, i: int) -> dict:
@@ -460,42 +532,56 @@ def _slice(tree: dict, i: int) -> dict:
 
 @torch.inference_mode()
 def decode_step(params: dict, token: Tensor, pos: Tensor, cache: dict,
-                cfg: ModelConfig, *, compute_dtype=torch.bfloat16) -> Tensor:
+                cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                par=None) -> Tensor:
     """One decode step of any family against the fixed-slot cache.
 
     token: (B, 1) int; pos: (B,) per-row positions (tokens so far), or one
     position for every row; cache: :func:`init_cache`'s tree, updated in
     place.  Returns logits (B, 1, V) float32.
+
+    On a mesh (``par``) the inputs are the whole batch and ``cache`` this
+    rank's part of it (``ParallelContext.cache_spec``); the logits are the
+    whole batch's.
     """
     cd = compute_dtype
+    b_all = token.shape[0]
+    if par is not None:
+        token = par.local_rows(token)
+        if pos.dim() and pos.numel() == b_all:
+            pos = par.local_rows(pos.reshape(-1))
     b = token.shape[0]
-    h = params["embed"].to(cd)[token.to(torch.int64)]  # (B, 1, D)
+    h = _embed(params, token, cd, par)  # (B, 1, D)
     if cfg.is_hybrid:
         period = cfg.attn_every
         for g in range(cfg.num_layers // period):
             for p in range(period):
                 key = f"pos{p}"
-                h = _decode_block(cfg, layer_params(params["layers"][key], g),
-                                  h, _slice(cache[key], g), pos, None, cd)
+                h = _decode_block(cfg, _layer(params["layers"][key], g, par,
+                                              f"layers/{key}"),
+                                  h, _slice(cache[key], g), pos, None, cd,
+                                  par)
     elif cfg.is_encdec:
+        acfg = _acfg(cfg, par)
         pos_b = pos.to(torch.int64).reshape(-1).expand(b)
-        h = h + params["pos_embed"][pos_b][:, None].to(cd)
+        pos_embed = (params["pos_embed"] if par is None
+                     else par.leaf(params, "pos_embed"))
+        h = h + pos_embed[pos_b][:, None].to(cd)
         for l in range(cfg.num_layers):
-            lp = layer_params(params["layers"], l)
-            h = h + A.decode_step(lp["attn"],
-                                  L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
-                                  cache["k"][l], cache["v"][l], pos, None)
-            h = h + A.cross_decode(lp["cross"],
-                                   L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
-                                   cache["cross_k"][l], cache["cross_v"][l],
-                                   cfg)
+            lp = _layer(params["layers"], l, par)
+            h = h + _attn_sum(A.decode_step(
+                lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), acfg,
+                cache["k"][l], cache["v"][l], pos, None), par)
+            h = h + _attn_sum(A.cross_decode(
+                lp["cross"], L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+                cache["cross_k"][l], cache["cross_v"][l], acfg), par)
             h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
-                             cd)
+                             cd, par)
     else:  # uniform: attention (dense, MoE, VLM) or Mamba (ssm)
         for l, win in enumerate(window_flags(cfg)):
-            h = _decode_block(cfg, layer_params(params["layers"], l), h,
-                              _slice(cache, l), pos, win, cd)
-    return _head(params, h, cfg, cd)
+            h = _decode_block(cfg, _layer(params["layers"], l, par), h,
+                              _slice(cache, l), pos, win, cd, par)
+    return _head(params, h, cfg, cd, par, b_all)
 
 
 def _stack_caches(caches: list) -> dict:
@@ -508,7 +594,7 @@ def _stack_caches(caches: list) -> dict:
 
 
 def _prefill_block(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
-                   window, max_len: int, cd) -> Tuple[Tensor, dict]:
+                   window, max_len: int, cd, par=None) -> Tuple[Tensor, dict]:
     """One uniform or hybrid block over the prompt; returns the new hidden
     states and this layer's cache."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -518,51 +604,60 @@ def _prefill_block(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
         if "ln2" not in lp:
             return h, cache
     else:
-        out, (k, v) = A.prefill_with_cache(lp["attn"], x, cfg, positions,
-                                           window, max_len)
-        h, cache = h + out, {"k": k, "v": v}
-    h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
+        out, (k, v) = A.prefill_with_cache(lp["attn"], x, _acfg(cfg, par),
+                                           positions, window, max_len)
+        h, cache = h + _attn_sum(out, par), {"k": k, "v": v}
+    h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd,
+                     par)
     return h, cache
 
 
 @torch.inference_mode()
 def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
             extra_embeds: Optional[Tensor] = None,
-            compute_dtype=torch.bfloat16) -> Tuple[Tensor, dict]:
+            compute_dtype=torch.bfloat16, par=None) -> Tuple[Tensor, dict]:
     """Process whole prompts: ``(logits (B, 1, V) float32 at the last
     position, cache)``, the cache shaped as :func:`init_cache`'s for B rows
     and ``max_len`` positions.  SSM and hybrid layers run the chunked SSD
     and keep its final state; ``extra_embeds`` are Whisper's frames or a
     VLM's prepended patch embeddings (which then take the first cache
-    positions)."""
+    positions).
+
+    On a mesh (``par``) every rank computes every row (an admission's one
+    prompt); the cache comes back in the compute layout (local kv heads
+    under attention TP, every other dim whole).
+    """
     cd = compute_dtype
     tokens = tokens.to(torch.int64)
     b, s = tokens.shape
     dev = tokens.device
-    h = params["embed"].to(cd)[tokens]
+    acfg = _acfg(cfg, par)
+    h = _embed(params, tokens, cd, par)
     positions = torch.arange(s, device=dev).expand(b, s)
     if cfg.is_encdec:
         if extra_embeds is None:
             raise ValueError("an enc-dec model needs its frame embeddings "
                              "(extra_embeds)")
         enc = _run_encoder(cfg, params["encoder"], extra_embeds.to(cd),
-                           remat=False)
-        h = h + params["pos_embed"][:s].to(cd)
-        nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+                           remat=False, par=par)
+        pos_embed = (params["pos_embed"] if par is None
+                     else par.leaf(params, "pos_embed"))
+        h = h + pos_embed[:s].to(cd)
+        nkv, hd = acfg.num_kv_heads, cfg.resolved_head_dim
         per = []
         for l in range(cfg.num_layers):
-            lp = layer_params(params["layers"], l)
+            lp = _layer(params["layers"], l, par)
             out, (k, v) = A.prefill_with_cache(
-                lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), acfg,
                 positions, None, max_len)
-            h = h + out
-            h = h + A.cross_attention(
+            h = h + _attn_sum(out, par)
+            h = h + _attn_sum(A.cross_attention(
                 lp["cross"], L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
-                enc, cfg)
+                enc, acfg), par)
             xk = (enc @ lp["cross"]["wk"].to(cd)).reshape(b, -1, nkv, hd)
             xv = (enc @ lp["cross"]["wv"].to(cd)).reshape(b, -1, nkv, hd)
             h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
-                             cd)
+                             cd, par)
             per.append({"k": k, "v": v, "cross_k": xk, "cross_v": xv})
         cache = dict(_stack_caches(per), enc=enc)
     elif cfg.is_hybrid:
@@ -571,9 +666,9 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
         for g in range(cfg.num_layers // period):
             for p in range(period):
                 key = f"pos{p}"
-                h, c = _prefill_block(cfg, layer_params(params["layers"][key],
-                                                        g),
-                                      h, positions, None, max_len, cd)
+                h, c = _prefill_block(cfg, _layer(params["layers"][key], g,
+                                                  par, f"layers/{key}"),
+                                      h, positions, None, max_len, cd, par)
                 per[key].append(c)
         cache = {k: _stack_caches(v) for k, v in per.items()}
     else:
@@ -583,11 +678,11 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
                 b, h.shape[1])
         per = []
         for l, win in enumerate(window_flags(cfg)):
-            h, c = _prefill_block(cfg, layer_params(params["layers"], l), h,
-                                  positions, win, max_len, cd)
+            h, c = _prefill_block(cfg, _layer(params["layers"], l, par), h,
+                                  positions, win, max_len, cd, par)
             per.append(c)
         cache = _stack_caches(per)
-    return _head(params, h[:, -1:], cfg, cd), cache
+    return _head(params, h[:, -1:], cfg, cd, par), cache
 
 
 # ---------------------------------------------------------------------------
@@ -599,32 +694,42 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
 def paged_decode_step(params: dict, token: Tensor, pos: Tensor,
                       page_table: Tensor, cache: Dict[str, Tensor],
                       cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-                      write_ok: Optional[Tensor] = None) -> Tensor:
+                      write_ok: Optional[Tensor] = None,
+                      par=None) -> Tensor:
     """One decode step against the paged KV cache.
 
     token: (B, 1) int; pos: (B,) per-row write positions; page_table:
     (B, max_pages) int32 (rows without a request point at the trash page);
     cache: ``{"k","v"}`` of (L, P, page_size, n_kv, hd), updated in place.
     Returns logits (B, 1, V) float32.
+
+    On a mesh (``par``) this rank computes its data rank's rows, writes
+    every row's K/V into its whole page pool (ROADMAP C9) and returns the
+    whole batch's logits.
     """
     _check_paged(cfg, "decode")
     cd = compute_dtype
-    h = params["embed"].to(cd)[token.to(torch.int64)]  # (B, 1, D)
+    b_all = token.shape[0]
+    acfg = _acfg(cfg, par)
+    if par is not None:
+        token = par.local_rows(token)
+    h = _embed(params, token, cd, par)  # (B, 1, D)
     for l, win in enumerate(window_flags(cfg)):
-        lp = layer_params(params["layers"], l)
-        h = h + A.paged_decode_step(
-            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+        lp = _layer(params["layers"], l, par)
+        h = h + _attn_sum(A.paged_decode_step(
+            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), acfg,
             cache["k"][l], cache["v"][l], page_table, pos, win,
-            write_ok=write_ok)
-        h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
-    return _head(params, h, cfg, cd)
+            write_ok=write_ok, par=par), par)
+        h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd,
+                         par)
+    return _head(params, h, cfg, cd, par, b_all)
 
 
 @torch.inference_mode()
 def paged_prefill_chunk(params: dict, tokens: Tensor, start, n_valid,
                         page_row: Tensor, cache: Dict[str, Tensor],
-                        cfg: ModelConfig, *,
-                        compute_dtype=torch.bfloat16) -> Tensor:
+                        cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                        par=None) -> Tensor:
     """One chunk of a single request's prefill against the paged cache.
 
     tokens: (1, cs) right-padded to the engine's chunk width; start /
@@ -633,21 +738,24 @@ def paged_prefill_chunk(params: dict, tokens: Tensor, start, n_valid,
     serves every chunk: nothing here reads them on the host); page_row:
     (max_pages,) int32.  The cache is updated in place.  Returns logits
     (1, 1, V) float32 at the chunk's last valid position (position 0 when
-    ``n_valid`` is 0, a chunk that writes only the trash page).
+    ``n_valid`` is 0, a chunk that writes only the trash page).  On a mesh
+    (``par``) every rank computes the chunk and writes its own page pool.
     """
     _check_paged(cfg, "prefill")
     cd = compute_dtype
+    acfg = _acfg(cfg, par)
     start = torch.as_tensor(start, device=tokens.device)
     n_valid = torch.as_tensor(n_valid, device=tokens.device)
     last = torch.clamp(n_valid.to(torch.int64) - 1, min=0).reshape(1)
-    h = params["embed"].to(cd)[tokens.to(torch.int64)]
+    h = _embed(params, tokens, cd, par)
     for l, win in enumerate(window_flags(cfg)):
-        lp = layer_params(params["layers"], l)
-        h = h + A.paged_prefill_chunk(
-            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg, start,
-            n_valid, cache["k"][l], cache["v"][l], page_row, win)
-        h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd)
-    return _head(params, h.index_select(1, last), cfg, cd)
+        lp = _layer(params["layers"], l, par)
+        h = h + _attn_sum(A.paged_prefill_chunk(
+            lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), acfg, start,
+            n_valid, cache["k"][l], cache["v"][l], page_row, win), par)
+        h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd,
+                         par)
+    return _head(params, h.index_select(1, last), cfg, cd, par)
 
 
 @torch.inference_mode()

@@ -70,16 +70,20 @@ def route(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return topv, topi
 
 
-def dispatch(topi: Tensor, num_experts: int, cap: int) -> dict:
+def dispatch(topi: Tensor, num_experts: int, cap: int, e0: int = 0,
+             e_local: Optional[int] = None) -> dict:
     """The integer routing of every group at once.  topi: (B, S, k).
 
     Returns ``order`` (B, S·k) the stable argsort of the flat expert ids,
     ``counts`` (B, E), ``rank`` and ``slot`` (B, S·k) of each sorted
-    selection (``slot`` is ``E·cap``, the overflow row, past capacity),
-    ``keep`` (B, S·k) bool, and ``inv`` (B, S·k) int32: the slot of each
-    selection in its original order."""
+    selection, ``keep`` (B, S·k) bool, and ``inv`` (B, S·k) int32: the slot
+    of each selection in its original order.  Slots number the bins of the
+    ``e_local`` experts from ``e0`` (default: all of them); a selection past
+    its expert's capacity, or of another rank's expert, takes the overflow
+    slot ``e_local·cap``."""
     b, s, k = topi.shape
     e, dev = num_experts, topi.device
+    e_local = e if e_local is None else e_local
     flat_e = topi.reshape(b, s * k).to(torch.int64)
     order = torch.argsort(flat_e, dim=1, stable=True)
     sorted_e = torch.gather(flat_e, 1, order)
@@ -89,8 +93,10 @@ def dispatch(topi: Tensor, num_experts: int, cap: int) -> dict:
     rank = (torch.arange(s * k, device=dev)[None]
             - torch.gather(starts, 1, sorted_e))
     keep = rank < cap
-    slot = torch.where(keep, sorted_e * cap + rank,
-                       torch.full_like(rank, e * cap))
+    rel = sorted_e - e0
+    ok = keep & (rel >= 0) & (rel < e_local)
+    slot = torch.where(ok, rel * cap + rank,
+                       torch.full_like(rank, e_local * cap))
     inv = torch.zeros((b, s * k), dtype=torch.int64, device=dev)
     inv.scatter_(1, order, slot)  # a permutation: no duplicate targets
     return {"order": order, "counts": counts, "rank": rank, "keep": keep,
@@ -98,27 +104,37 @@ def dispatch(topi: Tensor, num_experts: int, cap: int) -> dict:
 
 
 def moe_apply(params: dict, x: Tensor, cfg: ModelConfig,
-              capacity_factor: Optional[float] = None) -> Tensor:
+              capacity_factor: Optional[float] = None, par=None) -> Tensor:
     """x: (B, S, D) → (B, S, D).  Groups are batch rows.
 
-    The JAX function takes an expert-parallel ``shard_map`` path under a
-    mesh whose model axis the experts divide; multi-device serving is not
-    ported (ROADMAP A11), so every call takes the single-device path."""
+    On a mesh (``par``): with expert parallelism (E divides ``model``)
+    each rank holds ``E/tp`` experts from ``e0 = tp_rank · E/tp``, routes
+    its own rows, bins only its experts and combines locally; one
+    all-reduce over ``model`` sums the ranks' partial outputs (JAX's
+    ``_moe_apply_shard_map``).  Otherwise each rank holds a slice of every
+    expert's FF dim (TP inside the expert) and the row-parallel down
+    projection's partials are summed the same way.  The capacity rule is
+    the single-device one."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     dtype = x.dtype
     logits = (x @ params["router"].to(dtype)).to(torch.float32)
     topv, topi = route(torch.softmax(logits, dim=-1), k)
     cap = capacity(cfg, s, capacity_factor)
-    r = dispatch(topi, e, cap)
+    e_local, e0 = e, 0
+    if par is not None and par.ep:
+        e_local = e // par.tp
+        e0 = par.tp_rank * e_local
+    r = dispatch(topi, e, cap, e0, e_local)
 
     # bins: each kept selection's token row at its slot; the overflow row
-    # e*cap takes every dropped one and is cut off
+    # e_local*cap takes every dropped one and is cut off
     sorted_tok = r["order"] // k
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    bins = torch.zeros((b, e * cap + 1, d), dtype=dtype, device=x.device)
+    bins = torch.zeros((b, e_local * cap + 1, d), dtype=dtype,
+                       device=x.device)
     bins[rows, r["slot"]] = x[rows, sorted_tok]
-    bins = bins[:, :e * cap].reshape(b, e, cap, d)
+    bins = bins[:, :e_local * cap].reshape(b, e_local, cap, d)
 
     w_gate = params["w_gate"].to(dtype)
     w_up = params["w_up"].to(dtype)
@@ -127,15 +143,19 @@ def moe_apply(params: dict, x: Tensor, cfg: ModelConfig,
     h = h * torch.einsum("becd,edf->becf", bins, w_up)
     out_bins = torch.einsum("becf,efd->becd", h, w_down)
 
-    # combine: each selection's expert output (0 where it was dropped),
-    # weighted by its renormalised probability, summed over k
-    flat = torch.cat([out_bins.reshape(b, e * cap, d),
+    # combine: each selection's expert output (0 where it was dropped or
+    # is another rank's), weighted by its renormalised probability, summed
+    # over k
+    flat = torch.cat([out_bins.reshape(b, e_local * cap, d),
                       torch.zeros((b, 1, d), dtype=dtype, device=x.device)],
                      dim=1)
     inv = r["inv"].to(torch.int64)
     gathered = torch.gather(flat, 1, inv[:, :, None].expand(b, s * k, d))
     gathered = gathered.reshape(b, s, k, d)
-    return (gathered * topv[..., None].to(dtype)).sum(dim=2)
+    out = (gathered * topv[..., None].to(dtype)).sum(dim=2)
+    if par is not None and (par.ep or par.moe_tp):
+        out = par.reduce_tp(out)
+    return out
 
 
 def aux_load_balance_loss(logits: Tensor, topi: Tensor,

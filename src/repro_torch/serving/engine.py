@@ -52,6 +52,9 @@ import torch
 
 from repro_torch.compiler.artifact import ArtifactError, load_artifact
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ParallelContext, flatten,
+                                              local_shape, mesh_shape,
+                                              shard_params, unflatten)
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import sampling as S
@@ -65,12 +68,15 @@ from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
 
 
-def _splice_artifact(art, params: dict, cfg: ModelConfig, device="cuda"):
+def _splice_artifact(art, params: dict, cfg: ModelConfig, device="cuda",
+                     mesh=None):
     """Validate a loaded ``amm_lm`` artifact against ``cfg``, splice its
     LUT-MU tables into the dense params tree on ``device``, and enable the
     AMM path with the artifact's recorded settings (the speculative engine
-    calls it once per bundle half).  A recorded serving mesh is reported
-    and ignored: multi-device serving is not ported yet (ROADMAP A11)."""
+    calls it once per bundle half).  A serving ``mesh`` other than the one
+    the manifest records is reported, not rejected: the rules place the
+    tables on any mesh.  On a mesh the tables are spliced on the host, and
+    the engine moves only this rank's shards to ``device``."""
     if art.kind != "amm_lm":
         raise ArtifactError(
             f"ServeEngine needs an amm_lm artifact, got {art.kind!r}")
@@ -93,17 +99,36 @@ def _splice_artifact(art, params: dict, cfg: ModelConfig, device="cuda"):
     cfg = dataclasses.replace(
         cfg, amm=dataclasses.replace(cfg.amm, enabled=True,
                                      **art.manifest["amm"]))
-    if art.manifest.get("mesh"):
-        log("serve", f"note: artifact was compiled for mesh "
-            f"{art.manifest['mesh']}, serving on one device (ROADMAP A11)")
-    return art.splice_lm_params(params, device=device), cfg
+    want = art.manifest.get("mesh")
+    if want and mesh is not None:
+        have = mesh_shape(mesh)
+        if {k: int(v) for k, v in want.items()} != have:
+            log("serve", f"note: artifact was compiled for mesh {want}, "
+                f"serving on {have}")
+    return art.splice_lm_params(
+        params, device=device if mesh is None else "cpu"), cfg
 
 
 def _artifact_params_cfg(artifact_path, params: dict, cfg: ModelConfig,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """Load an ``amm_lm`` artifact from disk and splice it (see
     :func:`_splice_artifact`)."""
-    return _splice_artifact(load_artifact(artifact_path), params, cfg, device)
+    return _splice_artifact(load_artifact(artifact_path), params, cfg, device,
+                            mesh)
+
+
+def _parallel(params: dict, cfg: ModelConfig, mesh, device: torch.device):
+    """``(params, par)`` an engine serves: off a mesh the params as given
+    and no context; on one this rank's shards, on ``device``, and its
+    parallel context.  The whole tree is best given on the host: it is cut
+    where it lies, and only the shards go to the card."""
+    if mesh is None:
+        return params, None
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot serve on "
+                         f"{device}")
+    par = ParallelContext(cfg, mesh, params)
+    return shard_params(params, cfg, mesh, device=device), par
 
 
 def _bind_quality(obs, params: dict, cfg: ModelConfig) -> None:
@@ -134,7 +159,8 @@ class ServeEngine:
                  max_batch: int = 4, max_len: int = 256, page_size: int = 16,
                  prefill_chunk: int = 32, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, compute_dtype=torch.float32,
-                 device="cuda", verify_backend: str = "auto", recorder=None):
+                 device="cuda", verify_backend: str = "auto", recorder=None,
+                 mesh=None):
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged decode path — serve it "
@@ -148,7 +174,10 @@ class ServeEngine:
         # allocator and the hook sites below (obs.py)
         self.obs = recorder if recorder is not None else NULL_RECORDER
         self.device = resolve_device(device)
-        self.params = params
+        # on a ``data × model`` mesh (``launch/mesh.py``) the engine holds
+        # this rank's shards, and every rank runs the same host schedule
+        self.mesh = mesh
+        self.params, self.par = _parallel(params, cfg, mesh, self.device)
         self.max_batch = int(max_batch)
         self.max_len = max_len
         self.page_size = ps = int(page_size)
@@ -164,9 +193,12 @@ class ServeEngine:
         # page type
         self.kv_dtype = (torch.int8 if cfg.amm.enabled and cfg.amm.kv_int8
                          else compute_dtype)
-        self.kv = PagedKVCache(cfg, num_pages=num_pages, page_size=ps,
-                               dtype=self.kv_dtype, device=self.device,
-                               recorder=recorder)
+        # on a mesh every data rank keeps every page (ROADMAP C9), its kv
+        # heads those of its attention shard
+        par = self.par
+        self.kv = PagedKVCache(MD._acfg(cfg, par), num_pages=num_pages,
+                               page_size=ps, dtype=self.kv_dtype,
+                               device=self.device, recorder=recorder)
         self.sched = Scheduler(
             max_batch=self.max_batch, allocator=self.kv.allocator,
             page_size=ps, max_pages_per_seq=mp,
@@ -184,11 +216,11 @@ class ServeEngine:
 
         def decode(token, pos, table):
             return MD.paged_decode_step(params, token, pos, table, kv, cfg,
-                                        compute_dtype=cd)
+                                        compute_dtype=cd, par=par)
 
         def prefill(tokens, start, n_valid, row):
             return MD.paged_prefill_chunk(params, tokens, start, n_valid, row,
-                                          kv, cfg, compute_dtype=cd)
+                                          kv, cfg, compute_dtype=cd, par=par)
 
         self._kv_itemsize = kv["k"].element_size()
         self._param_bytes = tree_bytes(params)
@@ -220,7 +252,8 @@ class ServeEngine:
         params tree the artifact was compiled against; the arch name, depth
         and width must match."""
         params, cfg = _artifact_params_cfg(artifact_path, params, cfg,
-                                           kwargs.get("device", "cuda"))
+                                           kwargs.get("device", "cuda"),
+                                           kwargs.get("mesh"))
         return cls(params, cfg, **kwargs)
 
     # -- API -------------------------------------------------------------
@@ -430,15 +463,24 @@ class ServeEngine:
                 finished.append(req)
 
 
-def _splice_slot(full: dict, one: dict, slot: int, slots: int) -> None:
+def _splice_slot(full: dict, one: dict, slot: int, slots: int,
+                 par=None, specs: Optional[dict] = None) -> None:
     """Copy a one-row prefill cache into row ``slot`` of the engine's
     cache, in place (the captured decode program reads these buffers):
     every leaf with a slot axis (``one.dim() >= 2 and full.shape[1] ==
-    slots``, the JAX engine's rule), cast to the leaf's type."""
-    for k, f in full.items():
-        o = one[k]
-        if isinstance(f, dict):
-            _splice_slot(f, o, slot, slots)
+    slots``, the JAX engine's rule), cast to the leaf's type.
+
+    On a mesh (``par``) both are in the layout the model computes on, and
+    ``specs`` holds each leaf's placement (``ParallelContext.cache_spec``):
+    a leaf whose slots split over ``data`` is written only by the data rank
+    that holds ``slot``, at its local row."""
+    ones = flatten(one)
+    for path, f in flatten(full).items():
+        o = ones[path]
+        if par is not None and specs[path][1:2] == ("data",):
+            n = slots // par.dp
+            if slot // n == par.dp_rank:
+                f[:, slot % n].copy_(o[:, 0].to(f.dtype))
         elif o.dim() >= 2 and f.shape[1] == slots:
             f[:, slot].copy_(o[:, 0].to(f.dtype))
 
@@ -462,13 +504,15 @@ class FixedSlotEngine:
 
     def __init__(self, params: dict, cfg: ModelConfig, *, slots: int = 4,
                  max_len: int = 256, compute_dtype=torch.float32,
-                 device="cuda", recorder=None):
+                 device="cuda", recorder=None, mesh=None):
         self.cfg = cfg
         self.slots = int(slots)
         self.max_len = max_len
         self.cd = compute_dtype
         self.device = resolve_device(device)
-        self.params = params
+        self.mesh = mesh
+        self.params, self.par = _parallel(params, cfg, mesh, self.device)
+        params, par = self.params, self.par
         # the same zero-overhead-off observability as ServeEngine (no
         # scheduler here, so the lifecycle hooks fire from the engine)
         self.obs = recorder if recorder is not None else NULL_RECORDER
@@ -478,8 +522,22 @@ class FixedSlotEngine:
         self._uid = itertools.count()
         self._driver = None  # a server driver that owns the loop, if any
         self.stats = {"prefill_calls": 0, "decode_calls": 0}
-        self.cache = MD.init_cache(cfg, self.slots, max_len, compute_dtype,
-                                   self.device)
+        self._cache_specs = None
+        if par is None:
+            self.cache = MD.init_cache(cfg, self.slots, max_len,
+                                       compute_dtype, self.device)
+        else:
+            # this rank's part, stored as the decode reads it: its slots
+            # and, under attention TP, its kv heads (ROADMAP C9)
+            shapes = flatten(MD.init_cache(cfg, self.slots, max_len,
+                                           compute_dtype, "meta"))
+            self._cache_specs = {p: par.cache_spec(p, t.shape, self.slots)
+                                 for p, t in shapes.items()}
+            self.cache = unflatten({
+                p: torch.zeros(local_shape(t.shape, self._cache_specs[p],
+                                           mesh),
+                               dtype=t.dtype, device=self.device)
+                for p, t in shapes.items()})
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
         cache, cd = self.cache, compute_dtype
@@ -488,7 +546,7 @@ class FixedSlotEngine:
             # each slot decodes at its own position, so staggered
             # admissions give the streams of sequential decoding
             return MD.decode_step(params, token, pos, cache, cfg,
-                                  compute_dtype=cd)
+                                  compute_dtype=cd, par=par)
 
         self._decode = self._program(
             decode, "fixed_decode",
@@ -514,7 +572,8 @@ class FixedSlotEngine:
         """Serve a compiled ``amm_lm`` artifact through fixed slots (see
         :meth:`ServeEngine._from_artifact`)."""
         params, cfg = _artifact_params_cfg(artifact_path, params, cfg,
-                                           kwargs.get("device", "cuda"))
+                                           kwargs.get("device", "cuda"),
+                                           kwargs.get("mesh"))
         return cls(params, cfg, **kwargs)
 
     # -- API -------------------------------------------------------------
@@ -648,9 +707,11 @@ class FixedSlotEngine:
             tokens = torch.tensor([req.prompt], dtype=torch.int32,
                                   device=self.device)
             logits, one = MD.prefill(self.params, tokens, self.cfg,
-                                     self.max_len, compute_dtype=self.cd)
+                                     self.max_len, compute_dtype=self.cd,
+                                     par=self.par)
             with torch.inference_mode():
-                _splice_slot(self.cache, one, slot, self.slots)
+                _splice_slot(self.cache, one, slot, self.slots, self.par,
+                             self._cache_specs)
                 self._prefill_logits.copy_(logits[0, -1:])
             del one
             self.stats["prefill_calls"] += 1

@@ -154,11 +154,12 @@ class PagedKVCache:
                  dtype=torch.float32, device="cuda",
                  allocator: Optional[PageAllocator] = None, recorder=None):
         """``dtype`` is the page type (float, bfloat16, or int8 for the
-        quantised cache).  ``allocator`` shares another cache's page pool:
-        the speculative engine mirrors its target cache with a draft cache
-        of identical geometry, and one page id must address the same
-        logical slot in both (one page table, one scheduler, two physical
-        pools)."""
+        quantised cache).  ``cfg``'s kv-head count is the page's (a rank's
+        local heads under attention TP).  ``allocator`` shares another
+        cache's page pool: the speculative engine mirrors its target cache with a
+        draft cache of identical geometry, and one page id must address the
+        same logical slot in both (one page table, one scheduler, two
+        physical pools)."""
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged KV layout")

@@ -24,8 +24,8 @@ a loaded ``Artifact`` object          same as an ``amm_lm`` path
 drops the paged-only knobs).  Every other keyword goes to the engine
 (``max_batch``, ``max_len``, ``page_size``, ``prefill_chunk``,
 ``num_pages``, ``prefix_cache``, ``compute_dtype``, ``device``,
-``verify_backend``, ``spec_k``, ``recorder``): every engine built gets the
-same ``recorder``.
+``verify_backend``, ``spec_k``, ``recorder``, ``mesh``): every engine
+built gets the same ``recorder``.
 """
 from __future__ import annotations
 
@@ -94,14 +94,16 @@ def load_engine(source, params: dict, cfg: ModelConfig, *,
                 f"artifact-pair source must be (target, draft), got "
                 f"{len(source)} elements")
         if speculative is False:
-            t_params, t_cfg = _splice_artifact(source[0], params, cfg, device)
+            t_params, t_cfg = _splice_artifact(source[0], params, cfg, device,
+                                               opts.get("mesh"))
             return _paged_or_fixed(engine, t_params, t_cfg, opts)
         return SpeculativeEngine._from_artifacts(source[0], source[1],
                                                  params, cfg, **opts)
 
     # a single loaded artifact object → splice
     if _is_artifact(source):
-        s_params, s_cfg = _splice_artifact(source, params, cfg, device)
+        s_params, s_cfg = _splice_artifact(source, params, cfg, device,
+                                           opts.get("mesh"))
         return _paged_or_fixed(engine, s_params, s_cfg, opts)
 
     # a path → sniff the manifest kind

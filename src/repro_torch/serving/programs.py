@@ -46,6 +46,7 @@ inputs' shapes without running it.
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -191,14 +192,27 @@ class StepProgram:
             with torch.cuda.stream(stream), D.profile_hook_paused():
                 self.fn(**self.inputs, **tensors)
 
+        # on a mesh the NCCL collectives are captured too; the process
+        # group's watchdog thread keeps querying its events meanwhile,
+        # which only a thread-local capture allows
+        mode = ("thread_local" if torch.distributed.is_available()
+                and torch.distributed.is_initialized() else "global")
+
         def capture():
             # the outer context restores the caller's stream even when a
             # failed capture's ``capture_end`` raises before the graph
             # context leaves its stream
             with torch.cuda.stream(stream):
-                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                      capture_error_mode=mode):
                     out.append(self.fn(**self.inputs, **tensors))
 
+        # no cyclic garbage collection inside a capture: a dead engine's
+        # graph freed there (``cudaGraphExecDestroy``) invalidates it, so
+        # dead cycles go first and the collector waits until the end
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             self._launches = _build.CapturedLaunches(warm_up, capture)
         except RuntimeError as e:
@@ -208,6 +222,9 @@ class StepProgram:
             # unfused
             raise RuntimeError(f"the {self.name} step program could not be "
                                f"captured: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph.instantiate()
         self.graph, self.outputs, self._bound = graph, out[0], tensors

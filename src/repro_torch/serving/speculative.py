@@ -175,6 +175,10 @@ class SpeculativeEngine(ServeEngine):
     def __init__(self, params: dict, cfg: ModelConfig, draft_params: dict, *,
                  draft_cfg: Optional[ModelConfig] = None, spec_k: int = 4,
                  **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "mesh-parallel speculative serving is an open item (see "
+                "ROADMAP.md) — serve unsharded or use ServeEngine")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         super().__init__(params, cfg, **kwargs)
@@ -250,8 +254,10 @@ class SpeculativeEngine(ServeEngine):
         """Build from two loaded ``amm_lm`` artifacts, both spliced into
         the same dense params tree."""
         device = kwargs.get("device", "cuda")
-        params_t, cfg_t = _splice_artifact(target_art, params, cfg, device)
-        params_d, cfg_d = _splice_artifact(draft_art, params, cfg, device)
+        params_t, cfg_t = _splice_artifact(target_art, params, cfg, device,
+                                           kwargs.get("mesh"))
+        params_d, cfg_d = _splice_artifact(draft_art, params, cfg, device,
+                                           kwargs.get("mesh"))
         return cls(params_t, cfg_t, params_d, draft_cfg=cfg_d, **kwargs)
 
     @classmethod

@@ -311,10 +311,11 @@ def test_launcher_observability_flags(capsys, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     pytest.param(["--slots", "2"], None, id="flag0-A10"),
-    (["--mesh", "2x2"], "A11")])
+    pytest.param(["--mesh", "2x2"], "torchrun", id="flag1-A11")])
 def test_launcher_unported_flags_name_their_item(flag, item, capsys):
-    """``--mesh`` names its ROADMAP item.  ``--slots`` (A10, refused until
-    ported) now serves: ``--slots 2`` is the deprecated spelling of
+    """``--mesh`` (ROADMAP A11, refused until ported) needs a world of D·M
+    ranks and names the launcher that starts them.  ``--slots`` (A10,
+    refused until ported) now serves: ``--slots 2`` is the deprecated spelling of
     ``--max-batch 2``, the same streams; with ``--engine fixed`` too."""
     if item is None:
         _, slots = _launch(capsys, flag)

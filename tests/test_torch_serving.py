@@ -299,7 +299,8 @@ def test_launcher_serves_artifact_and_bundle(launcher_arts, capsys):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--mesh", "2x2"], "A11"),
+    pytest.param(["--mesh", "2x2"], "torchrun --nproc-per-node 4",
+                 id="extra0-A11"),
     pytest.param(["--engine", "fixed"], None, id="extra1-A10"),
     (["--speculative", "--amm"], "drop --amm"),
     (["--speculative", "--artifact", "ART"], "needs a target\\+draft bundle"),
@@ -309,7 +310,9 @@ def test_launcher_exits_where_not_ported(launcher_arts, extra, message,
                                          capsys):
     """Each flag the port refuses names why.  ``--engine fixed`` (ROADMAP
     A10, refused until ported) now serves: the artifact through fixed
-    slots gives the paged engine's streams."""
+    slots gives the paged engine's streams.  ``--mesh`` (A11, refused
+    until ported) serves on a mesh of D·M ranks: a 2x2 mesh in one
+    process names the launcher that starts them."""
     extra = [str(launcher_arts / "art") if a == "ART" else
              str(launcher_arts / "missing") if a == "MISSING" else a
              for a in extra]
