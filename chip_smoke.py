@@ -167,13 +167,14 @@ Phases, each fatal on failure:
     the float tolerance of ``backend="ref"``; accuracies, LUT bytes Kn2col
     vs Im2col, ms per forward; conv1's tap 0 at int8 through ``unfused``
     at B = 262,144, bit-equal to ``ref``;
-24. train — qwen3-14b at full width, depth cut to 2 layers, bf16 compute,
-    ``grad_accum`` 2, 4 × 128 ``TokenStream`` tokens, 3 steps of
-    ``make_train_step``: ms per step, tokens/s, peak memory, losses; then
-    ``Trainer.run`` at reduced width under deterministic algorithms,
-    checkpoints every 5 steps, one injected failure: one recovery, losses
-    bitwise equal to an uninjected run's, the last checkpoint restored by
-    ``restore_into`` equal to the live state.
+24. train — under deterministic algorithms: qwen3-14b at full width,
+    depth cut to 2 layers, bf16 compute, 4 × 128 ``TokenStream`` tokens, 3
+    steps of ``make_train_step``: ms per step, tokens/s, peak memory,
+    losses (the final state kept on the host for phase 27); then
+    ``Trainer.run`` at reduced width, checkpoints every 5 steps, one
+    injected failure: one recovery, losses bitwise equal to an uninjected
+    run's, the last checkpoint restored by ``restore_into`` equal to the
+    live state.
 
 25. families — (a, after 5) the fixed-slot engine on phase 5's 40-layer
     params: ``load_engine(None, ..., engine="fixed", max_batch=4)`` serves
@@ -219,8 +220,26 @@ Phases, each fatal on failure:
     ``lut_aggregate`` with a unit epilogue, the partials summed on the card
     in rank order, then one epilogue: int8 bit-equal to the unsharded
     kernel, float32 within FLOAT_RTOL/ATOL; each per-shard kernel's ms
-    (CUDA events, L2 flushed) beside the unsharded kernel's and the
-    per-shard bound.
+    (CUDA events, L2 flushed) beside the unsharded kernel's, the
+    per-shard bound and the library call's (one ``torch.matmul`` of the
+    shard's float32 one-hot × its LUT).
+
+27. mesh-train — (after 24) (a) phase 24's full-width step through a 1×1
+    NCCL mesh (``make_train_step(..., par=...)`` on ``shard_state``'s
+    shards): the losses and the state after 3 steps bitwise phase 24's,
+    both under deterministic algorithms; ms per step, tokens/s, peak
+    memory of both, the collectives a step; then the one-device step once
+    more (its ms beside the mesh's; its losses bitwise phase 24's); (b) the reduced ``Trainer`` on
+    the mesh with one injected failure: one recovery, the losses bitwise
+    phase 24's uninjected run's; ``remesh(mesh, shardings_fn)`` with
+    ``state_shardings`` and the mesh's last checkpoint through
+    ``restore_into`` equal the live state; (c) the dry-run of (a)'s cell
+    on an abstract 1×1 mesh (``launch/dryrun.py``): its state bytes equal
+    the live state's, arguments + temp beside (a)'s peak memory, its FLOPs
+    over (a)'s step time as TFLOP/s and a share of the 989 TFLOP/s bf16
+    peak; then one line per qwen3-14b cell on 16×16 from the dry-run run
+    on the host in a process of its own (started after (a)): per-rank
+    GiB against 80, FLOPs, collective bytes, the roofline's bound.
 
 The line before the last is ``{"kernels": [...]}`` (the ``fused_lutmu``
 and ``verify_window`` entries also carry the heuristic and measured plans
@@ -2614,29 +2633,10 @@ TRAIN_LAYERS = 2               # full-width training depth
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3
 
 
-def train_phase(torch):
-    """24. qwen3-14b at full width, depth cut to ``TRAIN_LAYERS``, bf16
-    compute, ``grad_accum`` 2: ``TRAIN_STEPS`` steps of ``make_train_step``
-    on ``TokenStream`` batches (ms per step, tokens/s, peak memory, loss);
-    then ``Trainer.run`` at reduced width under deterministic algorithms,
-    checkpoints every 5 steps, with and without one injected failure:
-    ``recoveries == 1``, the losses bitwise equal, and the last checkpoint
-    restored through ``restore_into`` equals the live state."""
-    from repro_torch import pytree as T
-    from repro_torch.checkpoint import restore_into
-    from repro_torch.configs import get_config
+def full_width_steps(torch, step_fn, state, cfg):
+    """``TRAIN_STEPS`` steps of ``step_fn`` on ``TokenStream`` batches:
+    ``(state, losses, ms per step after the first, first step's ms)``."""
     from repro_torch.data import TokenStream
-    from repro_torch.optim import cosine_schedule
-    from repro_torch.runtime.steps import init_train_state, make_train_step
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
-
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("qwen3-14b"), num_layers=TRAIN_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(t.numel() for t in T.leaves(state.params))
-    step_fn = make_train_step(cfg, cosine_schedule(1e-4, 10, 100),
-                              compute_dtype=torch.bfloat16)
     stream = TokenStream(vocab_size=cfg.vocab_size, batch_size=TRAIN_BATCH,
                          seq_len=TRAIN_SEQ)
     times, losses = [], []
@@ -2649,24 +2649,59 @@ def train_phase(torch):
         losses.append(float(metrics["loss"]))
         times.append(time.perf_counter() - s)
     ensure(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[train] qwen3-14b full width, {TRAIN_LAYERS} layers "
-          f"({n_params / 1e9:.3f} B params), bf16 compute, grad_accum "
-          f"{cfg.grad_accum}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
-          f"{step_ms:.1f} ms/step after the first ({1e3 * times[0]:.1f} ms), "
-          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
-          f"{peak / 1e9:.2f} GB, losses {[round(v, 4) for v in losses]}",
-          flush=True)
-    del state, step_fn, metrics, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    return (state, losses, 1e3 * sum(times[1:]) / (len(times) - 1),
+            1e3 * times[0])
 
-    rcfg = get_config("qwen3-14b", reduced=True)
-    rstream = TokenStream(vocab_size=rcfg.vocab_size, batch_size=4, seq_len=32)
+
+def train_phase(torch):
+    """24. qwen3-14b at full width, depth cut to ``TRAIN_LAYERS``, bf16
+    compute, ``grad_accum`` 2: ``TRAIN_STEPS`` steps of ``make_train_step``
+    on ``TokenStream`` batches (ms per step, tokens/s, peak memory, loss);
+    then ``Trainer.run`` at reduced width, checkpoints every 5 steps, with
+    and without one injected failure: ``recoveries == 1``, the losses
+    bitwise equal, and the last checkpoint restored through
+    ``restore_into`` equals the live state.  All under deterministic
+    algorithms (phase 27 holds the sharded step to this one bit for bit).
+    Returns the step's numbers, its losses and its final state on the
+    host, and the uninjected ``Trainer`` run's losses."""
+    from repro_torch import pytree as T
+    from repro_torch.checkpoint import restore_into
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     try:
+        cfg = dataclasses.replace(get_config("qwen3-14b"),
+                                  num_layers=TRAIN_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(t.numel() for t in T.leaves(state.params))
+        step_fn = make_train_step(cfg, cosine_schedule(1e-4, 10, 100),
+                                  compute_dtype=torch.bfloat16)
+        state, losses, step_ms, first_ms = full_width_steps(
+            torch, step_fn, state, cfg)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"[train] qwen3-14b full width, {TRAIN_LAYERS} layers "
+              f"({n_params / 1e9:.3f} B params), bf16 compute, grad_accum "
+              f"{cfg.grad_accum}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+              f"deterministic algorithms: {step_ms:.1f} ms/step after the "
+              f"first ({first_ms:.1f} ms), {tokens / step_ms * 1e3:.1f} "
+              f"tokens/s, peak memory {peak / 1e9:.2f} GB, losses "
+              f"{[round(v, 4) for v in losses]}", flush=True)
+        host = T.map_tree(lambda t: t.to("cpu", copy=True), state)
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rcfg = get_config("qwen3-14b", reduced=True)
+        rstream = TokenStream(vocab_size=rcfg.vocab_size, batch_size=4,
+                              seq_len=32)
         with tempfile.TemporaryDirectory() as tmp:
             def run(name, hook=None):
                 tr = Trainer(rcfg, TrainerConfig(
@@ -2710,7 +2745,201 @@ def train_phase(torch):
           f"step 12 equals the live state; {time.perf_counter() - t0:.1f}s",
           flush=True)
     return {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_gb": peak / 1e9}
+            "peak_gb": peak / 1e9, "losses": losses, "state": host,
+            "trainer_losses": o1["losses"], "cfg": cfg}
+
+
+# ---------------------------------------------------------------------------
+# phase 27: training on a device mesh, and the dry-run
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "qwen3-14b"      # the 16x16 dry-run's cells, run on the host
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH --force``
+    (its cells on 16x16, written to ``dryrun_results_torch/`` in the
+    checkout), in a process of its own on the host (CPU only; started
+    after phase 27 (a)'s timed steps, it overlaps 27 (b)-(c), which time
+    nothing on the host clock).  The caller ends it."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--force"], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def mesh_train_phase(torch, p24, smi, dry):
+    """27. (a) phase 24's full-width step through a 1x1 NCCL mesh (the
+    sharded step, ``par``): losses and the state after the steps bitwise
+    phase 24's, both under deterministic algorithms; (b) the reduced
+    ``Trainer`` on the mesh, one injected failure: one recovery, losses
+    bitwise phase 24's uninjected run's; ``remesh`` with
+    ``state_shardings`` round trip and a checkpoint written from the mesh
+    read back by ``restore_into`` equal the live state; (c) the dry-run of
+    (a)'s cell on an abstract 1x1 mesh: its argument bytes equal the live
+    state's, its FLOPs over (a)'s step time; the 16x16 cells of
+    ``DRYRUN_ARCH`` from the host process (``start_dryrun``, kept in
+    ``dry["proc"]`` for the caller to end) started after (a)."""
+    from repro_torch import pytree as T
+    from repro_torch.analysis import roofline as RF
+    from repro_torch.checkpoint import restore_into
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.device import MetaGenerator
+    from repro_torch.distributed.sharding import (AbstractMesh,
+                                                  ParallelContext,
+                                                  shard_state, state_shardings)
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import model as MD
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = p24["cfg"]
+    mesh = make_serve_mesh("1x1", "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) the sharded step at full width
+        torch.cuda.reset_peak_memory_stats()
+        par = ParallelContext(cfg, mesh, MD.init_params(cfg, MetaGenerator()))
+        state = shard_state(init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0)), cfg, mesh)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in T.leaves(state))
+        step_fn = make_train_step(cfg, cosine_schedule(1e-4, 10, 100),
+                                  compute_dtype=torch.bfloat16, par=par)
+        before = par.collectives
+        state, losses, step_ms, first_ms = full_width_steps(
+            torch, step_fn, state, cfg)
+        per_step = (par.collectives - before) // TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        ensure(losses == p24["losses"],
+               f"sharded losses {losses} != phase 24's {p24['losses']}")
+        ensure(all(torch.equal(a.cpu(), b) for a, b in zip(
+            T.leaves(state), T.leaves(p24["state"]))),
+               "the sharded step's state differs from phase 24's")
+        del state, step_fn, p24["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one device again, after the mesh (phase 24, mesh, one device)
+        _, again, again_ms, _ = full_width_steps(
+            torch, make_train_step(cfg, cosine_schedule(1e-4, 10, 100),
+                                   compute_dtype=torch.bfloat16),
+            init_train_state(
+                cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+        ensure(again == p24["losses"], "a second one-device run differs")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"[mesh-train] (a) phase 24's step through a 1x1 NCCL mesh: "
+              f"losses {[round(v, 4) for v in losses]} and the state after "
+              f"{TRAIN_STEPS} steps bitwise phase 24's; {step_ms:.1f} ms/step "
+              f"after the first ({first_ms:.1f} ms), "
+              f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+              f"{peak / 1e9:.2f} GB; one device: phase 24 "
+              f"{p24['step_ms']:.1f} ms/step, {p24['tokens_per_s']:.1f} "
+              f"tokens/s, {p24['peak_gb']:.2f} GB, and run again after the "
+              f"mesh {again_ms:.1f} ms/step (its losses bitwise phase 24's); "
+              f"collectives a step {per_step}", flush=True)
+        dry["proc"] = start_dryrun()  # after every timed step
+
+        # (b) the reduced Trainer on the mesh
+        rcfg = get_config("qwen3-14b", reduced=True)
+        rstream = TokenStream(vocab_size=rcfg.vocab_size, batch_size=4,
+                              seq_len=32)
+        crashed = {"done": False}
+
+        def hook(step):
+            if step == 7 and not crashed["done"]:
+                crashed["done"] = True
+                raise RuntimeError("injected node failure")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = Trainer(rcfg, TrainerConfig(
+                tmp, ckpt_every=5, lr=3e-3, warmup_steps=2,
+                compute_dtype=torch.float32), rstream.batch, mesh=mesh,
+                failure_hook=hook, device="cuda")
+            out = tr.run(12)
+            by_step = {m["step"]: m["loss"] for m in tr.metrics_log
+                       if "loss" in m}
+            mlosses = [by_step[s] for s in sorted(by_step)]
+            ensure(out["recoveries"] == 1 and out["final_step"] == 12,
+                   f"mesh trainer: recoveries {out['recoveries']}")
+            ensure(mlosses == p24["trainer_losses"],
+                   f"mesh trainer losses {mlosses} != one device's "
+                   f"{p24['trainer_losses']}")
+            live = [t.clone() for t in T.leaves(tr.state)]
+            shape = init_train_state(rcfg, MetaGenerator())
+            tr.remesh(mesh, lambda m: state_shardings(shape, rcfg, m))
+            ensure(tr.par is not None and all(
+                torch.equal(a, b) for a, b in zip(live, T.leaves(tr.state))),
+                   "remesh round trip changed the state")
+            back = restore_into(tr.state, Path(tmp) / "step_00000012")
+            ensure(all(torch.equal(a, b) for a, b in zip(
+                T.leaves(back), live)), "the mesh checkpoint != live state")
+        print(f"[mesh-train] (b) Trainer on the 1x1 mesh, 12 steps, one "
+              f"injected failure: recoveries 1, losses bitwise the one-device "
+              f"Trainer's ({mlosses[0]:.4f} -> {mlosses[-1]:.4f}); remesh "
+              "with state_shardings round trip and the mesh's checkpoint "
+              "through restore_into equal the live state", flush=True)
+        del tr, live, back
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.distributed.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the dry-run of (a)'s cell, and of DRYRUN_ARCH on 16x16
+    cell = ShapeCell("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = DR.run_cell("qwen3-14b", "train_4k", multi_pod=False,
+                      cfg_override=cfg,
+                      mesh_override=AbstractMesh((1, 1), ("data", "model")),
+                      cell_override=cell, save=False, force=True)
+    mem = rec["memory_analysis"]
+    ensure(mem["arguments"]["state"] == state_bytes,
+           f"predicted state bytes {mem['arguments']['state']} != live "
+           f"{state_bytes}")
+    pred = mem["argument_size_bytes"] + mem["temp_size_bytes"]
+    tflops = rec["flops_per_device"] / (step_ms * 1e-3) / 1e12
+    print(f"[mesh-train] (c) dry-run of (a)'s cell on an abstract 1x1 mesh: "
+          f"state {mem['arguments']['state']} bytes = the live state's; "
+          f"arguments + temp {pred / 1e9:.2f} GB predicted against "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; "
+          f"{rec['flops_per_device']:.4e} FLOPs a step over {step_ms:.1f} ms "
+          f"= {tflops:.1f} TFLOP/s, {100 * tflops / 989:.1f} % of 989 "
+          f"(bf16 dense peak) on {smi}", flush=True)
+    proc = dry["proc"]
+    try:
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    ensure(proc.returncode == 0, f"the 16x16 dry-run failed:\n{log[-3000:]}")
+    for f in sorted(DR.RESULTS_DIR.glob(f"{DRYRUN_ARCH}__*__16x16.json")):
+        r = json.loads(f.read_text())
+        terms = RF.roofline_terms(r)
+        if terms is None:
+            print(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: skipped "
+                  f"({r['reason']})", flush=True)
+            continue
+        m = r["memory_analysis"]
+        gib = (m["argument_size_bytes"] + m["temp_size_bytes"]) / 2**30
+        print(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: per rank "
+              f"{gib:.2f} GiB (arguments "
+              f"{m['argument_size_bytes'] / 2**30:.2f} + temp "
+              f"{m['temp_size_bytes'] / 2**30:.2f}) against 80; "
+              f"{r['flops_per_device']:.4e} FLOPs; collectives "
+              f"{r['collectives']['total_bytes'] / 2**30:.3f} GiB; bound by "
+              f"{terms['bottleneck']} ({terms['bound_s']:.4f} s); host "
+              f"{r['run_s']:.1f}s", flush=True)
+    print(f"[mesh-train] phase 27 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3282,7 +3511,9 @@ def mesh_serve_phase(torch, cfg, params, MD, load_engine, FL, dispatch,
 
 def shard_kernel_phase(torch, timer, mods):
     """26 (b): the per-shard LUT-MU problem at tp 2, 4, 8.  Returns
-    ``{kernel: {case: {ms, unsharded_ms, bound_ms, bound_by}}}``."""
+    ``{kernel: {case: {ms, unsharded_ms, bound_ms, bound_by, library_ms}}}``
+    (the library call: one ``torch.matmul`` of the shard's float32 one-hot
+    × its float32 LUT; the encode has none)."""
     FL, ME, LA = mods
     g = 2**DEPTH
     gen = torch.Generator(device="cuda").manual_seed(2600)
@@ -3347,6 +3578,9 @@ def shard_kernel_phase(torch, timer, mods):
                                                atol=FLOAT_ATOL, msg=label)
             xs, ts, ls = shards[0]
             oh = ME.encode_onehot(xs, ts, out_dtype=oh_dtype)
+            oh_f = ME.encode_onehot(xs, ts).reshape(b, cl * g)
+            lut_f = ls.float().reshape(cl * g, n)
+            lib_ms = timer.ms(lambda: torch.matmul(oh_f, lut_f), 10)
             rows = int(torch.unique(
                 ME.encode_onehot(xs, ts).argmax(-1)
                 + g * torch.arange(cl, device="cuda")[None]).numel())
@@ -3367,14 +3601,17 @@ def shard_kernel_phase(torch, timer, mods):
                      oh.numel() * oh.element_size() + rows * n * item + io,
                      b * cl * n)):
                 bms, by = bound_ms(nbytes, ops, ADD_OPS_PER_S)
-                out[name][key] = dict(ms=timer.ms(fn, 10),
-                                      unsharded_ms=whole_ms[name],
-                                      bound_ms=bms, bound_by=by)
+                out[name][key] = dict(
+                    ms=timer.ms(fn, 10), unsharded_ms=whole_ms[name],
+                    bound_ms=bms, bound_by=by,
+                    library_ms=None if name == "encode_onehot" else lib_ms)
                 r = out[name][key]
+                lib = ("" if r["library_ms"] is None
+                       else f" library {r['library_ms']:.4f}")
                 print(f"[mesh-shard] {name:13s} {key:26s} per-shard "
                       f"{r['ms']:.4f} ms (unsharded {r['unsharded_ms']:.4f}) "
-                      f"bound {bms:.5f} ({by})", flush=True)
-            del shards, oh
+                      f"bound {bms:.5f} ({by}){lib}", flush=True)
+            del shards, oh, oh_f, lut_f
         del x, thr, lut, oh_whole, want
         torch.cuda.empty_cache()
     print(f"[mesh-shard] {len(MESH_CASES)} cases x tp {MESH_TPS}: int8 "
@@ -3692,9 +3929,19 @@ def main() -> int:
     case_res = case_resnet9_phase(torch, (FL, ME, LA, dispatch), counters)
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(torch)
-    print(f"[case] phases 22-24 in {time.perf_counter() - t_case:.1f}s",
-          flush=True)
+    dry = {}  # 27 (c)'s host dry-run, started after 27 (a)'s timed steps
+    try:
+        p24 = train_phase(torch)
+        print(f"[case] phases 22-24 in {time.perf_counter() - t_case:.1f}s",
+              flush=True)
+        # 27. training on a 1x1 NCCL mesh, and the dry-run
+        mesh_train_phase(torch, p24, smi, dry)
+    finally:
+        proc = dry.get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    del p24
 
     # 25 (b)-(e). the non-paged families and MoE at full width
     gc.collect()

@@ -1,5 +1,5 @@
-"""Device resolution, and a synced stage clock, shared by the port's entry
-points."""
+"""Device resolution, a generator for shapes only, and a synced stage
+clock, shared by the port's entry points."""
 from __future__ import annotations
 
 import contextlib
@@ -19,6 +19,17 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but CUDA is not available; pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+class MetaGenerator(torch.Generator):
+    """A host generator whose ``device`` reads ``meta``: the init functions,
+    which draw on their generator's device, then build tensors with shapes
+    and dtypes but no storage (torch's random ops accept a host generator
+    for ``meta`` tensors and draw nothing)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 class StageClock:

@@ -23,11 +23,18 @@ axes (L, …) or (n_groups, …) are handled uniformly.  A mesh is a
 ``DeviceMesh`` or an :class:`AbstractMesh` (a shape and axis names, for
 meshes this host cannot build).
 
-:func:`shard_params` cuts a whole params tree to one rank's local shards.
-:class:`ParallelContext` takes the role of JAX's ``make_constrainer``: JAX
-constrains shardings and lets GSPMD insert collectives; here every rank
+:func:`shard_params` cuts a whole params tree to one rank's local shards,
+:func:`shard_state` a train state (:func:`state_shardings`), and
+:func:`unshard_state` gathers one whole again.  :class:`ParallelContext`
+takes the role of JAX's ``make_constrainer``: JAX constrains shardings and
+lets GSPMD insert collectives and differentiate them; here every rank
 holds its local shards and the model functions call the collectives
-themselves, through the context (``None`` off a mesh).
+themselves, through the context (``None`` off a mesh), each a
+``torch.autograd.Function`` with its adjoint: leaving a TP region sums
+forward, entering one sums the gradient, an FSDP gather reduce-scatters
+it, the gather of a block every rank computes whole slices it.  The train
+step's reduction of the gradients follows one rule,
+:meth:`ParallelContext.grad_sum_axes`.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import pytree as T
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -344,6 +352,160 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, coord=None,
     return _map_with_path(one, params)
 
 
+def _state_specs(state, param_specs: Dict[str, Spec]):
+    """A ``TrainState``'s spec tree from its params' specs by path: ``mu``
+    and ``nu`` placed as the params, both step counters replicated."""
+    ps = unflatten(param_specs)
+    return dataclasses.replace(
+        state, params=ps,
+        opt=dataclasses.replace(state.opt, step=(), mu=ps, nu=ps), step=())
+
+
+def state_shardings(state_shape, cfg: ModelConfig, mesh):
+    """The train state's placement (JAX's dry-run ``_state_shardings``):
+    a ``TrainState`` of specs, params, ``mu`` and ``nu`` by
+    :func:`param_shardings`, ``step`` replicated."""
+    return _state_specs(state_shape, flatten(param_shardings(
+        state_shape.params, cfg, mesh)))
+
+
+def shard_state(state, cfg: ModelConfig, mesh, coord=None):
+    """The whole train state → the shards a rank holds
+    (:func:`state_shardings`; ``coord`` as :func:`shard_params` takes it),
+    cut where the state lies.  A leaf no axis cuts is the whole leaf
+    itself, not a copy."""
+    return T.map_tree(lambda t, spec: take_shard(t, spec, mesh, coord),
+                      state, state_shardings(state, cfg, mesh))
+
+
+def unshard_state(state, par: "ParallelContext"):
+    """This rank's train-state shards → the whole state on the host, leaf
+    by leaf (one whole leaf on the device at a time).  Every rank of the
+    mesh calls it: the leaves are all-gathered."""
+    with torch.no_grad():
+        return T.map_tree(
+            lambda t, spec: par.unshard(t, spec).to("cpu", copy=True),
+            state, par.state_specs(state))
+
+
+# ---------------------------------------------------------------------------
+# the communicators and the differentiable collectives
+# ---------------------------------------------------------------------------
+
+
+class MeshComm:
+    """The collectives of a ``("data", "model")`` ``DeviceMesh``, one process
+    group per axis: the communicator a :class:`ParallelContext` runs on a
+    real mesh (``analysis/cost.py::ShapeComm`` is the shape-only one).
+
+    ``axes`` is a tuple of axis names.  ``all_reduce`` sums a contiguous
+    tensor in place; ``all_gather`` and ``reduce_scatter`` concatenate and
+    split along ``dim`` in rank order."""
+
+    def __init__(self, mesh):
+        names = tuple(mesh.mesh_dim_names)
+        if names != ("data", "model"):
+            raise ValueError(f"device meshes are ('data', 'model'), got "
+                             f"{names}")
+        self.mesh = mesh
+        self.shape = mesh_shape(mesh)
+        self.coord = mesh_coord(mesh)
+
+    def size(self, axes: Tuple[str, ...]) -> int:
+        return int(math.prod(self.shape[a] for a in axes))
+
+    def rank(self, axes: Tuple[str, ...]) -> int:
+        return _shard_index(axes, self.shape, self.coord)[1]
+
+    def _group(self, axes: Tuple[str, ...]):
+        (axis,) = axes
+        return self.mesh.get_group(axis)
+
+    def all_reduce(self, x: Tensor, axes: Tuple[str, ...]) -> Tensor:
+        dist.all_reduce(x, group=self._group(axes))
+        return x
+
+    def all_gather(self, x: Tensor, dim: int, axes: Tuple[str, ...]) -> Tensor:
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self.size(axes))]
+        dist.all_gather(parts, x.contiguous(), group=self._group(axes))
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: Tensor, dim: int,
+                       axes: Tuple[str, ...]) -> Tensor:
+        xs = x.movedim(dim, 0).contiguous()
+        out = xs.new_empty((xs.shape[0] // self.size(axes),)
+                           + tuple(xs.shape[1:]))
+        dist.reduce_scatter_tensor(out, xs, group=self._group(axes))
+        return out.movedim(0, dim)
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank of the world (every rank
+        calls it, so it also holds each until all have come)."""
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if self.mesh.device_type == "cuda" else torch.device("cpu"))
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+        dist.all_reduce(t)
+        return bool(t.item())
+
+
+def _tracks_grad(x: Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ExitTP(torch.autograd.Function):
+    """Leave a TP region: the partials summed over ``model``; the gradient
+    passes unchanged (every model rank computes the same one downstream)."""
+
+    @staticmethod
+    def forward(ctx, x, par):
+        return par._all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               par.tp_axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EnterTP(torch.autograd.Function):
+    """Enter a TP region (the replicated input of a column-parallel
+    product): identity forward; backward, each model rank's partial
+    gradient summed over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, par):
+        ctx.par = par
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        par = ctx.par
+        return par._all_reduce(g.clone(memory_format=torch.contiguous_format),
+                               par.tp_axes), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``axes``.  Backward: with ``summed``
+    the gradient reduce-scattered with a sum (an FSDP weight: each data
+    rank saw other rows); without, this rank's slice (a block every rank
+    computes whole, so every rank holds the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, par, dim, axes, summed):
+        ctx.par, ctx.dim, ctx.axes, ctx.summed = par, dim, axes, summed
+        ctx.n = x.shape[dim]
+        return par._all_gather(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        par, dim, axes = ctx.par, ctx.dim, ctx.axes
+        if ctx.summed:
+            gx = par._reduce_scatter(g, dim, axes)
+        else:
+            gx = g.narrow(dim, par.comm.rank(axes) * ctx.n, ctx.n)
+        return gx, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # the parallel context
 # ---------------------------------------------------------------------------
@@ -353,39 +515,55 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, coord=None,
 # over ``model`` at use): attention and cross-attention only when both
 # head counts divide tp (whole heads); Mamba's packed projections never
 # (no op splits in_proj's concatenated z, x, B, C, dt cleanly, and the
-# block is computed whole on every model rank)
-_GATHER_TP_ALWAYS = re.compile(r"(^|/)mamba/")
+# block is computed whole on every model rank), nor the learned position
+# tables (the rules' ``embed$`` puts their positions over ``model``, but
+# every rank adds every position)
+_GATHER_TP_ALWAYS = re.compile(r"(^|/)mamba/|(^|/)pos_embed$")
 _ATTN_LEAF = re.compile(r"(^|/)(attn|cross)/")
+# replicated leaves read inside a TP region, whose gradient on a model rank
+# covers only that rank's heads (the per-head q/k norms under attention
+# TP) or experts and FF slice (the MoE router under EP or TP in the expert)
+_TP_PARTIAL_ATTN = re.compile(r"(^|/)attn/(q_norm|k_norm)$")
+_TP_PARTIAL_MOE = re.compile(r"(^|/)moe/router$")
 
 
 class ParallelContext:
     """What a model function needs to run one rank's share of a step on a
-    ``data × model`` ``DeviceMesh``: the groups, the ranks, the parameter
-    specs, the fixed-slot cache's placement, and the collectives.
+    ``data × model`` mesh: the sizes and ranks, the parameter specs, the
+    fixed-slot cache's placement, and the collectives.
 
     Decode rows split over ``data`` when they divide (``batch_spec``);
-    otherwise every data rank computes every row.  Weights are read through
-    :meth:`layer` / :meth:`leaf`, which all-gather the dims the rules put
+    otherwise every data rank computes every row.  A train step's rows are
+    the rank's :meth:`local_rows`.  Weights are read through :meth:`layer`
+    / :meth:`read` / :meth:`leaf`, which all-gather the dims the rules put
     on ``data`` (FSDP) and, where the model computes a block whole, those
     on ``model``.  The activations' collectives over ``model`` run on a
     group of one rank too (the path is the same at any tp); over one
     ``data`` rank none is issued, and no stored tensor is gathered over a
-    group of one.
+    group of one.  Every collective is differentiable (:meth:`enter_tp`,
+    :meth:`reduce_tp`, the gathers); under no grad they run as plain
+    collectives.
+
+    ``comm`` is the one seam to the devices: :class:`MeshComm` on a
+    ``DeviceMesh`` (the default), or a shape-only communicator on an
+    :class:`AbstractMesh`, whose ``data`` axes may then be ``("pod",
+    "data")``.  The model functions cannot tell which.
     """
 
-    def __init__(self, cfg: ModelConfig, mesh, params_shape):
+    def __init__(self, cfg: ModelConfig, mesh, params_shape, comm=None):
         self.cfg = cfg
         self.mesh = mesh
         self.axes = MeshAxes.for_mesh(mesh)
-        if self.axes.dp != ("data",) or self.axes.tp != "model":
-            raise ValueError("serving meshes are ('data', 'model'), got "
-                             f"{tuple(mesh_shape(mesh))}")
-        self.dp = self.axes.dp_size(mesh)
-        self.tp = self.axes.tp_size(mesh)
-        self.dp_group = mesh.get_group("data")
-        self.tp_group = mesh.get_group("model")
-        self.dp_rank = mesh.get_local_rank("data")
-        self.tp_rank = mesh.get_local_rank("model")
+        if (self.axes.tp != "model" or not self.axes.dp
+                or not set(self.axes.dp) <= {"pod", "data"}):
+            raise ValueError("meshes are ('data', 'model') or ('pod', "
+                             f"'data', 'model'), got {tuple(mesh_shape(mesh))}")
+        self.comm = MeshComm(mesh) if comm is None else comm
+        self.dp_axes, self.tp_axes = self.axes.dp, (self.axes.tp,)
+        self.dp = self.comm.size(self.dp_axes)
+        self.tp = self.comm.size(self.tp_axes)
+        self.dp_rank = self.comm.rank(self.dp_axes)
+        self.tp_rank = self.comm.rank(self.tp_axes)
         self.ep = use_expert_parallel(cfg, mesh, self.axes)
         self.specs = flatten(param_shardings(params_shape, cfg, mesh))
         tp = self.tp
@@ -426,40 +604,50 @@ class ParallelContext:
         batch of ``b`` rows does not split)."""
         if not self.rows_split(b):
             return x
-        return self.gather(x, 0, self.dp_group, self.dp)
+        return _Gather.apply(x, self, 0, self.dp_axes, True)
 
     # -- collectives ------------------------------------------------------------
-    def reduce_tp(self, x: Tensor) -> Tensor:
-        """Sum of ``x`` over the ``model`` group (in place on a contiguous
-        copy)."""
-        x = x.contiguous()
+    def _all_reduce(self, x: Tensor, axes) -> Tensor:
         self.collectives += 1
-        dist.all_reduce(x, group=self.tp_group)
-        return x
+        return self.comm.all_reduce(x, axes)
 
-    def gather(self, x: Tensor, dim: int, group, n: int) -> Tensor:
-        """All-gather along ``dim`` over ``group`` of ``n`` ranks."""
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(n)]
+    def _all_gather(self, x: Tensor, dim: int, axes) -> Tensor:
         self.collectives += 1
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+        return self.comm.all_gather(x, dim, axes)
+
+    def _reduce_scatter(self, x: Tensor, dim: int, axes) -> Tensor:
+        self.collectives += 1
+        return self.comm.reduce_scatter(x, dim, axes)
+
+    def reduce_tp(self, x: Tensor) -> Tensor:
+        """Leave a TP region: ``x`` summed over the ``model`` group (under
+        no grad in place on a contiguous copy of ``x``, or ``x`` itself)."""
+        if _tracks_grad(x):
+            return _ExitTP.apply(x, self)
+        return self._all_reduce(x.contiguous(), self.tp_axes)
+
+    def enter_tp(self, x: Tensor) -> Tensor:
+        """Enter a TP region: ``x`` itself; its gradient is summed over
+        ``model`` (each rank computes its heads', experts' or columns'
+        part).  Nothing at all without a gradient to track."""
+        return _EnterTP.apply(x, self) if _tracks_grad(x) else x
 
     def gather_tp(self, x: Tensor, dim: int) -> Tensor:
-        return self.gather(x, dim, self.tp_group, self.tp)
+        """All-gather along ``dim`` over ``model`` (vocab-parallel logits);
+        the gradient of this rank's slice passes back."""
+        return _Gather.apply(x, self, dim, self.tp_axes, False)
 
     # -- stored tensors ------------------------------------------------------------
     def unshard(self, t: Tensor, spec: Spec, keep=()) -> Tensor:
         """``t`` (a local shard placed by ``spec``) gathered whole on every
-        dim but those in ``keep``; groups of one rank are skipped."""
+        dim but those in ``keep``; groups of one rank are skipped.  Over
+        ``data`` the gradient is reduce-scattered (summed), over ``model``
+        sliced."""
         for d, entry in enumerate(spec):
-            if d in keep:
+            axes = _entry_axes(entry)
+            if d in keep or not axes or self.comm.size(axes) == 1:
                 continue
-            for ax in _entry_axes(entry):
-                n = self.dp if ax == "data" else self.tp
-                if n > 1:
-                    t = self.gather(t, d, self.dp_group if ax == "data"
-                                    else self.tp_group, n)
+            t = _Gather.apply(t, self, d, axes, axes != self.tp_axes)
         return t
 
     def _keep_tp(self, path: str, spec: Spec) -> tuple:
@@ -479,14 +667,91 @@ class ParallelContext:
         spec = self.specs[path]
         return self.unshard(t, spec, self._keep_tp(path, spec))
 
-    def layer(self, layers: dict, l: int, path: str) -> dict:
-        """Layer ``l`` of the stack at ``path`` (``layers``,
-        ``layers/pos0``, ``encoder/layers``) as the model reads it."""
+    def read(self, lp: dict, path: str) -> dict:
+        """One layer's local params (entries of the stacks at ``path``:
+        ``layers``, ``layers/pos0``, ``encoder/layers``) as the model reads
+        them."""
         def one(sub, v):
             spec = self.specs[f"{path}/{sub}"][1:]  # the stack dim is whole
-            return self.unshard(v[l], spec, self._keep_tp(sub, spec))
+            return self.unshard(v, spec, self._keep_tp(sub, spec))
 
-        return _map_with_path(one, layers)
+        return _map_with_path(one, lp)
+
+    def layer(self, layers: dict, l: int, path: str) -> dict:
+        """Layer ``l`` of the stack at ``path`` as the model reads it."""
+        return self.read(_map_with_path(lambda _, v: v[l], layers), path)
+
+    # -- training -------------------------------------------------------------
+    def grad_sum_axes(self, path: str) -> Tuple[Tuple[str, ...], ...]:
+        """The axes a train step sums the gradient of the param at ``path``
+        over after backward.  The rule, in one place:
+
+          * ``data``, unless the spec shards the leaf over it: its data
+            ranks saw other rows.  A leaf sharded over ``data`` was
+            gathered at use, and its gather's backward already summed
+            (reduce-scattered) the rows' gradients.
+          * ``model``, only for a replicated leaf read inside a TP region:
+            the q/k norms under attention TP (each rank normalises its own
+            heads) and the MoE router under expert parallelism or TP inside
+            the expert (each rank weighs its own experts' or FF slice's
+            outputs).  A TP-sharded leaf holds its own disjoint part; every
+            other leaf is read outside a TP region (norms, the head's
+            input, Mamba and attention whose heads do not divide tp, both
+            computed whole), where the enter ops' sums leave every model
+            rank the same whole gradient.
+        """
+        sharded = {a for e in self.specs[path] for a in _entry_axes(e)}
+        out = []
+        if not sharded & set(self.dp_axes):
+            out.append(self.dp_axes)
+        partial = ((self.attn_tp and _TP_PARTIAL_ATTN.search(path))
+                   or ((self.ep or self.moe_tp)
+                       and _TP_PARTIAL_MOE.search(path)))
+        if "model" not in sharded and partial:
+            out.append(self.tp_axes)
+        return tuple(out)
+
+    def reduce_grads(self, paths, grads) -> None:
+        """Sum each param's gradient (float32, in flatten order with its
+        ``paths``) over its :meth:`grad_sum_axes`, in place, then divide
+        every one by the data degree: the gradient of the mean of the data
+        ranks' losses."""
+        for path, g in zip(paths, grads):
+            for axes in self.grad_sum_axes(path):
+                if self.comm.size(axes) > 1:
+                    buf = self._all_reduce(g.contiguous(), axes)
+                    if buf is not g:
+                        g.copy_(buf)
+        if self.dp > 1:
+            for g in grads:
+                g.div_(self.dp)
+
+    def mean_over_data(self, x: Tensor) -> Tensor:
+        """The mean of a value over the data ranks (``x`` on one rank)."""
+        if self.dp == 1:
+            return x
+        return self._all_reduce(x.clone(), self.dp_axes) / self.dp
+
+    def global_sums(self, paths, sums):
+        """Per-param values summed over the parts of the param the ranks
+        hold (its spec's axes): each element of the whole param counted
+        once, a replicated one once, not once per rank."""
+        axes_of = [{_entry_axes(e) for e in self.specs[p]} for p in paths]
+        todo = [a for a in (self.dp_axes, self.tp_axes)
+                if self.comm.size(a) > 1]
+        if not todo:
+            return list(sums)
+        vec = torch.stack(list(sums))
+        for axes in todo:
+            mask = torch.tensor([axes in s for s in axes_of],
+                                device=vec.device)
+            part = self._all_reduce(torch.where(mask, vec, 0.0), axes)
+            vec = torch.where(mask, part, vec)
+        return list(vec.unbind())
+
+    def state_specs(self, state):
+        """The spec tree of a train state on this context's mesh."""
+        return _state_specs(state, self.specs)
 
     # -- the fixed-slot cache ----------------------------------------------------
     def cache_spec(self, path: str, shape: Sequence[int], slots: int) -> Spec:
@@ -498,7 +763,7 @@ class ParallelContext:
         ent: list = [None] * len(shape)
         row = 0 if re.search(r"(^|/)enc$", path) else 1
         if len(shape) > row and shape[row] == slots and self.rows_split(slots):
-            ent[row] = "data"
+            ent[row] = self.axes.dp_entry()
         if (self.attn_tp and len(shape) == 5
                 and re.search(r"(^|/)(k|v|cross_k|cross_v)$", path)):
             ent[3] = "model"

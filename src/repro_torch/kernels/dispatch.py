@@ -26,13 +26,12 @@ import os
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.maddness import (HashTree, MaddnessParams,
                                        contract_onehot, encode_onehot,
                                        gather_split_values)
 from repro_torch.core.pruning import PruningPlan, pruned_to_split_values
-from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.distributed.sharding import MeshComm, mesh_shape
 from repro_torch.kernels import _build
 from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import fused_lutmu as FL
@@ -107,7 +106,7 @@ def select_backend(b: int, c: int, n: int, depth: int,
     ``ref``, so a decode batch of any size reaches the kernel.
     """
     del b, c  # the CUDA rules depend on neither
-    if device_type != "cuda":
+    if device_type not in ("cuda", "meta"):  # meta: the card's shapes
         return "ref"
     if lut_dtype == torch.int8:
         return "fused"
@@ -225,6 +224,10 @@ def _run(xs: Tensor, params: MaddnessParams, backend: str,
         _PROFILE_HOOK(backend=backend, input_kind=kind, b=int(b),
                       c=int(c), n=int(n), depth=int(depth),
                       lut_dtype=str(params.lut.dtype))
+    if xs.device.type == "meta":
+        # a dry run (launch/dryrun.py): shapes only; the hook above is
+        # how analysis/cost.py counts the call's work
+        return torch.empty((b, n), dtype=torch.float32, device="meta")
     if backend == "ref" or xs.device.type != "cuda":
         tiles = None
     elif tiles is None:
@@ -240,7 +243,8 @@ def lutmu_matmul_sharded(x: Tensor, params: MaddnessParams, *, mesh,
                          tiles: Optional[AT.TileConfig] = None,
                          autotune: bool = False,
                          cache: Optional[AT.AutotuneCache] = None,
-                         codebooks: Optional[int] = None) -> Tensor:
+                         codebooks: Optional[int] = None,
+                         comm=None) -> Tensor:
     """Codebook-sharded LUT-MU on a ``DeviceMesh``: per-shard aggregate +
     all-reduce, no gathers (the counterpart of the JAX ``shard_map``
     version).
@@ -267,7 +271,9 @@ def lutmu_matmul_sharded(x: Tensor, params: MaddnessParams, *, mesh,
     ``cache``, as :func:`lutmu_matmul` takes them) are chosen for the
     per-shard problem (B, C/tp), the shape the kernel runs.  Falls back to
     :func:`lutmu_matmul` on the tables as given when the axis has one rank
-    or C does not divide by it (the rules replicate such tables).
+    or C does not divide by it (the rules replicate such tables).  The sum
+    runs through ``comm`` (a ``ParallelContext``'s communicator; default:
+    the mesh's process groups).
     """
     tp = mesh_shape(mesh)[axis]
     c_loc = params.tree.num_codebooks
@@ -278,7 +284,8 @@ def lutmu_matmul_sharded(x: Tensor, params: MaddnessParams, *, mesh,
     if c_loc * tp != c:
         raise ValueError(f"params hold {c_loc} codebooks, a {tp}-way shard "
                          f"of {c} holds {c // tp}")
-    rank = mesh.get_local_rank(axis)
+    comm = MeshComm(mesh) if comm is None else comm
+    rank = comm.rank((axis,))
     if input_kind == "full":
         xs = local_split_values(x, params, rank, c)
     elif input_kind in ("split", "package"):
@@ -299,7 +306,7 @@ def lutmu_matmul_sharded(x: Tensor, params: MaddnessParams, *, mesh,
         torch.zeros((), dtype=torch.float32, device=xs.device))
     acc = _run(xs, unit, backend, tiles, autotune, cache,
                "sharded:" + input_kind).contiguous()
-    dist.all_reduce(acc, group=mesh.get_group(axis))
+    acc = comm.all_reduce(acc, (axis,))
     return acc * params.lut_scale + params.lut_offset
 
 

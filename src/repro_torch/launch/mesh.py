@@ -1,5 +1,5 @@
-"""Serving meshes (PyTorch), as in ``repro.launch.mesh``: one process (rank)
-per device, grouped into a ``data × model`` ``DeviceMesh``.
+"""Serving and training meshes (PyTorch), as in ``repro.launch.mesh``: one
+process (rank) per device, grouped into a ``data × model`` ``DeviceMesh``.
 
 A CUDA mesh runs NCCL and a CPU mesh gloo; nothing falls back from one to
 the other.  ``make_serve_mesh`` is strict: the world must hold exactly
@@ -92,7 +92,8 @@ def init_distributed(device="cuda", *, init_method: Optional[str] = None,
 
 
 def make_serve_mesh(spec: str, device="cuda", **init):
-    """Parse a ``"DxM"`` serving-mesh spec into a ``DeviceMesh`` with dims
+    """Parse a ``"DxM"`` mesh spec (serving, or the training launcher's
+    production mesh) into a ``DeviceMesh`` with dims
     ``("data", "model")`` over the process group (joined here if needed;
     ``init`` goes to :func:`init_distributed`).  Strict: a world of another
     size than D·M raises rather than serving on another topology than the

@@ -3,7 +3,10 @@
 Runs the fault-tolerant :class:`~repro_torch.runtime.trainer.Trainer` on
 the deterministic token stream, on the card unless ``--device cpu``.
 ``--reduced`` trains the small twin of the architecture in float32; the
-full one computes in bfloat16.
+full one computes in bfloat16.  ``--production-mesh`` trains on the 16×16
+``("data", "model")`` mesh: 256 ranks, one per device, started by
+``torchrun --nproc-per-node …`` (a world of another size raises); rank 0
+prints.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
@@ -16,10 +19,14 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+PRODUCTION_MESH = "16x16"  # launch/mesh.py::make_production_mesh's shape
 
 
 def main(argv=None) -> int:
@@ -37,11 +44,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' trains on the CPU)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 production mesh (ROADMAP A11)")
+                    help="train on the 16x16 mesh (256 ranks)")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise SystemExit("--production-mesh: multi-device training is not "
-                         "ported yet (ROADMAP A11)")
+    # the strict mesh: a world of another size than 256 raises
+    mesh = (make_serve_mesh(PRODUCTION_MESH, args.device)
+            if args.production_mesh else None)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     stream = TokenStream(vocab_size=cfg.vocab_size, batch_size=args.batch,
@@ -53,8 +60,10 @@ def main(argv=None) -> int:
                       total_steps=args.steps,
                       compute_dtype=torch.float32 if args.reduced
                       else torch.bfloat16),
-        stream.batch, device=args.device)
+        stream.batch, mesh=mesh, device=args.device)
     out = trainer.run(args.steps)
+    if mesh is not None and dist.get_rank() != 0:
+        return 0
     losses = out["losses"]
     print(f"finished at step {out['final_step']}: "
           f"loss {losses[0]:.4f} → {losses[-1]:.4f}; "

@@ -102,7 +102,8 @@ def amm_mlp_apply(params: dict, x: Tensor, cfg: ModelConfig,
     else:
         def matmul(v, p, kind, c):
             return D.lutmu_matmul_sharded(v, p, mesh=par.mesh, backend=be,
-                                          input_kind=kind, codebooks=c)
+                                          input_kind=kind, codebooks=c,
+                                          comm=par.comm)
     c_up, c_down = cfg.d_model // cfg.amm.d_sub, cfg.d_ff // cfg.amm.d_sub
     gate_p = _params(params, "up", "gate")
     up_p = _params(params, "up", "up")

@@ -168,7 +168,7 @@ def mamba_forward(params: dict, x_in: Tensor, cfg: ModelConfig,
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                     device="cpu") -> dict:
+                     device="cuda") -> dict:
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
     nh = di // cfg.ssm_headdim
     conv_dim = di + 2 * g * n

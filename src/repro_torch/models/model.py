@@ -144,40 +144,70 @@ def _stacked(make_block: Callable[[], dict], n: int) -> dict:
     return out
 
 
+def _cut_block(block: dict, shard: Callable, path: str) -> dict:
+    """One layer of the stack at ``path`` through ``shard`` (see
+    :func:`init_params`), each entry as a stack of one layer."""
+    return {k: (_cut_block(v, shard, f"{path}/{k}") if isinstance(v, dict)
+                else shard(f"{path}/{k}", v.unsqueeze(0)).squeeze(0))
+            for k, v in block.items()}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
-                serving: bool = False) -> dict:
+                serving: bool = False,
+                shard: Optional[Callable[[str, Tensor], Tensor]] = None
+                ) -> dict:
     """Random params of any family, made on ``gen``'s device, in the JAX
     layout; with ``serving`` and ``cfg.amm.enabled`` the dense MLPs are
     LUT-MU tables.  The draws differ from ``jax.random``'s: tests carry
-    JAX params across with ``convert.params_from_jax`` instead."""
+    JAX params across with ``convert.params_from_jax`` instead.
+
+    ``shard(path, leaf)``, where given, gets each leaf as it is drawn and
+    returns the part kept (a rank's shard); a stacked leaf passes one
+    layer at a time, as a stack of one.  The draws are the same, and a
+    tree of shards never holds more than one whole leaf or layer."""
     d, dev = cfg.d_model, gen.device
+
+    def top(path: str, t: Tensor) -> Tensor:
+        return t if shard is None else shard(path, t)
+
+    def stacked(make_block: Callable[[], dict], n: int, path: str) -> dict:
+        if shard is None:
+            return _stacked(make_block, n)
+        return _stacked(lambda: _cut_block(make_block(), shard, path), n)
+
     params = {
-        "embed": L.embed_init(gen, cfg.vocab_size, d, dtype),
-        "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
-        "lm_head": L.dense_init(gen, d, cfg.vocab_size, dtype),
+        "embed": top("embed", L.embed_init(gen, cfg.vocab_size, d, dtype)),
+        "final_norm": top("final_norm",
+                          torch.zeros((d,), dtype=dtype, device=dev)),
+        "lm_head": top("lm_head", L.dense_init(gen, d, cfg.vocab_size,
+                                               dtype)),
     }
     if cfg.is_hybrid:
         period = cfg.attn_every
         params["layers"] = {
-            f"pos{p}": _stacked(lambda p=p: _init_block(cfg, gen, p, dtype,
-                                                        serving),
-                                cfg.num_layers // period)
+            f"pos{p}": stacked(lambda p=p: _init_block(cfg, gen, p, dtype,
+                                                       serving),
+                               cfg.num_layers // period, f"layers/pos{p}")
             for p in range(period)}
     elif cfg.is_encdec:
         params["encoder"] = {
-            "layers": _stacked(lambda: _init_encoder_block(cfg, gen, dtype),
-                               cfg.encoder_layers),
-            "pos_embed": L.embed_init(gen, cfg.num_frontend_tokens, d, dtype),
-            "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
+            "layers": stacked(lambda: _init_encoder_block(cfg, gen, dtype),
+                              cfg.encoder_layers, "encoder/layers"),
+            "pos_embed": top("encoder/pos_embed", L.embed_init(
+                gen, cfg.num_frontend_tokens, d, dtype)),
+            "final_norm": top("encoder/final_norm",
+                              torch.zeros((d,), dtype=dtype, device=dev)),
         }
-        params["layers"] = _stacked(
-            lambda: _init_decdec_block(cfg, gen, 0, dtype), cfg.num_layers)
-        params["pos_embed"] = L.embed_init(gen, cfg.max_seq_len, d, dtype)
+        params["layers"] = stacked(
+            lambda: _init_decdec_block(cfg, gen, 0, dtype), cfg.num_layers,
+            "layers")
+        params["pos_embed"] = top("pos_embed", L.embed_init(
+            gen, cfg.max_seq_len, d, dtype))
     else:
         # uniform: every layer is built as layer ``moe_offset`` is
-        params["layers"] = _stacked(
+        params["layers"] = stacked(
             lambda: _init_block(cfg, gen, cfg.moe_offset, dtype, serving),
-            cfg.num_layers)
+            cfg.num_layers, "layers")
     return params
 
 
@@ -210,17 +240,18 @@ def _mlp_out(lp: dict, mlp_in: Tensor, cfg: ModelConfig, cd,
              par=None) -> Tensor:
     """The per-block MLP shared by every path (MoE, LUT-MU or dense).  On a
     mesh the dense MLP is column-parallel (gate, up) then row-parallel
-    (down), its partials summed over ``model``."""
+    (down): its input enters the TP region and its partials are summed over
+    ``model``."""
     if "moe" in lp:
         return MOE.moe_apply(lp["moe"], mlp_in, cfg, par=par)
     if "amm_mlp" in lp:
         return AMM.amm_mlp_apply(lp["amm_mlp"], mlp_in, cfg, par=par)
     m = lp["mlp"]
-    out = L.gated_mlp(mlp_in, m["w_gate"].to(cd), m["w_up"].to(cd),
+    tp = par is not None and par.mlp_tp
+    out = L.gated_mlp(par.enter_tp(mlp_in) if tp else mlp_in,
+                      m["w_gate"].to(cd), m["w_up"].to(cd),
                       m["w_down"].to(cd), cfg.act)
-    if par is not None and par.mlp_tp:
-        out = par.reduce_tp(out)
-    return out
+    return par.reduce_tp(out) if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +271,14 @@ def _acfg(cfg: ModelConfig, par) -> ModelConfig:
     """The config an attention block runs at (its local heads under
     attention TP)."""
     return cfg if par is None else par.attn_cfg(cfg)
+
+
+def _attn_in(x: Tensor, par) -> Tensor:
+    """An attention block's input entering its TP region (q, k, v are
+    column-parallel) under attention TP."""
+    if par is not None and par.attn_tp:
+        return par.enter_tp(x)
+    return x
 
 
 def _attn_sum(out: Tensor, par) -> Tensor:
@@ -274,24 +313,31 @@ def _embed(params: dict, tokens: Tensor, cd, par=None) -> Tensor:
 
 
 def _block_apply(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
-                 window, layer_idx: int, mlp_tap=None) -> Tensor:
+                 window, layer_idx: int, mlp_tap=None, par=None,
+                 path: str = "layers") -> Tensor:
     """One block over a full sequence (no cache): the mixer (attention or
     Mamba), then the MLP (MoE, LUT-MU or dense) unless the block has none;
-    ``mlp_tap(layer_idx, mlp_in)`` sees each MLP input."""
+    ``mlp_tap(layer_idx, mlp_in)`` sees each MLP input.  On a mesh
+    (``par``) ``lp`` is the layer's local shards of the stack at ``path``,
+    read (gathered) here, inside the block a remat recomputes."""
+    if par is not None:
+        lp = par.read(lp, path)
     if "mamba" in lp:
         h = h + MB.mamba_forward(lp["mamba"],
                                  L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
         if "ln2" not in lp:
             return h
     else:
-        h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                            cfg, positions=positions, window=window)
+        x = _attn_in(L.rms_norm(h, lp["ln1"], cfg.norm_eps), par)
+        h = h + _attn_sum(A.attention(lp["attn"], x, _acfg(cfg, par),
+                                      positions=positions, window=window),
+                          par)
     if "ln_cross" in lp:
         return h  # the enc-dec decoder applies cross-attention itself
     mlp_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if mlp_tap is not None:
         mlp_tap(layer_idx, mlp_in)
-    return h + _mlp_out(lp, mlp_in, cfg, h.dtype)
+    return h + _mlp_out(lp, mlp_in, cfg, h.dtype, par)
 
 
 def _layer_views(layers: dict, n: int) -> list:
@@ -315,15 +361,16 @@ def _apply(remat: bool, fn, *args):
 
 
 def _run_uniform_stack(cfg: ModelConfig, layers: dict, h: Tensor,
-                       positions: Tensor, remat: bool) -> Tensor:
+                       positions: Tensor, remat: bool, par=None) -> Tensor:
     for l, (lp, win) in enumerate(zip(_layer_views(layers, cfg.num_layers),
                                       window_flags(cfg))):
-        h = _apply(remat, _block_apply, cfg, lp, h, positions, win, l)
+        h = _apply(remat, _block_apply, cfg, lp, h, positions, win, l, None,
+                   par)
     return h
 
 
 def _run_hybrid_stack(cfg: ModelConfig, layers: dict, h: Tensor,
-                      positions: Tensor, remat: bool) -> Tensor:
+                      positions: Tensor, remat: bool, par=None) -> Tensor:
     """Jamba: the period's positions in order, group after group; each
     layer recomputed on its own in the backward pass when ``remat``."""
     period = cfg.attn_every
@@ -333,17 +380,20 @@ def _run_hybrid_stack(cfg: ModelConfig, layers: dict, h: Tensor,
     for g in range(n_groups):
         for p in range(period):
             h = _apply(remat, _block_apply, cfg, views[f"pos{p}"][g], h,
-                       positions, GLOBAL_WINDOW, p)
+                       positions, GLOBAL_WINDOW, p, None, par,
+                       f"layers/pos{p}")
     return h
 
 
 def _encoder_block(cfg: ModelConfig, lp: dict, h: Tensor,
                    par=None) -> Tensor:
+    if par is not None:
+        lp = par.read(lp, "encoder/layers")
     t = h.shape[1]
     h = h + _attn_sum(A.attention(
-        lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), _acfg(cfg, par),
-        positions=torch.arange(t, device=h.device)[None], causal=False,
-        window=None), par)
+        lp["attn"], _attn_in(L.rms_norm(h, lp["ln1"], cfg.norm_eps), par),
+        _acfg(cfg, par), positions=torch.arange(t, device=h.device)[None],
+        causal=False, window=None), par)
     return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
                         h.dtype, par)
 
@@ -353,71 +403,80 @@ def _run_encoder(cfg: ModelConfig, enc_params: dict, frames: Tensor,
     """Whisper's bidirectional encoder over the frame embeddings
     ``(B, T, D)``."""
     t = frames.shape[1]
-    if par is None:
-        pos_embed = enc_params["pos_embed"]
-        views = _layer_views(enc_params["layers"], cfg.encoder_layers)
-    else:
-        pos_embed = par.leaf({"encoder": enc_params}, "encoder/pos_embed")
-        views = [par.layer(enc_params["layers"], l, "encoder/layers")
-                 for l in range(cfg.encoder_layers)]
+    pos_embed = (enc_params["pos_embed"] if par is None else
+                 par.leaf({"encoder": enc_params}, "encoder/pos_embed"))
     h = frames + pos_embed[:t].to(frames.dtype)
-    for lp in views:
+    for lp in _layer_views(enc_params["layers"], cfg.encoder_layers):
         h = _apply(remat, _encoder_block, cfg, lp, h, par)
     return L.rms_norm(h, enc_params["final_norm"], cfg.norm_eps)
 
 
 def _decdec_block(cfg: ModelConfig, lp: dict, h: Tensor, enc: Tensor,
-                  positions: Tensor) -> Tensor:
-    h = h + A.attention(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                        cfg, positions=positions, window=None)
-    h = h + A.cross_attention(lp["cross"],
-                              L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
-                              enc, cfg)
+                  positions: Tensor, par=None) -> Tensor:
+    if par is not None:
+        lp = par.read(lp, "layers")
+    acfg = _acfg(cfg, par)
+    h = h + _attn_sum(A.attention(
+        lp["attn"], _attn_in(L.rms_norm(h, lp["ln1"], cfg.norm_eps), par),
+        acfg, positions=positions, window=None), par)
+    h = h + _attn_sum(A.cross_attention(
+        lp["cross"], _attn_in(L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
+                              par), _attn_in(enc, par), acfg), par)
     return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
-                        h.dtype)
+                        h.dtype, par)
 
 
 def _run_encdec_decoder(cfg: ModelConfig, layers: dict, h: Tensor,
                         enc: Tensor, positions: Tensor,
-                        remat: bool) -> Tensor:
+                        remat: bool, par=None) -> Tensor:
     for lp in _layer_views(layers, cfg.num_layers):
-        h = _apply(remat, _decdec_block, cfg, lp, h, enc, positions)
+        h = _apply(remat, _decdec_block, cfg, lp, h, enc, positions, par)
     return h
 
 
 def forward(params: dict, tokens: Tensor, cfg: ModelConfig, *,
             remat: bool = True, compute_dtype=torch.bfloat16,
-            extra_embeds: Optional[Tensor] = None) -> Tensor:
+            extra_embeds: Optional[Tensor] = None, par=None) -> Tensor:
     """tokens (B, S) [+ frontend embeddings (B, T, D)] → logits (B, S, V)
     float32, differentiable: the training and scoring forward of every
     family.  For enc-dec (Whisper) ``extra_embeds`` are the encoder's input
     frames; for a VLM they are patch embeddings prepended to the tokens
     (logits over the text positions only).  ``remat`` recomputes each layer
-    in the backward pass instead of keeping its activations."""
+    in the backward pass instead of keeping its activations.
+
+    On a mesh (``par``, a ``distributed.sharding.ParallelContext``) it is
+    one rank's share of the training forward: ``params`` are the rank's
+    shards, the rows its data rank's, and the logits those rows' over the
+    whole vocabulary (gathered over ``model``, never over ``data``).  Each
+    layer's weights are gathered inside its block, so a remat gathers them
+    again, every rank in the same order."""
     cd = compute_dtype
     tokens = tokens.to(torch.int64)
     b, s = tokens.shape
     dev = tokens.device
-    h = params["embed"].to(cd)[tokens]
+    h = _embed(params, tokens, cd, par)
     if cfg.is_encdec:
         if extra_embeds is None:
             raise ValueError("an enc-dec model needs its frame embeddings "
                              "(extra_embeds)")
-        enc = _run_encoder(cfg, params["encoder"], extra_embeds.to(cd), remat)
-        h = h + params["pos_embed"][:s].to(cd)
+        enc = _run_encoder(cfg, params["encoder"], extra_embeds.to(cd), remat,
+                           par)
+        pos_embed = (params["pos_embed"] if par is None
+                     else par.leaf(params, "pos_embed"))
+        h = h + pos_embed[:s].to(cd)
         positions = torch.arange(s, device=dev).expand(b, s)
         h = _run_encdec_decoder(cfg, params["layers"], h, enc, positions,
-                                remat)
+                                remat, par)
     else:
         if extra_embeds is not None:  # VLM: prepend the patch embeddings
             h = torch.cat([extra_embeds.to(cd), h], dim=1)
         s_tot = h.shape[1]
         positions = torch.arange(s_tot, device=dev).expand(b, s_tot)
         run = _run_hybrid_stack if cfg.is_hybrid else _run_uniform_stack
-        h = run(cfg, params["layers"], h, positions, remat)
+        h = run(cfg, params["layers"], h, positions, remat, par)
         if extra_embeds is not None:
             h = h[:, extra_embeds.shape[1]:]
-    return _head(params, h, cfg, cd)
+    return _logits(params, h, cfg, cd, par)
 
 
 @torch.inference_mode()
@@ -448,18 +507,29 @@ def capture_mlp_inputs(params: dict, tokens, cfg: ModelConfig, *,
     return captured
 
 
-def _head(params: dict, h: Tensor, cfg: ModelConfig, cd, par=None,
-          batch: Optional[int] = None) -> Tensor:
-    """Final norm and logits (float32).  On a mesh the vocab-parallel
-    logits are gathered over ``model`` and the rows of a ``batch`` split
-    over ``data`` over ``data``, so every rank samples from the whole
-    vocabulary of every row, as on one device."""
+def _logits(params: dict, h: Tensor, cfg: ModelConfig, cd,
+            par=None) -> Tensor:
+    """Final norm and logits (float32) of the rows ``h`` holds; on a mesh
+    the vocab-parallel head's input enters its TP region and the logits are
+    gathered over ``model``."""
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     if par is None:
         return (h @ params["lm_head"].to(cd)).to(torch.float32)
-    logits = (h @ par.leaf(params, "lm_head").to(cd)).to(torch.float32)
-    if par.vocab_tp:
-        logits = par.gather_tp(logits, -1)
+    if not par.vocab_tp:
+        return (h @ par.leaf(params, "lm_head").to(cd)).to(torch.float32)
+    logits = (par.enter_tp(h) @ par.leaf(params, "lm_head").to(cd)).to(
+        torch.float32)
+    return par.gather_tp(logits, -1)
+
+
+def _head(params: dict, h: Tensor, cfg: ModelConfig, cd, par=None,
+          batch: Optional[int] = None) -> Tensor:
+    """The serving head: :func:`_logits`, and on a mesh the rows of a
+    ``batch`` split over ``data`` gathered over ``data``, so every rank
+    samples from the whole vocabulary of every row, as on one device."""
+    logits = _logits(params, h, cfg, cd, par)
+    if par is None:
+        return logits
     return par.gather_rows(logits, h.shape[0] if batch is None else batch)
 
 

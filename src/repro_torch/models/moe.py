@@ -113,11 +113,16 @@ def moe_apply(params: dict, x: Tensor, cfg: ModelConfig,
     all-reduce over ``model`` sums the ranks' partial outputs (JAX's
     ``_moe_apply_shard_map``).  Otherwise each rank holds a slice of every
     expert's FF dim (TP inside the expert) and the row-parallel down
-    projection's partials are summed the same way.  The capacity rule is
-    the single-device one."""
+    projection's partials are summed the same way.  Either way ``x``
+    enters a TP region: the router and the bins see it whole, and its
+    gradient is the sum of the ranks' parts.  The capacity rule is the
+    single-device one."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     dtype = x.dtype
+    tp = par is not None and (par.ep or par.moe_tp)
+    if tp:
+        x = par.enter_tp(x)
     logits = (x @ params["router"].to(dtype)).to(torch.float32)
     topv, topi = route(torch.softmax(logits, dim=-1), k)
     cap = capacity(cfg, s, capacity_factor)
@@ -153,9 +158,7 @@ def moe_apply(params: dict, x: Tensor, cfg: ModelConfig,
     gathered = torch.gather(flat, 1, inv[:, :, None].expand(b, s * k, d))
     gathered = gathered.reshape(b, s, k, d)
     out = (gathered * topv[..., None].to(dtype)).sum(dim=2)
-    if par is not None and (par.ep or par.moe_tp):
-        out = par.reduce_tp(out)
-    return out
+    return par.reduce_tp(out) if tp else out
 
 
 def aux_load_balance_loss(logits: Tensor, topi: Tensor,

@@ -52,12 +52,22 @@ def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int
     return lr_at
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        par=None) -> Tuple[Tree, Tensor]:
     """Scale ``grads`` in place to a global norm of at most ``max_norm``;
-    returns them and the norm before clipping."""
+    returns them and the norm before clipping.
+
+    On a mesh (``par``, a ``ParallelContext``; ``grads`` a rank's shards of
+    the params' gradients, reduced) each leaf's sum of squares is summed
+    over the ranks holding its parts (``par.global_sums``), so the norm
+    counts every element of the whole gradient once."""
+    named = T.leaves_with_paths(grads)
+    sums = [torch.sum(torch.square(g.to(torch.float32))) for _, g in named]
+    if par is not None:
+        sums = par.global_sums([p for p, _ in named], sums)
     total = 0
-    for g in T.leaves(grads):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    for s in sums:
+        total = total + s
     gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in T.leaves(grads):

@@ -8,9 +8,13 @@
     step to drive the recovery path;
   * **straggler mitigation** — a per-step wall-time EMA watchdog;
     sustained outliers are logged and counted;
-  * **re-mesh** — ``remesh(new_mesh)`` moves the live state through the
-    host and back.  Placing it under new shardings (``shardings_fn``) waits
-    for multi-device training (ROADMAP A11).
+  * **a device mesh** — ``Trainer(..., mesh=…)`` (a ``("data", "model")``
+    ``DeviceMesh``, ``launch/mesh.py``) holds this rank's shards of the
+    state and runs the sharded step (``runtime/steps.py``); checkpoints
+    are written whole by rank 0 and cut again on restore;
+  * **re-mesh** — ``remesh(new_mesh, shardings_fn)`` moves the live state
+    through the host and places it on the new mesh's ranks as the sharded
+    step reads it (or whole on the device without ``shardings_fn``).
 
 A failed step is retried from the last checkpoint at most
 ``max_retries`` times in a row; past that the error is raised.  A CUDA
@@ -27,7 +31,10 @@ import torch
 
 from repro_torch import pytree as T
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.device import resolve_device
+from repro_torch.device import MetaGenerator, resolve_device
+from repro_torch.distributed.sharding import (ParallelContext, flatten,
+                                              take_shard, unshard_state)
+from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import cosine_schedule
 from repro_torch.runtime.steps import TrainState, init_train_state, make_train_step
@@ -73,6 +80,11 @@ class TrainerConfig:
 
 
 class Trainer:
+    """The training loop.  ``batch_fn(step)`` is the whole global batch of
+    a step, a pure function of the step index (so a replay is exact); on a
+    mesh (``mesh``) every rank calls it and the step takes the rank's
+    rows."""
+
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  batch_fn: Callable[[int], dict], mesh=None,
                  failure_hook: Optional[Callable[[int], None]] = None,
@@ -80,22 +92,44 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.batch_fn = batch_fn
-        self.mesh = mesh
         self.device = resolve_device(device)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir)
         self.monitor = StragglerMonitor()
         self.failure_hook = failure_hook
         self.metrics_log: list = []
         self.recoveries = 0
-        self._step = make_train_step(
-            cfg, cosine_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps),
-            compute_dtype=tcfg.compute_dtype)
+        self._place(mesh, sharded=mesh is not None)
         self.state: Optional[TrainState] = None
+
+    def _place(self, mesh, sharded: bool) -> None:
+        """Run on ``mesh``: with ``sharded`` this rank's shards and the
+        sharded step under a parallel context, else the whole state and
+        the one-device step."""
+        self.mesh = mesh
+        self.par = (ParallelContext(self.cfg, mesh, MD.init_params(
+            self.cfg, MetaGenerator())) if sharded else None)
+        self.ckpt.par = self.par
+        tcfg = self.tcfg
+        self._step = make_train_step(
+            self.cfg, cosine_schedule(tcfg.lr, tcfg.warmup_steps,
+                                      tcfg.total_steps),
+            compute_dtype=tcfg.compute_dtype, par=self.par)
+
+    def _init_state(self, gen: torch.Generator) -> TrainState:
+        """``init_train_state`` on ``gen``; on a mesh this rank's shards of
+        it, each leaf drawn whole (as one device draws it) and cut before
+        the next is drawn."""
+        if self.par is None:
+            return init_train_state(self.cfg, gen)
+        specs, mesh = self.par.specs, self.mesh
+        return init_train_state(self.cfg, gen, shard=lambda path, t:
+                                take_shard(t, specs[path], mesh))
 
     # -- lifecycle ------------------------------------------------------------
     def _fresh(self, seed: int = 0) -> TrainState:
-        return init_train_state(
-            self.cfg, torch.Generator(device=self.device).manual_seed(seed))
+        """The seeded initial state (on a mesh this rank's shards of it)."""
+        return self._init_state(
+            torch.Generator(device=self.device).manual_seed(seed))
 
     def init(self, seed: int = 0) -> None:
         self.state = self._fresh(seed)
@@ -104,7 +138,12 @@ class Trainer:
         self.ckpt.wait()  # a checkpoint still being written counts
         if self.ckpt.latest_step() is None:
             return False
-        template = self.state if self.state is not None else self._fresh()
+        if self.state is not None:
+            template = self.state
+        elif self.par is not None:  # shapes only: the rank's shards on meta
+            template = self._init_state(MetaGenerator())
+        else:
+            template = self._fresh()
         self.state = None  # the in-place step may have left it half written
         self.state = self.ckpt.restore(template, device=self.device)
         return True
@@ -153,13 +192,37 @@ class Trainer:
 
     # -- elasticity -----------------------------------------------------------
     def remesh(self, new_mesh, shardings_fn=None) -> None:
-        """Move the live state through the host and back (the one-device
-        stand-in for re-sharding onto another mesh)."""
-        if shardings_fn is not None:
-            raise NotImplementedError(
-                "remesh with shardings: multi-device training is not ported "
-                "yet (ROADMAP A11)")
-        host = T.map_tree(lambda t: t.detach().to("cpu", copy=True),
-                          self.state)
-        self.state = T.map_tree(lambda t: t.to(self.device), host)
-        self.mesh = new_mesh
+        """Re-shard the live state onto another mesh (elastic scaling), as
+        the JAX trainer does: the state is gathered whole to the host
+        (every rank holds all of it there for a moment), then placed on
+        the new mesh's ranks, where the sharded step goes on.  The one
+        placement that step reads is ``state_shardings`` on the new mesh,
+        so ``shardings_fn(new_mesh)`` (a ``TrainState`` of specs, e.g.
+        ``lambda m: state_shardings(state, cfg, m)``) must give it, and any
+        other raises; without ``shardings_fn`` the state goes back whole to
+        the device and the step runs unsharded.  Every rank of the world
+        calls it (e.g. 2×2 → 1×4)."""
+        self.ckpt.wait()
+        if self.par is not None:
+            host = unshard_state(self.state, self.par)
+        else:
+            host = T.map_tree(lambda t: t.detach().to("cpu", copy=True),
+                              self.state)
+        self.state = None
+        if shardings_fn is None:
+            self._place(new_mesh, sharded=False)
+            self.state = T.map_tree(lambda t: t.to(self.device), host)
+            return
+        if new_mesh is None:
+            raise ValueError("remesh with shardings needs a mesh")
+        given = shardings_fn(new_mesh)
+        self._place(new_mesh, sharded=True)
+        want = self.par.specs
+        if any(flatten(tree) != want for tree in
+               (given.params, given.opt.mu, given.opt.nu)):
+            raise ValueError("the sharded step reads the state as "
+                             "state_shardings places it; shardings_fn gave "
+                             "another placement")
+        self.state = T.map_tree(
+            lambda t, spec: take_shard(t, spec, new_mesh).to(self.device),
+            host, self.par.state_specs(host))

@@ -25,7 +25,9 @@ to their eager twins, every program builds once, and a profiled step
 synchronises the device while an unprofiled one does not.  The
 fixed-slot engine's decode program is checked the same way on a dense
 (LUT-MU), an SSM, a hybrid (LUT-MU in its dense layers) and an MoE stack:
-every slot's logits and the whole cache, which has no trash page.
+every slot's logits and the whole cache, which has no trash page.  Last,
+two sharded train steps on a 1×1 NCCL mesh equal two single-device steps
+bit for bit (no graph: the train step runs eagerly).
 """
 import dataclasses
 
@@ -475,3 +477,54 @@ def test_fixed_engine_replays_equal_eager(model, arch):
     assert all(len(h.generated) == 6 for i, h in enumerate(hs) if i != 1)
     assert len(record) >= 6 and s_log, (len(record), s_log)
     assert eng.stats["graph_nodes"]["fixed_decode"] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_1x1_nccl_mesh_is_single_device_bitwise():
+    """Two steps of the sharded train step (``par``) on a 1x1 NCCL mesh
+    equal two single-device steps bit for bit at reduced width (qwen3-14b,
+    bf16 compute, ``grad_accum`` 2), both under deterministic algorithms:
+    at 1x1 every collective is the identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: an NCCL mesh has no CPU mode")
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import pytree as T
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed.sharding import ParallelContext, shard_state
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(get_config("qwen3-14b", reduced=True),
+                              grad_accum=2)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch_size=4, seq_len=32)
+
+    def run(par=None, mesh=None):
+        state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        if par is not None:
+            state = shard_state(state, cfg, mesh)
+        step = make_train_step(cfg, cosine_schedule(1e-2, 1, 10),
+                               compute_dtype=CD, par=par)
+        losses = []
+        for i in range(2):
+            state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                    for k, v in stream.batch(i).items()})
+            losses.append(float(m["loss"]))
+        return losses, T.leaves(state)
+
+    mesh = make_serve_mesh("1x1", "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = run()
+        got = run(ParallelContext(cfg, mesh, init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0)).params), mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))

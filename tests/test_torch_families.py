@@ -200,7 +200,7 @@ def test_mamba_forward_states_and_decode(mamba_setup):
     # the chunked SSD's state after 24 tokens = 24 recurrent steps
     _, chunked = TMB.mamba_forward(tp, torch.from_numpy(x), tcfg,
                                    return_state=True)
-    rec = TMB.init_mamba_cache(tcfg, 2)
+    rec = TMB.init_mamba_cache(tcfg, 2, device="cpu")
     for t in range(24):
         TMB.mamba_decode_step(tp, torch.from_numpy(x[:, t:t + 1]), tcfg, rec)
     np.testing.assert_allclose(_np(rec["ssm"]), _np(chunked["ssm"]),

@@ -30,9 +30,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 78, proc.stdout
-    # the artifact, observability, compiler, case-study, training, families
-    # and mesh slices' modules are among those imported
+    assert n_modules >= 83, proc.stdout
+    # the artifact, observability, compiler, case-study, training, families,
+    # mesh and dry-run slices' modules are among those imported
     for name in ("repro_torch.compiler", "repro_torch.compiler.artifact",
                  "repro_torch.compiler.quantize", "repro_torch.core.lut_mu",
                  "repro_torch.serving.loader", "repro_torch.launch.serve",
@@ -50,7 +50,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.pytree", "repro_torch.models.moe",
                  "repro_torch.models.mamba", "repro_torch.distributed",
                  "repro_torch.distributed.sharding",
-                 "repro_torch.launch.mesh",
+                 "repro_torch.launch.mesh", "repro_torch.launch.shapes",
+                 "repro_torch.launch.dryrun", "repro_torch.analysis",
+                 "repro_torch.analysis.cost", "repro_torch.analysis.roofline",
                  *(f"repro_torch.configs.{c}" for c in (
                      "gemma3_27b", "gemma3_4b", "qwen25_32b", "whisper_tiny",
                      "mamba2_370m", "mixtral_8x7b", "qwen3_moe_30b",
