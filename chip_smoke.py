@@ -2754,6 +2754,10 @@ def train_phase(torch):
 # ---------------------------------------------------------------------------
 
 DRYRUN_ARCH = "qwen3-14b"      # the 16x16 dry-run's cells, run on the host
+# its per-rank GiB before the serving state was placed by the JAX rules
+# (recorded in PERF.md §6)
+DRYRUN_BEFORE = {"train_4k": 110.32, "prefill_32k": 873.89,
+                 "decode_32k": 41.65}
 
 
 def start_dryrun():
@@ -2931,7 +2935,8 @@ def mesh_train_phase(torch, p24, smi, dry):
         m = r["memory_analysis"]
         gib = (m["argument_size_bytes"] + m["temp_size_bytes"]) / 2**30
         print(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: per rank "
-              f"{gib:.2f} GiB (arguments "
+              f"{gib:.2f} GiB (before the serving placement "
+              f"{DRYRUN_BEFORE[r['shape']]:.2f}; arguments "
               f"{m['argument_size_bytes'] / 2**30:.2f} + temp "
               f"{m['temp_size_bytes'] / 2**30:.2f}) against 80; "
               f"{r['flops_per_device']:.4e} FLOPs; collectives "
@@ -3509,6 +3514,97 @@ def mesh_serve_phase(torch, cfg, params, MD, load_engine, FL, dispatch,
     return launches
 
 
+SPLIT_SLOTS = 8                # decode_32k's 128 slots over 16 data ranks
+SPLIT_SEQ = 32768              # decode_32k's cache sequence
+SPLIT_SHARDS = 16              # its cut over model at 16x16 (8 kv heads)
+SPLIT_REL = 1e-5               # tests/test_torch_placement.py's bound
+POOL_SHARDS = 4                # page shards of the paged view's check
+
+
+def split_read_phase(torch, timer, FV, cfg):
+    """26 (c): the slice's plain split functions at full width on the one
+    card, cut as a 16x16 mesh would cut the work (no mesh pretended):
+    qwen3-14b's slot-cache read at decode_32k's per-rank shape, bf16 and
+    int8 KV, in SPLIT_SHARDS sequence shards combined in rank order,
+    against ``decode_attend`` on the whole view within
+    ``split_read_bound`` (SPLIT_REL); then phase 5's full-provisioned
+    page pool, padded and cut into POOL_SHARDS page shards, its masked
+    gathers summed in rank order: bitwise ``paged_view``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    g = cfg.num_heads // nkv
+    b, s_len = SPLIT_SLOTS, SPLIT_SEQ
+    qg = torch.randn((b, 1, nkv, g, hd), generator=gen, device="cuda")
+    pos = torch.tensor([s_len - 1, s_len // 2, s_len // 4, 1000, 17,
+                        s_len - 1000, 3 * s_len // 4, 2 * s_len // 3],
+                       device="cuda")
+    for kv_name in ("bf16", "int8"):
+        if kv_name == "int8":
+            k = torch.randint(-127, 128, (b, s_len, nkv, hd), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, s_len, nkv, hd), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        else:
+            k = torch.randn((b, s_len, nkv, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            v = torch.randn((b, s_len, nkv, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        ks, vs = list(k.chunk(SPLIT_SHARDS, 1)), list(v.chunk(SPLIT_SHARDS, 1))
+
+        def whole():
+            return FV.decode_attend(qg, k, v, pos, None)
+
+        def split():
+            return FV.decode_attend_split(qg, ks, vs, pos, None)
+
+        want, got = whole(), split()
+        w = torch.softmax(FV.split_logits(qg, k, pos, None, 0), dim=-1)
+        bound = FV.split_read_bound(w, v, SPLIT_REL)
+        diff = (got - want).abs()
+        ensure(bool((diff <= bound).all()),
+               f"split read {kv_name}: max |diff| {float(diff.max()):.3e} "
+               f"outside the bound (max {float(bound.max()):.3e})")
+        whole_ms, split_ms = timer.ms(whole, 3), timer.ms(split, 3)
+        print(f"[split-read] qwen3-14b decode_32k per rank: {b} slots x "
+              f"{s_len} x {nkv} kv heads x {g} q heads x hd {hd}, "
+              f"{kv_name} KV, {SPLIT_SHARDS} sequence shards in rank order: "
+              f"max |diff| {float(diff.max()):.3e} (mean "
+              f"{float(diff.mean()):.3e}, {int((diff > 0).sum())} of "
+              f"{diff.numel()} outputs moved; max |out| "
+              f"{float(want.abs().max()):.3e}) within the bound (max "
+              f"{float(bound.max()):.3e}, rel {SPLIT_REL}); decode_attend "
+              f"{whole_ms:.3f} ms, decode_attend_split {split_ms:.3f} ms",
+              flush=True)
+        del k, v, ks, vs, want, got, w, bound, diff
+    # the paged view from a pool cut over data: phase 5's full provisioning
+    knobs = ENGINE_KNOBS
+    mp = -(-knobs["max_len"] // knobs["page_size"])
+    pages = knobs["max_batch"] * mp
+    total = -(-(pages + 1) // POOL_SHARDS) * POOL_SHARDS
+    held = total // POOL_SHARDS
+    shape = (total, knobs["page_size"], nkv, hd)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    table = torch.randperm(pages, generator=gen, device="cuda")[
+        :knobs["max_batch"] * mp].reshape(knobs["max_batch"], mp)
+    table[-1, mp // 2:] = total - 1  # a short row, trash-padded
+    table = table.to(torch.int32)
+    parts = [FV.paged_view_part(kp[r * held:(r + 1) * held],
+                                vp[r * held:(r + 1) * held], table,
+                                r * held, held)
+             for r in range(POOL_SHARDS)]
+    k_view, v_view = FV.paged_view(kp, vp, table)
+    for got, want in ((FV.sum_parts([p[0] for p in parts]), k_view),
+                      (FV.sum_parts([p[1] for p in parts]), v_view)):
+        ensure(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+               "paged view from page shards differs from paged_view")
+    print(f"[split-read] paged view of phase 5's pool ({pages} pages + "
+          f"trash, padded to {total}) cut into {POOL_SHARDS} page shards of "
+          f"{held}, masked gathers summed in rank order: bitwise paged_view; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def shard_kernel_phase(torch, timer, mods):
     """26 (b): the per-shard LUT-MU problem at tp 2, 4, 8.  Returns
     ``{kernel: {case: {ms, unsharded_ms, bound_ms, bound_by, library_ms}}}``
@@ -3686,6 +3782,8 @@ def main() -> int:
     vres = verify_kernel_checks(torch, timer, FV)
     # 26 (b). the per-shard LUT-MU problem at tp 2, 4, 8
     shard = shard_kernel_phase(torch, timer, (FL, ME, LA))
+    # 26 (c). the split reads of the serving state at full width
+    split_read_phase(torch, timer, FV, get_config("qwen3-14b"))
     del timer
     torch.cuda.empty_cache()
 

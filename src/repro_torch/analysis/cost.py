@@ -23,7 +23,11 @@ dtypes, no storage, no kernel), under three counters:
 
 Collectives go through :class:`ShapeComm`, the shape-only communicator of a
 ``ParallelContext`` on an ``AbstractMesh``: each returns a correctly shaped
-``meta`` tensor and counts its calls and bytes per kind.
+``meta`` tensor and counts its calls and bytes per kind — the model's
+collectives and those of the serving state's placement alike: a split
+sequence's partial softmax (an all-reduce of the row maxima, one of the
+denominators, one of the value products) and a cut paged pool's view (a
+reduce-scatter, or an all-reduce, of every row's masked pages).
 
 This module takes the place of the JAX package's ``analysis/hlo_stats.py``
 and ``analysis/scan_cost.py``: they parse XLA's HLO and correct
@@ -86,7 +90,7 @@ class ShapeComm:
             self.counts[kind]["bytes"] += n
             self.counts[kind]["count"] += 1
 
-    def all_reduce(self, x: Tensor, axes) -> Tensor:
+    def all_reduce(self, x: Tensor, axes, op: str = "sum") -> Tensor:
         self._count("all-reduce", nbytes(x), axes)
         return x
 

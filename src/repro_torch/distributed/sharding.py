@@ -271,8 +271,9 @@ def cache_shardings(cache_shape, cfg: ModelConfig, mesh, batch: int):
 
 def paged_cache_shardings(cache_shape, cfg: ModelConfig, mesh):
     """Paged KV pool specs: ``(L, P, page_size, n_kv, hd)`` per k/v, the
-    page axis over dp and kv-heads over tp, each when it divides.  (The
-    port's engines keep every page on every data rank: ROADMAP C9.)"""
+    page axis over dp and kv-heads over tp, each when it divides.  The
+    engines pad the pool to a multiple of the data degree
+    (``PagedKVCache(pad_to=)``), so its pages always cut."""
     axes = MeshAxes.for_mesh(mesh)
     dp_ax = axes.dp_entry()
 
@@ -393,14 +394,19 @@ def unshard_state(state, par: "ParallelContext"):
 # ---------------------------------------------------------------------------
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 class MeshComm:
     """The collectives of a ``("data", "model")`` ``DeviceMesh``, one process
     group per axis: the communicator a :class:`ParallelContext` runs on a
     real mesh (``analysis/cost.py::ShapeComm`` is the shape-only one).
 
-    ``axes`` is a tuple of axis names.  ``all_reduce`` sums a contiguous
-    tensor in place; ``all_gather`` and ``reduce_scatter`` concatenate and
-    split along ``dim`` in rank order."""
+    ``axes`` is a tuple of axis names (both axes: the world, whose ranks
+    are row-major over ``("data", "model")`` as a ``NamedSharding`` orders
+    them).  ``all_reduce`` sums (or, with ``op="max"``, takes the maximum
+    of) a contiguous tensor in place; ``all_gather`` and ``reduce_scatter``
+    concatenate and split along ``dim`` in rank order."""
 
     def __init__(self, mesh):
         names = tuple(mesh.mesh_dim_names)
@@ -418,11 +424,17 @@ class MeshComm:
         return _shard_index(axes, self.shape, self.coord)[1]
 
     def _group(self, axes: Tuple[str, ...]):
+        if tuple(axes) == ("data", "model"):
+            if self.mesh.size() != dist.get_world_size():
+                raise ValueError("a collective over both axes needs a mesh "
+                                 "over the whole world")
+            return dist.group.WORLD
         (axis,) = axes
         return self.mesh.get_group(axis)
 
-    def all_reduce(self, x: Tensor, axes: Tuple[str, ...]) -> Tensor:
-        dist.all_reduce(x, group=self._group(axes))
+    def all_reduce(self, x: Tensor, axes: Tuple[str, ...],
+                   op: str = "sum") -> Tensor:
+        dist.all_reduce(x, op=_REDUCE_OPS[op], group=self._group(axes))
         return x
 
     def all_gather(self, x: Tensor, dim: int, axes: Tuple[str, ...]) -> Tensor:
@@ -530,17 +542,18 @@ _TP_PARTIAL_MOE = re.compile(r"(^|/)moe/router$")
 class ParallelContext:
     """What a model function needs to run one rank's share of a step on a
     ``data × model`` mesh: the sizes and ranks, the parameter specs, the
-    fixed-slot cache's placement, and the collectives.
+    placement of the fixed-slot cache (:meth:`place_cache`) and of the
+    paged pool (:meth:`pool_place`), and the collectives.
 
-    Decode rows split over ``data`` when they divide (``batch_spec``);
-    otherwise every data rank computes every row.  A train step's rows are
-    the rank's :meth:`local_rows`.  Weights are read through :meth:`layer`
-    / :meth:`read` / :meth:`leaf`, which all-gather the dims the rules put
-    on ``data`` (FSDP) and, where the model computes a block whole, those
-    on ``model``.  The activations' collectives over ``model`` run on a
-    group of one rank too (the path is the same at any tp); over one
-    ``data`` rank none is issued, and no stored tensor is gathered over a
-    group of one.  Every collective is differentiable (:meth:`enter_tp`,
+    Decode and prefill rows split over ``data`` when they divide
+    (``batch_spec``); otherwise every data rank computes every row.  A
+    train step's rows are the rank's :meth:`local_rows`.  Weights are read
+    through :meth:`layer` / :meth:`read` / :meth:`leaf`, which all-gather
+    the dims the rules put on ``data`` (FSDP) and, where the model computes
+    a block whole, those on ``model``.  The activations' collectives over
+    ``model`` run on a group of one rank too (the path is the same at any
+    tp); over one ``data`` rank none is issued, and no stored tensor is
+    gathered over a group of one.  Every collective is differentiable (:meth:`enter_tp`,
     :meth:`reduce_tp`, the gathers); under no grad they run as plain
     collectives.
 
@@ -573,6 +586,7 @@ class ParallelContext:
         self.moe_tp = (cfg.moe_d_ff or cfg.d_ff) % tp == 0
         self.vocab_tp = cfg.vocab_size % tp == 0
         self.collectives = 0  # collectives issued (a replay issues its own)
+        self.cache_specs: Optional[Dict[str, Spec]] = None  # place_cache
 
     # -- configs -----------------------------------------------------------
     def attn_cfg(self, cfg: ModelConfig) -> ModelConfig:
@@ -607,9 +621,9 @@ class ParallelContext:
         return _Gather.apply(x, self, 0, self.dp_axes, True)
 
     # -- collectives ------------------------------------------------------------
-    def _all_reduce(self, x: Tensor, axes) -> Tensor:
+    def _all_reduce(self, x: Tensor, axes, op: str = "sum") -> Tensor:
         self.collectives += 1
-        return self.comm.all_reduce(x, axes)
+        return self.comm.all_reduce(x, axes, op)
 
     def _all_gather(self, x: Tensor, dim: int, axes) -> Tensor:
         self.collectives += 1
@@ -754,17 +768,88 @@ class ParallelContext:
         return _state_specs(state, self.specs)
 
     # -- the fixed-slot cache ----------------------------------------------------
-    def cache_spec(self, path: str, shape: Sequence[int], slots: int) -> Spec:
-        """Where a fixed-slot cache leaf of ``slots`` rows is stored: as the
-        model computes on it, the slots over ``data`` when they split and,
-        under attention TP, the kv heads over ``model``; every other dim
-        whole.  (JAX's ``cache_shardings`` also cuts the sequence, SSM heads
-        and conv channels, which the port computes whole: ROADMAP C9.)"""
-        ent: list = [None] * len(shape)
-        row = 0 if re.search(r"(^|/)enc$", path) else 1
-        if len(shape) > row and shape[row] == slots and self.rows_split(slots):
-            ent[row] = self.axes.dp_entry()
-        if (self.attn_tp and len(shape) == 5
-                and re.search(r"(^|/)(k|v|cross_k|cross_v)$", path)):
-            ent[3] = "model"
-        return tuple(ent)
+    def place_cache(self, cache_shape, slots: int) -> Dict[str, Spec]:
+        """The fixed-slot cache's placement (path → spec), kept on the
+        context for the decode's reads: JAX's :func:`cache_shardings` for
+        ``slots`` rows — attention K/V with their slots over ``data`` when
+        they divide, kv heads over ``model`` under attention TP, else the
+        cache *sequence* over ``model``, and for a batch that does not
+        divide the data degree the sequence over ``data`` (and ``model``);
+        a split sequence is read by the partial softmax of
+        :meth:`seq_split`.  Mamba's SSM state and conv window keep only
+        their slots over ``data``: the port computes their heads and
+        channels whole on every model rank (ROADMAP C9)."""
+        specs = {}
+        for path, spec in flatten(cache_shardings(
+                cache_shape, self.cfg, self.mesh, slots)).items():
+            if re.search(r"(^|/)mamba/", path):
+                spec = tuple(e if e is not None and "model" not in
+                             _entry_axes(e) else None for e in spec)
+            specs[path] = spec
+        self.cache_specs = specs
+        return specs
+
+    def seq_split(self, path: str) -> Optional[Tuple[Tuple[str, ...], int]]:
+        """``(axes, shard)`` of the K/V leaf at ``path`` of the placed
+        cache when its sequence is cut over a group of more than one rank:
+        the group's axes and this rank's shard index over them (row-major,
+        so its first global position is ``shard`` times its length);
+        ``None`` when every rank holds the whole sequence."""
+        if self.cache_specs is None:
+            raise ValueError("a fixed-slot cache on a mesh is placed first "
+                             "(ParallelContext.place_cache)")
+        spec = self.cache_specs[path]
+        axes = _entry_axes(spec[2]) if len(spec) > 2 else ()
+        if self.comm.size(axes) == 1:
+            return None
+        return axes, self.comm.rank(axes)
+
+    def seq_slice(self, t: Tensor, path: str, dim: int = 2) -> Tensor:
+        """This rank's slice of a whole-sequence K/V tensor (dim ``dim``)
+        of the placed leaf at ``path`` (``t`` itself when uncut)."""
+        cut = self.seq_split(path)
+        if cut is None:
+            return t
+        n = t.shape[dim] // self.comm.size(cut[0])
+        return t.narrow(dim, cut[1] * n, n)
+
+    def seq_max(self, x: Tensor, axes) -> Tensor:
+        """The elementwise maximum of ``x`` over the sequence group
+        ``axes`` (the partial softmax's row maximum)."""
+        return self._all_reduce(x.contiguous(), axes, "max")
+
+    def seq_sum(self, x: Tensor, axes) -> Tensor:
+        """``x`` summed over the sequence group ``axes`` (the partial
+        softmax's denominators and value products)."""
+        return self._all_reduce(x.contiguous(), axes)
+
+    # -- the paged pool ------------------------------------------------------------
+    @property
+    def pool_cut(self) -> bool:
+        """Whether a paged pool's pages are cut over ``data`` (more than
+        one data rank: JAX's ``paged_cache_shardings`` on a pool padded
+        to a multiple of the data degree)."""
+        return self.dp > 1
+
+    def pool_place(self, ids, held: int):
+        """Global page ids (a tensor, or one int) → ``(mine, local)``:
+        whether this data rank holds each page, and its index in the
+        rank's shard, of a pool cut into shards of ``held`` pages in
+        data-rank order (``local`` is meaningful only where ``mine``)."""
+        local = ids - self.dp_rank * held
+        return (local >= 0) & (local < held), local
+
+    def pool_sum(self, x: Tensor, rows_split: bool) -> Tensor:
+        """Pieces of pages that one data rank holds each and every other
+        rank contributes as zeros, summed over ``data`` bitwise: the sum
+        runs on int32 views of the bytes (one non-zero word per element,
+        so no rounding and no sign of zero is lost).  ``x`` is ``(B, …)``
+        with whole positions in its last dim; with ``rows_split`` each
+        data rank gets its rows (a reduce-scatter), else all of them (an
+        all-reduce)."""
+        bits = x.contiguous().view(torch.int32)
+        if rows_split:
+            out = self._reduce_scatter(bits, 0, self.dp_axes)
+        else:
+            out = self._all_reduce(bits, self.dp_axes)
+        return out.contiguous().view(x.dtype)

@@ -195,6 +195,145 @@ def paged_view(k_pages: Tensor, v_pages: Tensor, page_table: Tensor
             v_pages[idx].reshape(b, -1, nkv, hd))
 
 
+def paged_view_part(k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
+                    lo: int, held: int) -> Tuple[Tensor, Tensor]:
+    """One page shard's part of :func:`paged_view`: the shard holds the
+    global pages ``[lo, lo + held)`` as its first ``held`` physical pages;
+    entries of the table it does not hold read as zeros.  The parts of
+    every shard summed bitwise (:func:`sum_parts`) are the whole view."""
+    local = page_table.to(torch.int64) - lo
+    mine = (local >= 0) & (local < held)
+    k_view, v_view = paged_view(k_pages, v_pages,
+                                torch.where(mine, local, 0))
+    b, mp = page_table.shape
+    keep = mine.repeat_interleave(k_pages.shape[1], dim=1).reshape(
+        b, -1, 1, 1)
+    return (torch.where(keep, k_view, torch.zeros_like(k_view)),
+            torch.where(keep, v_view, torch.zeros_like(v_view)))
+
+
+def sum_parts(parts) -> Tensor:
+    """Parts of which at most one is non-zero at each element, summed in
+    order on int32 views of their bytes: bitwise the non-zero one (the
+    last dim's bytes a multiple of 4)."""
+    acc = parts[0].contiguous().view(torch.int32).clone()
+    for p in parts[1:]:
+        acc += p.contiguous().view(torch.int32)
+    return acc.view(parts[0].dtype)
+
+
+# the slot cache's read split over sequence shards (a cache whose sequence
+# is cut over a mesh group): each shard's masked logits, a global row
+# maximum, a global sum of exp(logit - max), then the weights formed and
+# rounded as decode_attend rounds them and the partial value products
+# summed.  decode_attend_split chains the pieces over shards in rank order;
+# on a mesh the three sums are collectives (models/attention.py).
+
+
+def split_logits(qg: Tensor, cache_k: Tensor, pos_b: Optional[Tensor],
+                 window: Optional[int], start: int) -> Tensor:
+    """One sequence shard's logits ``(B, n_kv, g, 1, S_shard)`` float32 as
+    :func:`decode_attend` forms them, the shard holding the global
+    positions ``[start, start + S_shard)``; positions outside each row's
+    ``pos_b``/``window`` mask are ``NEG_INF``.  ``pos_b`` ``None``: no
+    mask, float products (cross-attention's read)."""
+    hd = qg.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    if pos_b is not None and cache_k.dtype == torch.int8:
+        q = qg.float()
+        sq = torch.amax(q.abs(), dim=-1, keepdim=True) / 127.0 + 1e-9
+        q_i8 = torch.clamp(torch.round(q / sq), -127, 127)
+        logits = torch.einsum("bsngh,btnh->bngst", q_i8.double(),
+                              cache_k.double()).float()
+        logits = logits * (sq.permute(0, 2, 3, 1, 4) * KV_INT8_SCALE * scale)
+    else:
+        logits = torch.einsum("bsngh,btnh->bngst", qg.float(),
+                              cache_k.float()) * scale
+    if pos_b is None:
+        return logits
+    kv_pos = start + torch.arange(cache_k.shape[1], device=qg.device)
+    valid = kv_pos[None, :] <= pos_b[:, None]
+    if window is not None:
+        valid = valid & (kv_pos[None, :] > pos_b[:, None] - window)
+    return torch.where(valid[:, None, None, None, :], logits,
+                       torch.full_like(logits, NEG_INF))
+
+
+def split_exp_sum(logits: Tensor, m: Tensor) -> Tensor:
+    """A shard's ``sum(exp(logit - m))`` per row, ``m`` the global row
+    maximum ``(…, 1)``."""
+    return torch.exp(logits - m).sum(dim=-1, keepdim=True)
+
+
+def split_values(logits: Tensor, m: Tensor, s: Tensor, cache_v: Tensor,
+                 rounded: bool = True) -> Tensor:
+    """A shard's value product with the global softmax weights
+    ``exp(logit - m) / s``, rounded as :func:`decode_attend` rounds them:
+    to the cache's type (float caches; not at all without ``rounded``, as
+    cross-attention reads), or to ``round(w·127)`` (int8 caches, whose
+    products are exact integers, summed in float64).  Returns
+    ``(B, 1, n_kv, g, hd)``: float32, float64 for int8."""
+    w = torch.exp(logits - m) / s
+    if rounded and cache_v.dtype == torch.int8:
+        w_i8 = torch.clamp(torch.round(w * 127.0), 0, 127)
+        return torch.einsum("bngst,btnh->bsngh", w_i8.double(),
+                            cache_v.double())
+    if rounded:
+        w = w.to(cache_v.dtype).float()
+    return torch.einsum("bngst,btnh->bsngh", w, cache_v.float())
+
+
+def split_finish(out: Tensor, kv_dtype) -> Tensor:
+    """The summed value products as :func:`decode_attend` returns them."""
+    if kv_dtype == torch.int8:
+        return out.float() * (KV_INT8_SCALE / 127.0)
+    return out
+
+
+def decode_attend_split(qg: Tensor, k_shards, v_shards, pos_b: Tensor,
+                        window: Optional[int]) -> Tensor:
+    """:func:`decode_attend` over a cache view cut into sequence shards
+    (in order), combined shard by shard in rank order: the split read a
+    mesh runs with its sums as collectives.  Its only differences from
+    the whole read are the two float sums (the softmax's denominator and
+    the value products) taken in parts: within a few float32 ulps before
+    the weights are rounded, so a weight may land one rounding step of
+    the cache type (one ``round(w·127)`` step for int8) away."""
+    starts = [0]
+    for k in k_shards[:-1]:
+        starts.append(starts[-1] + k.shape[1])
+    lgs = [split_logits(qg, k, pos_b, window, st)
+           for k, st in zip(k_shards, starts)]
+    m = lgs[0].amax(dim=-1, keepdim=True)
+    for lg in lgs[1:]:
+        m = torch.maximum(m, lg.amax(dim=-1, keepdim=True))
+    s = sum(split_exp_sum(lg, m) for lg in lgs)
+    out = sum(split_values(lg, m, s, v) for lg, v in zip(lgs, v_shards))
+    return split_finish(out, k_shards[0].dtype)
+
+
+def split_read_bound(w: Tensor, cache_v: Tensor, rel: float) -> Tensor:
+    """The stated tolerance of :func:`decode_attend_split` against
+    :func:`decode_attend`, per output element ``(B, 1, n_kv, g, hd)``:
+    ``w`` are the whole read's softmax weights ``(B, n_kv, g, 1, S)``.
+    Each weight of the split read lies within ``rel`` of itself; where
+    that interval crosses a rounding boundary of the cache type (of
+    ``round(w·127)`` for int8) the rounded weight moves by the step
+    between the interval's ends, times its value; float value products
+    add ``rel · Σ w·|v|`` for their other grouping.  int8 products are
+    exact, so an int8 read differs only where a weight moved."""
+    d = rel * w
+    if cache_v.dtype == torch.int8:
+        step = (torch.round(torch.clamp((w + d) * 127.0, 0, 127))
+                - torch.round(torch.clamp((w - d) * 127.0, 0, 127)))
+        return torch.einsum("bngst,btnh->bsngh", step.double(),
+                            cache_v.double().abs()).float() * (
+                                KV_INT8_SCALE / 127.0)
+    dt = cache_v.dtype
+    step = (w + d).to(dt).float() - (w - d).to(dt).float() + d
+    return torch.einsum("bngst,btnh->bsngh", step, cache_v.float().abs())
+
+
 def verify_window_attend(qg: Tensor, k_view: Tensor, v_view: Tensor,
                          pos: Tensor, window: Optional[int]) -> Tensor:
     """All W window positions attend against one ``(B, S, n_kv, hd)`` view.

@@ -20,12 +20,12 @@ No device and no process group: for each cell this
 
 ``memory_analysis.argument_size_bytes`` is exact: the bytes of the shards
 the rank holds (train state or params and cache) and of the input rows it
-computes.  The fixed-slot cache is stored as the port computes on it
-(``ParallelContext.cache_spec``, ROADMAP C9), so a decode cell's cache may
-hold more than JAX's ``cache_shardings`` gives a rank;
-``rule_argument_size_bytes`` is the same sum under JAX's placement (params
-and state by ``param_shardings``, the cache by ``cache_shardings``, inputs
-by ``batch_spec``).  ``temp_size_bytes`` is the peak of the bytes the step
+computes (``batch_spec``: a prefill or train step computes its data
+rank's rows).  ``rule_argument_size_bytes`` is the same sum under JAX's
+placement (params and state by ``param_shardings``, the cache by
+``cache_shardings``, inputs by ``batch_spec``); the two are equal but for
+Mamba's SSM state and conv window, which the port keeps whole over
+``model`` (``ParallelContext.place_cache``, ROADMAP C9).  ``temp_size_bytes`` is the peak of the bytes the step
 allocates beyond its arguments; ``output_size_bytes`` the bytes of what it
 returns (and, for decode, the cache it updates in place, which the JAX step
 returns).
@@ -49,7 +49,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.analysis.cost import (ShapeComm, nbytes, run_counted,
+from repro_torch.analysis.cost import (ShapeComm, run_counted,
                                        tree_bytes)
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import MetaGenerator
@@ -125,21 +125,20 @@ def cell_arguments(cfg, cell: ShapeCell, mesh, comm: ShapeComm) -> dict:
     par = ParallelContext(cfg, mesh, params, comm)
     local = shard_params(params, cfg, mesh, coord)
     if cell.kind == "prefill":
-        # every rank computes every row of an admission's prompts
+        # the step takes the whole batch and computes its data rank's rows
         step = make_prefill_step(cfg, max_len=_prefill_len(cfg, cell),
                                  par=par)
-        held = {"params": tree_bytes(local),
-                "inputs": sum(nbytes(t) for t in inputs.values())}
+        held = {"params": tree_bytes(local), "inputs": rule_inputs}
         return dict(fn=step, args=(local, inputs), arguments=held,
                     rule=tree_bytes(local) + rule_inputs)
     kv = (torch.int8 if cfg.amm.enabled and cfg.amm.kv_int8
           else torch.bfloat16)
     cache = MD.init_cache(cfg, cell.global_batch, cell.seq_len, kv,
                           device="meta")
-    flat = flatten(cache)
+    specs = par.place_cache(cache, cell.global_batch)
     local_cache = unflatten({
-        p: take_shard(t, par.cache_spec(p, t.shape, cell.global_batch), mesh,
-                      coord) for p, t in flat.items()})
+        p: take_shard(t, specs[p], mesh, coord)
+        for p, t in flatten(cache).items()})
     rule_cache = _shard_bytes(cache, flatten(cache_shardings(
         cache, cfg, mesh, cell.global_batch)), mesh)
     step = make_decode_step(cfg, par=par)

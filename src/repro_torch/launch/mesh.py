@@ -8,7 +8,8 @@ one needs no launcher (a file store in a temporary directory).
 
 The production meshes (16×16, 2×16×16) cannot be built on one host:
 :func:`make_production_mesh` describes their shape for the rule engine
-(``distributed/sharding.py``).
+(``distributed/sharding.py``).  :func:`make_host_mesh` is the lenient
+small mesh of tests and examples.
 """
 from __future__ import annotations
 
@@ -29,6 +30,24 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     if multi_pod:
         return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
     return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device="cpu", **init):
+    """A small ``data × model`` mesh over the ranks that exist (tests and
+    examples; JAX's ``make_host_mesh``): a shape asking for more ranks
+    than the world holds falls back to ``(world, 1)``, and a smaller one
+    takes the first ``data·model`` ranks (the others get no coordinate).
+    The process group is joined if needed (``init`` goes to
+    :func:`init_distributed`)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    init_distributed(dev, **init)
+    n = dist.get_world_size()
+    if data * model > n:
+        data, model = n, 1
+    return DeviceMesh(dev.type, torch.arange(data * model).reshape(
+        data, model), mesh_dim_names=("data", "model"))
 
 
 def parse_mesh_spec(spec: str):

@@ -54,7 +54,12 @@ Examples:
 
 ``--ckpt DIR`` restores the params from a checkpoint of the same tree
 (either package's checkpoint manager wrote it).  On a mesh every rank
-serves the same schedule and rank 0 prints.
+serves the same schedule and rank 0 prints; each rank draws its params
+leaf by leaf into its own shards (``init_params(..., shard=)``: the
+seeded weights of one device, never the whole tree on a rank's host),
+but for ``--artifact``, ``--ckpt`` and ``--quality-probe``, which read
+or keep whole dense leaves: the whole tree is then made on the host and
+the engine moves only the rank's shards to the card.
 """
 from __future__ import annotations
 
@@ -71,7 +76,9 @@ from repro_torch.checkpoint import restore_into
 from repro_torch.compiler.artifact import ArtifactError, peek_manifest
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
-from repro_torch.device import resolve_device
+from repro_torch.device import MetaGenerator, resolve_device
+from repro_torch.distributed.sharding import (flatten, param_shardings,
+                                              take_shard)
 from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import model as MD
 from repro_torch.serving import (AsyncServer, KernelProfiler, QualityProbe,
@@ -310,14 +317,24 @@ def _serve(args, device, mesh) -> None:
             cfg, amm=dataclasses.replace(cfg.amm, enabled=True,
                                          backend=args.amm_backend))
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    # on a mesh the whole tree is made on the host and the engine moves
-    # only this rank's shards to the card (the seed's weights are then
-    # the host generator's, as with --device cpu)
+    # on a mesh the params are drawn on the host and the engine moves only
+    # this rank's shards to the card (the seed's weights are then the host
+    # generator's, as with --device cpu)
     where = device if mesh is None else torch.device("cpu")
     gen = torch.Generator(device=where).manual_seed(0)
     # --artifact serves compiled tables spliced into a *dense* params tree
-    params = MD.init_params(cfg, gen, dtype,
-                            serving=args.amm and not args.artifact)
+    serving = args.amm and not args.artifact
+    shape = None
+    if mesh is not None and not (args.artifact or args.ckpt
+                                 or args.quality_probe):
+        # each rank keeps its shards of each leaf as it is drawn
+        shape = MD.init_params(cfg, MetaGenerator(), dtype, serving=serving)
+        specs = flatten(param_shardings(shape, cfg, mesh))
+        params = MD.init_params(cfg, gen, dtype, serving=serving,
+                                shard=lambda path, t: take_shard(
+                                    t, specs[path], mesh))
+    else:
+        params = MD.init_params(cfg, gen, dtype, serving=serving)
     if args.ckpt:
         params = restore_into(params, Path(args.ckpt), device=where)
     art_kind = _artifact_kind(args.artifact) if args.artifact else None
@@ -346,6 +363,8 @@ def _serve(args, device, mesh) -> None:
                   prefix_cache=not args.no_prefix_cache,
                   verify_backend=args.verify_backend, compute_dtype=dtype,
                   device=device, recorder=rec, mesh=mesh)
+    if shape is not None:
+        kwargs["params_shape"] = shape
     if args.speculative:
         if not use_paged:
             raise SystemExit("--speculative needs the paged engine (family "

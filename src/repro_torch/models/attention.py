@@ -182,7 +182,8 @@ def prefill_with_cache(params: dict, x: Tensor, cfg: ModelConfig,
 
 
 def decode_step(params: dict, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
-                cache_v: Tensor, pos: Tensor, window: Optional[int]) -> Tensor:
+                cache_v: Tensor, pos: Tensor, window: Optional[int],
+                split=None, par=None) -> Tensor:
     """One-token decode against a slot cache.
 
     x: (B, 1, D); cache_k/v: (B, S_max, n_kv, hd), written in place (int8
@@ -190,6 +191,11 @@ def decode_step(params: dict, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
     (row ``b``'s ``[0:pos[b]]`` is its history), or one position for every
     row.  The read is the paged path's :func:`FV.decode_attend`.  Returns
     (B, 1, D).
+
+    ``split`` (``ParallelContext.seq_split``: the group's axes, this
+    rank's shard index) says the caches hold one shard of the sequence:
+    a row writes its K/V only on the rank that holds its position, and
+    the read is the partial softmax of :func:`_split_read` over the group.
     """
     b = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -199,11 +205,41 @@ def decode_step(params: dict, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
     if cache_k.dtype == torch.int8:
         k, v = _quantize_kv_int8(k, v)
     rows = torch.arange(b, device=x.device)
-    cache_k[rows, pos_b] = k[:, 0].to(cache_k.dtype)  # in place
-    cache_v[rows, pos_b] = v[:, 0].to(cache_v.dtype)
-    out = FV.decode_attend(_grouped(q, nkv), cache_k, cache_v, pos_b, window)
+    qg = _grouped(q, nkv)
+    if split is None:
+        cache_k[rows, pos_b] = k[:, 0].to(cache_k.dtype)  # in place
+        cache_v[rows, pos_b] = v[:, 0].to(cache_v.dtype)
+        out = FV.decode_attend(qg, cache_k, cache_v, pos_b, window)
+    else:
+        axes, shard = split
+        start = shard * cache_k.shape[1]
+        at = pos_b - start
+        mine = ((at >= 0) & (at < cache_k.shape[1]))[:, None, None]
+        at = torch.clamp(at, 0, cache_k.shape[1] - 1)
+        # rows are distinct: a blend at the clamped slot races with nothing
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cache[rows, at] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                          cache[rows, at])
+        out = _split_read(qg, cache_k, cache_v, pos_b, window, start, axes,
+                          par)
     out = out.reshape(b, 1, nq * hd).to(x.dtype).contiguous()
     return out @ params["wo"].to(x.dtype)
+
+
+def _split_read(qg: Tensor, cache_k: Tensor, cache_v: Tensor,
+                pos_b: Optional[Tensor], window: Optional[int], start: int,
+                axes, par, rounded: bool = True) -> Tensor:
+    """:func:`FV.decode_attend` (or, with ``pos_b`` ``None`` and not
+    ``rounded``, cross-attention's read) over a sequence cut over the mesh
+    group ``axes``, this rank's shard starting at global position
+    ``start``: the plain pieces of ``FV.decode_attend_split`` with its
+    three sums as all-reduces (the row maximum, the denominators, the
+    value products)."""
+    lg = FV.split_logits(qg, cache_k, pos_b, window, start)
+    m = par.seq_max(lg.amax(dim=-1, keepdim=True), axes)
+    s = par.seq_sum(FV.split_exp_sum(lg, m), axes)
+    out = par.seq_sum(FV.split_values(lg, m, s, cache_v, rounded), axes)
+    return FV.split_finish(out, cache_v.dtype if rounded else torch.float32)
 
 
 def _quantize_kv_int8(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
@@ -212,6 +248,49 @@ def _quantize_kv_int8(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
     k = torch.clamp(torch.round(k.to(torch.float32) / FV.KV_INT8_SCALE), -127, 127)
     v = torch.clamp(torch.round(v.to(torch.float32) / FV.KV_INT8_SCALE), -127, 127)
     return k, v
+
+
+def _pool_trash(k_pages: Tensor, par) -> int:
+    """The trash page's global id: the pool's last page.  On a pool cut
+    over ``data`` a rank's shard ends with its write-sink page, which is
+    no page of the pool."""
+    if par is None or not par.pool_cut:
+        return k_pages.shape[0] - 1
+    return par.dp * (k_pages.shape[0] - 1) - 1
+
+
+def _page_write(k_pages: Tensor, v_pages: Tensor, phys: Tensor, off: Tensor,
+                k: Tensor, v: Tensor, par) -> None:
+    """Write K/V at global pages ``phys``, offsets ``off``, in place.  On
+    a pool cut over ``data`` a rank writes the pages it holds; every other
+    write lands on its write-sink page (its shard's last, never read), so
+    the write keeps static shapes and no two rows meet on a page of the
+    pool that is read."""
+    if par is not None and par.pool_cut:
+        held = k_pages.shape[0] - 1
+        mine, local = par.pool_place(phys, held)
+        phys = torch.where(mine, local, torch.full_like(local, held))
+    k_pages[phys, off] = k.to(k_pages.dtype)  # in place
+    v_pages[phys, off] = v.to(v_pages.dtype)
+
+
+def _pool_view(k_pages: Tensor, v_pages: Tensor, table: Tensor, par,
+               rows_split: bool) -> Tuple[Tensor, Tensor]:
+    """The logical K/V views of the rows this rank computes (``table``
+    holds every row; with ``rows_split`` the rank's rows are its data
+    rank's).  On a pool cut over ``data`` each rank gathers what it holds
+    of every row's view, zeros elsewhere, and the parts are summed over
+    ``data`` bitwise (``ParallelContext.pool_sum``): a reduce-scatter by
+    rows when they split, else an all-reduce."""
+    if par is None or not par.pool_cut:
+        if rows_split:
+            table = par.local_rows(table)
+        return FV.paged_view(k_pages, v_pages, table)
+    held = k_pages.shape[0] - 1
+    k_part, v_part = FV.paged_view_part(k_pages, v_pages, table,
+                                        par.dp_rank * held, held)
+    kv = par.pool_sum(torch.stack([k_part, v_part], dim=1), rows_split)
+    return kv[:, 0], kv[:, 1]
 
 
 def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
@@ -226,9 +305,12 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
     trash page.  Returns the attention output (B, 1, D).
 
     On a mesh (``par``) ``x`` holds this data rank's rows of the batch and
-    the other inputs the whole batch: every data rank keeps every page
-    (ROADMAP C9), so the step's K/V are gathered over ``data`` and each
-    rank writes every row's, then attends its own rows.
+    the other inputs the whole batch.  With more than one data rank the
+    pages are the rank's shard of the pool (``PagedKVCache(pad_to=)``,
+    plus a write-sink page): the step's K/V are gathered over ``data`` and
+    each rank writes the rows whose pages it holds (:func:`_page_write`),
+    then reads its rows' views from every rank's pages
+    (:func:`_pool_view`).
     """
     b_all = page_table.shape[0]
     hd = cfg.resolved_head_dim
@@ -243,7 +325,7 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
     if split:
         k, v = par.gather_rows(k, b_all), par.gather_rows(v, b_all)
     ps = k_pages.shape[1]
-    trash = k_pages.shape[0] - 1
+    trash = _pool_trash(k_pages, par)
     rows = torch.arange(b_all, device=x.device)
     # a position past the table (a masked step of the speculative loops)
     # clamps onto the last entry, as the JAX gather does; write_ok then
@@ -252,12 +334,8 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
     phys = page_table.to(torch.int64)[rows, page_idx]
     if write_ok is not None:
         phys = torch.where(write_ok, phys, torch.full_like(phys, trash))
-    off = pos_all % ps
-    k_pages[phys, off] = k[:, 0].to(k_pages.dtype)  # in place
-    v_pages[phys, off] = v[:, 0].to(v_pages.dtype)
-    if split:
-        page_table = par.local_rows(page_table)
-    k_view, v_view = FV.paged_view(k_pages, v_pages, page_table)
+    _page_write(k_pages, v_pages, phys, pos_all % ps, k[:, 0], v[:, 0], par)
+    k_view, v_view = _pool_view(k_pages, v_pages, page_table, par, split)
     out = FV.decode_attend(_grouped(q, nkv), k_view, v_view, pos_b, window)
     # contiguous before the product: a strided operand can take another
     # GEMM path, and the verify window must see the same bits
@@ -268,7 +346,7 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
 def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
                         start, n_valid, k_pages: Tensor,
                         v_pages: Tensor, page_row: Tensor,
-                        window: Optional[int]) -> Tensor:
+                        window: Optional[int], par=None) -> Tensor:
     """Chunked-prefill attention for ONE request against the paged cache.
 
     x: (1, cs, D), right-padded to the engine's chunk width; ``start``:
@@ -276,7 +354,10 @@ def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
     (each an int or a 0-d integer tensor, never read on the host);
     page_row: (max_pages,) int32, trash-padded.  Writes the chunk's K/V in
     place (padding rows go to the trash page), then attends the chunk's
-    queries against the gathered view under the causal(+window) mask.
+    queries against the gathered view under the causal(+window) mask.  On
+    a pool cut over ``data`` (``par``) every data rank computes the chunk,
+    writes the positions whose pages it holds and reads the row's view
+    all-reduced over ``data`` (:func:`_page_write`, :func:`_pool_view`).
     """
     b, cs, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -287,15 +368,13 @@ def paged_prefill_chunk(params: dict, x: Tensor, cfg: ModelConfig,
     if k_pages.dtype == torch.int8:
         k, v = _quantize_kv_int8(k, v)
     ps = k_pages.shape[1]
-    trash = k_pages.shape[0] - 1
+    trash = _pool_trash(k_pages, par)
     row = page_row.to(torch.int64)
     valid_tok = torch.arange(cs, device=dev) < n_valid
     phys = torch.where(valid_tok, row[torch.clamp(idx // ps, max=row.shape[0] - 1)],
                        torch.full_like(idx, trash))
-    off = idx % ps
-    k_pages[phys, off] = k[0].to(k_pages.dtype)  # in place
-    v_pages[phys, off] = v[0].to(v_pages.dtype)
-    k_view, v_view = FV.paged_view(k_pages, v_pages, page_row[None])
+    _page_write(k_pages, v_pages, phys, idx % ps, k[0], v[0], par)
+    k_view, v_view = _pool_view(k_pages, v_pages, page_row[None], par, False)
     if k_pages.dtype == torch.int8:
         # int8 pages: prefill reads the dequantised view in float
         k_view = k_view.to(torch.float32) * FV.KV_INT8_SCALE
@@ -406,13 +485,21 @@ def cross_attention(params: dict, x: Tensor, enc: Tensor,
 
 
 def cross_decode(params: dict, x: Tensor, cross_k: Tensor, cross_v: Tensor,
-                 cfg: ModelConfig) -> Tensor:
+                 cfg: ModelConfig, split=None, par=None) -> Tensor:
     """One decoder token's cross-attention against the cached encoder K/V
-    ``(B, T, n_kv, hd)``, in float32: x (B, 1, D) → (B, 1, D)."""
+    ``(B, T, n_kv, hd)``, in float32: x (B, 1, D) → (B, 1, D).  ``split``
+    as :func:`decode_step` takes it: the K/V hold one shard of the encoder
+    positions, read by the partial softmax."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     q = (x @ params["wq"].to(x.dtype)).reshape(b, 1, nq, hd)
+    if split is not None:
+        axes, shard = split
+        out = _split_read(_grouped(q, nkv), cross_k, cross_v, None, None,
+                          shard * cross_k.shape[1], axes, par, rounded=False)
+        return out.reshape(b, 1, nq * hd).to(x.dtype) @ params["wo"].to(
+            x.dtype)
     lg = torch.einsum("bsngh,btnh->bngst", _grouped(q, nkv).float(),
                       cross_k.float()) * (1.0 / math.sqrt(hd))
     w = torch.softmax(lg, dim=-1)

@@ -576,11 +576,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return attn_cache(cfg.num_layers)
 
 
+def _seq_split(par, path: str):
+    """The sequence cut of the placed cache leaf at ``path`` on a mesh
+    (``ParallelContext.seq_split``), ``None`` off one."""
+    return None if par is None else par.seq_split(path)
+
+
 def _decode_block(cfg: ModelConfig, lp: dict, h: Tensor, cache: dict,
-                  pos: Tensor, window, cd, par=None) -> Tensor:
+                  pos: Tensor, window, cd, par=None,
+                  path: str = "k") -> Tensor:
     """One uniform or hybrid block of a decode step; ``cache`` is this
     layer's slice (``{"k", "v"}`` or ``{"mamba": …}``), written in
-    place."""
+    place; ``path`` names its K leaf in the cache tree."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if "mamba" in lp:
         h = h + MB.mamba_decode_step(lp["mamba"], x, cfg, cache["mamba"])
@@ -588,8 +595,8 @@ def _decode_block(cfg: ModelConfig, lp: dict, h: Tensor, cache: dict,
             return h
     else:
         h = h + _attn_sum(A.decode_step(lp["attn"], x, _acfg(cfg, par),
-                                        cache["k"], cache["v"], pos, window),
-                          par)
+                                        cache["k"], cache["v"], pos, window,
+                                        _seq_split(par, path), par), par)
     return h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd,
                         par)
 
@@ -611,8 +618,10 @@ def decode_step(params: dict, token: Tensor, pos: Tensor, cache: dict,
     place.  Returns logits (B, 1, V) float32.
 
     On a mesh (``par``) the inputs are the whole batch and ``cache`` this
-    rank's part of it (``ParallelContext.cache_spec``); the logits are the
-    whole batch's.
+    rank's part of it, placed by ``ParallelContext.place_cache`` (JAX's
+    ``cache_shardings``): the rows over ``data`` when they divide, and an
+    attention cache whose sequence is cut is read by the partial softmax
+    over its group.  The logits are the whole batch's.
     """
     cd = compute_dtype
     b_all = token.shape[0]
@@ -630,7 +639,7 @@ def decode_step(params: dict, token: Tensor, pos: Tensor, cache: dict,
                 h = _decode_block(cfg, _layer(params["layers"][key], g, par,
                                               f"layers/{key}"),
                                   h, _slice(cache[key], g), pos, None, cd,
-                                  par)
+                                  par, f"{key}/k")
     elif cfg.is_encdec:
         acfg = _acfg(cfg, par)
         pos_b = pos.to(torch.int64).reshape(-1).expand(b)
@@ -641,10 +650,12 @@ def decode_step(params: dict, token: Tensor, pos: Tensor, cache: dict,
             lp = _layer(params["layers"], l, par)
             h = h + _attn_sum(A.decode_step(
                 lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), acfg,
-                cache["k"][l], cache["v"][l], pos, None), par)
+                cache["k"][l], cache["v"][l], pos, None,
+                _seq_split(par, "k"), par), par)
             h = h + _attn_sum(A.cross_decode(
                 lp["cross"], L.rms_norm(h, lp["ln_cross"], cfg.norm_eps),
-                cache["cross_k"][l], cache["cross_v"][l], acfg), par)
+                cache["cross_k"][l], cache["cross_v"][l], acfg,
+                _seq_split(par, "cross_k"), par), par)
             h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg,
                              cd, par)
     else:  # uniform: attention (dense, MoE, VLM) or Mamba (ssm)
@@ -693,12 +704,20 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
     VLM's prepended patch embeddings (which then take the first cache
     positions).
 
-    On a mesh (``par``) every rank computes every row (an admission's one
-    prompt); the cache comes back in the compute layout (local kv heads
-    under attention TP, every other dim whole).
+    On a mesh (``par``) ``tokens`` (and ``extra_embeds``) are the whole
+    batch: a rank computes its data rank's rows when they split over
+    ``data`` (as :func:`decode_step` does), else every row (an admission's
+    one prompt).  The logits are the whole batch's; the cache holds the
+    rows the rank computed in the compute layout (local kv heads under
+    attention TP, every other dim whole).
     """
     cd = compute_dtype
     tokens = tokens.to(torch.int64)
+    b_all = tokens.shape[0]
+    if par is not None:
+        tokens = par.local_rows(tokens)
+        if extra_embeds is not None:
+            extra_embeds = par.local_rows(extra_embeds)
     b, s = tokens.shape
     dev = tokens.device
     acfg = _acfg(cfg, par)
@@ -752,7 +771,7 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
                                   positions, win, max_len, cd, par)
             per.append(c)
         cache = _stack_caches(per)
-    return _head(params, h[:, -1:], cfg, cd, par), cache
+    return _head(params, h[:, -1:], cfg, cd, par, b_all), cache
 
 
 # ---------------------------------------------------------------------------
@@ -773,9 +792,9 @@ def paged_decode_step(params: dict, token: Tensor, pos: Tensor,
     cache: ``{"k","v"}`` of (L, P, page_size, n_kv, hd), updated in place.
     Returns logits (B, 1, V) float32.
 
-    On a mesh (``par``) this rank computes its data rank's rows, writes
-    every row's K/V into its whole page pool (ROADMAP C9) and returns the
-    whole batch's logits.
+    On a mesh (``par``) this rank computes its data rank's rows and
+    returns the whole batch's logits; with more than one data rank its
+    pages are its shard of the pool (``attention.paged_decode_step``).
     """
     _check_paged(cfg, "decode")
     cd = compute_dtype
@@ -809,7 +828,9 @@ def paged_prefill_chunk(params: dict, tokens: Tensor, start, n_valid,
     (max_pages,) int32.  The cache is updated in place.  Returns logits
     (1, 1, V) float32 at the chunk's last valid position (position 0 when
     ``n_valid`` is 0, a chunk that writes only the trash page).  On a mesh
-    (``par``) every rank computes the chunk and writes its own page pool.
+    (``par``) every rank computes the chunk; with more than one data rank
+    each writes the pages it holds and reads the request's view from
+    every rank's (``attention.paged_prefill_chunk``).
     """
     _check_paged(cfg, "prefill")
     cd = compute_dtype
@@ -822,7 +843,7 @@ def paged_prefill_chunk(params: dict, tokens: Tensor, start, n_valid,
         lp = _layer(params["layers"], l, par)
         h = h + _attn_sum(A.paged_prefill_chunk(
             lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps), acfg, start,
-            n_valid, cache["k"][l], cache["v"][l], page_row, win), par)
+            n_valid, cache["k"][l], cache["v"][l], page_row, win, par), par)
         h = h + _mlp_out(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps), cfg, cd,
                          par)
     return _head(params, h.index_select(1, last), cfg, cd, par)

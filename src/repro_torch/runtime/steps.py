@@ -149,7 +149,9 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     """``(params, batch) → (logits (B, 1, V), cache)``: the prompts of
     ``batch["tokens"]`` (and ``batch["frontend"]`` where the family takes
     one) into a fresh cache of ``max_len`` positions; on a mesh (``par``)
-    one rank's share (``models.model.prefill``)."""
+    one rank's share (``models.model.prefill``): ``batch`` is the whole
+    batch, the rank computes its data rank's rows when they split over
+    ``data`` and returns the whole batch's logits and its rows' cache."""
     def prefill_step(params, batch):
         return MD.prefill(params, batch["tokens"], cfg, max_len,
                           extra_embeds=batch.get("frontend"),
@@ -161,7 +163,9 @@ def make_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
                      par=None):
     """``(params, token, pos, cache) → logits (B, 1, V)``, the cache
     advanced in place; on a mesh (``par``) one rank's share
-    (``models.model.decode_step``)."""
+    (``models.model.decode_step``): ``cache`` is the rank's part, placed
+    by ``par.place_cache`` (a cut sequence read by the partial
+    softmax)."""
     def decode_step(params, token, pos, cache):
         return MD.decode_step(params, token, pos, cache, cfg,
                               compute_dtype=compute_dtype, par=par)

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import re
 import warnings
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -117,16 +118,24 @@ def _artifact_params_cfg(artifact_path, params: dict, cfg: ModelConfig,
                             mesh)
 
 
-def _parallel(params: dict, cfg: ModelConfig, mesh, device: torch.device):
+def _parallel(params: dict, cfg: ModelConfig, mesh, device: torch.device,
+              params_shape=None):
     """``(params, par)`` an engine serves: off a mesh the params as given
     and no context; on one this rank's shards, on ``device``, and its
     parallel context.  The whole tree is best given on the host: it is cut
-    where it lies, and only the shards go to the card."""
+    where it lies, and only the shards go to the card.  With
+    ``params_shape`` (the whole tree's shapes, e.g. on ``meta``) ``params``
+    already holds this rank's shards (``init_params(..., shard=)``), moved
+    to ``device`` as they are."""
     if mesh is None:
         return params, None
     if mesh.device_type != device.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot serve on "
                          f"{device}")
+    if params_shape is not None:
+        par = ParallelContext(cfg, mesh, params_shape)
+        return unflatten({p: t.to(device) for p, t in
+                          flatten(params).items()}), par
     par = ParallelContext(cfg, mesh, params)
     return shard_params(params, cfg, mesh, device=device), par
 
@@ -160,7 +169,7 @@ class ServeEngine:
                  prefill_chunk: int = 32, num_pages: Optional[int] = None,
                  prefix_cache: bool = True, compute_dtype=torch.float32,
                  device="cuda", verify_backend: str = "auto", recorder=None,
-                 mesh=None):
+                 mesh=None, params_shape=None):
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged decode path — serve it "
@@ -177,7 +186,8 @@ class ServeEngine:
         # on a ``data × model`` mesh (``launch/mesh.py``) the engine holds
         # this rank's shards, and every rank runs the same host schedule
         self.mesh = mesh
-        self.params, self.par = _parallel(params, cfg, mesh, self.device)
+        self.params, self.par = _parallel(params, cfg, mesh, self.device,
+                                          params_shape)
         self.max_batch = int(max_batch)
         self.max_len = max_len
         self.page_size = ps = int(page_size)
@@ -193,12 +203,14 @@ class ServeEngine:
         # page type
         self.kv_dtype = (torch.int8 if cfg.amm.enabled and cfg.amm.kv_int8
                          else compute_dtype)
-        # on a mesh every data rank keeps every page (ROADMAP C9), its kv
+        # on a mesh the pool is padded to the data degree and a rank holds
+        # its shard of the pages (JAX's paged_cache_shardings), its kv
         # heads those of its attention shard
         par = self.par
         self.kv = PagedKVCache(MD._acfg(cfg, par), num_pages=num_pages,
                                page_size=ps, dtype=self.kv_dtype,
-                               device=self.device, recorder=recorder)
+                               pad_to=1 if par is None else par.dp,
+                               device=self.device, recorder=recorder, par=par)
         self.sched = Scheduler(
             max_batch=self.max_batch, allocator=self.kv.allocator,
             page_size=ps, max_pages_per_seq=mp,
@@ -463,25 +475,33 @@ class ServeEngine:
                 finished.append(req)
 
 
+_KV_LEAF = re.compile(r"(^|/)(k|v|cross_k|cross_v)$")
+
+
 def _splice_slot(full: dict, one: dict, slot: int, slots: int,
-                 par=None, specs: Optional[dict] = None) -> None:
+                 par=None) -> None:
     """Copy a one-row prefill cache into row ``slot`` of the engine's
     cache, in place (the captured decode program reads these buffers):
     every leaf with a slot axis (``one.dim() >= 2 and full.shape[1] ==
     slots``, the JAX engine's rule), cast to the leaf's type.
 
-    On a mesh (``par``) both are in the layout the model computes on, and
-    ``specs`` holds each leaf's placement (``ParallelContext.cache_spec``):
-    a leaf whose slots split over ``data`` is written only by the data rank
-    that holds ``slot``, at its local row."""
+    On a mesh (``par``) ``one`` is in the layout the model computes on
+    (whole sequence) and ``full`` placed by ``par.place_cache``: a leaf
+    whose slots split over ``data`` is written only by the data rank that
+    holds ``slot``, at its local row, and a K/V leaf whose sequence is cut
+    takes this rank's slice of the prompt's."""
     ones = flatten(one)
     for path, f in flatten(full).items():
         o = ones[path]
-        if par is not None and specs[path][1:2] == ("data",):
-            n = slots // par.dp
-            if slot // n == par.dp_rank:
-                f[:, slot % n].copy_(o[:, 0].to(f.dtype))
-        elif o.dim() >= 2 and f.shape[1] == slots:
+        if par is not None:
+            if _KV_LEAF.search(path):
+                o = par.seq_slice(o, path)
+            if par.cache_specs[path][1:2] == ("data",) and par.dp > 1:
+                n = slots // par.dp
+                if slot // n == par.dp_rank:
+                    f[:, slot % n].copy_(o[:, 0].to(f.dtype))
+                continue
+        if o.dim() >= 2 and f.shape[1] == slots:
             f[:, slot].copy_(o[:, 0].to(f.dtype))
 
 
@@ -504,14 +524,15 @@ class FixedSlotEngine:
 
     def __init__(self, params: dict, cfg: ModelConfig, *, slots: int = 4,
                  max_len: int = 256, compute_dtype=torch.float32,
-                 device="cuda", recorder=None, mesh=None):
+                 device="cuda", recorder=None, mesh=None, params_shape=None):
         self.cfg = cfg
         self.slots = int(slots)
         self.max_len = max_len
         self.cd = compute_dtype
         self.device = resolve_device(device)
         self.mesh = mesh
-        self.params, self.par = _parallel(params, cfg, mesh, self.device)
+        self.params, self.par = _parallel(params, cfg, mesh, self.device,
+                                          params_shape)
         params, par = self.params, self.par
         # the same zero-overhead-off observability as ServeEngine (no
         # scheduler here, so the lifecycle hooks fire from the engine)
@@ -522,22 +543,20 @@ class FixedSlotEngine:
         self._uid = itertools.count()
         self._driver = None  # a server driver that owns the loop, if any
         self.stats = {"prefill_calls": 0, "decode_calls": 0}
-        self._cache_specs = None
         if par is None:
             self.cache = MD.init_cache(cfg, self.slots, max_len,
                                        compute_dtype, self.device)
         else:
-            # this rank's part, stored as the decode reads it: its slots
-            # and, under attention TP, its kv heads (ROADMAP C9)
-            shapes = flatten(MD.init_cache(cfg, self.slots, max_len,
-                                           compute_dtype, "meta"))
-            self._cache_specs = {p: par.cache_spec(p, t.shape, self.slots)
-                                 for p, t in shapes.items()}
+            # this rank's part, placed as JAX's cache_shardings places it
+            # (the sequence cut where the rule cuts it; Mamba state by its
+            # slots only, ROADMAP C9)
+            meta = MD.init_cache(cfg, self.slots, max_len, compute_dtype,
+                                 "meta")
+            specs = par.place_cache(meta, self.slots)
             self.cache = unflatten({
-                p: torch.zeros(local_shape(t.shape, self._cache_specs[p],
-                                           mesh),
+                p: torch.zeros(local_shape(t.shape, specs[p], mesh),
                                dtype=t.dtype, device=self.device)
-                for p, t in shapes.items()})
+                for p, t in flatten(meta).items()})
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
         cache, cd = self.cache, compute_dtype
@@ -710,8 +729,7 @@ class FixedSlotEngine:
                                      self.max_len, compute_dtype=self.cd,
                                      par=self.par)
             with torch.inference_mode():
-                _splice_slot(self.cache, one, slot, self.slots, self.par,
-                             self._cache_specs)
+                _splice_slot(self.cache, one, slot, self.slots, self.par)
                 self._prefill_logits.copy_(logits[0, -1:])
             del one
             self.stats["prefill_calls"] += 1

@@ -5,12 +5,23 @@ The allocator is host-side Python ported verbatim from
 ``repro.serving.kv_cache``; the buffers are torch tensors on the engine's
 device, updated in place (the model writes each step's K/V into them).
 
-Layout: one physical buffer per K and V, ``(L, P+1, page_size, n_kv,
-hd)``.  Physical pages ``0..P-1`` are allocatable; the **last** page is the
-*trash page* — scatter targets for padding tokens and for the batch rows
-that have no active request point there, so the batched gather/scatter never
-needs a dynamic shape or a branch.  Logical position ``t`` of a request
-lives at ``(page_table[t // page_size], t % page_size)``.
+Layout: one physical buffer per K and V, ``(L, P_total, page_size, n_kv,
+hd)`` with ``P_total = ceil((P+1) / pad_to) · pad_to``.  Physical pages
+``0..P-1`` are allocatable; the **last** page is the *trash page* —
+scatter targets for padding tokens and for the batch rows that have no
+active request point there, so the batched gather/scatter never needs a
+dynamic shape or a branch; the pages between are padding, never
+allocated.  Logical position ``t`` of a request lives at
+``(page_table[t // page_size], t % page_size)``.
+
+On a mesh with more than one data rank (``par``) the engine pads to the
+data degree and each rank holds its shard of the pages, JAX's
+``paged_cache_shardings``: the ``P_total / dp`` pages from ``rank ·
+P_total / dp`` on, plus one *write-sink* page of its own, where its writes
+to pages other ranks hold land (never read).  Page ids stay global, and
+the allocator hands out the ids it hands out on one device.  A
+copy-on-write clone between pages of two ranks and a swap-in to pages of
+other ranks than the swap-out's cross ranks through the mesh.
 
 The allocator is deliberately host-side and strict: double-frees and
 foreign pages raise ``PageError`` (the scheduler fuzz tests drive random
@@ -133,14 +144,18 @@ class PageAllocator:
 
 @dataclasses.dataclass
 class HostKV:
-    """Host-side copy of a swapped-out request's pages (k/v per layer)."""
+    """Host-side copy of a swapped-out request's pages (k/v per layer).
+    On a cut pool a rank copies the pages it holds: ``held`` lists their
+    positions among the ``total`` pages swapped."""
 
     k: torch.Tensor  # (L, n_pages, page_size, n_kv, hd), on the CPU
     v: torch.Tensor
+    held: Optional[List[int]] = None
+    total: Optional[int] = None
 
     @property
     def num_pages(self) -> int:
-        return int(self.k.shape[1])
+        return int(self.k.shape[1]) if self.total is None else self.total
 
 
 class PagedKVCache:
@@ -151,15 +166,19 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg: ModelConfig, *, num_pages: int, page_size: int,
-                 dtype=torch.float32, device="cuda",
-                 allocator: Optional[PageAllocator] = None, recorder=None):
+                 dtype=torch.float32, pad_to: int = 1, device="cuda",
+                 allocator: Optional[PageAllocator] = None, recorder=None,
+                 par=None):
         """``dtype`` is the page type (float, bfloat16, or int8 for the
         quantised cache).  ``cfg``'s kv-head count is the page's (a rank's
-        local heads under attention TP).  ``allocator`` shares another
-        cache's page pool: the speculative engine mirrors its target cache with a
-        draft cache of identical geometry, and one page id must address the
-        same logical slot in both (one page table, one scheduler, two
-        physical pools)."""
+        local heads under attention TP).  ``pad_to`` rounds the physical
+        page count up to a multiple (the engine passes the data degree).
+        ``allocator`` shares another cache's page pool: the speculative
+        engine mirrors its target cache with a draft cache of identical
+        geometry, and one page id must address the same logical slot in
+        both (one page table, one scheduler, two physical pools).  ``par``
+        (a ``ParallelContext`` with more than one data rank) keeps only
+        this rank's shard of the pages."""
         if not MD.supports_paged(cfg):
             raise ValueError(
                 f"family {cfg.family!r} has no paged KV layout")
@@ -173,10 +192,21 @@ class PagedKVCache:
         self.obs = recorder if recorder is not None else NULL_RECORDER
         self.allocator = allocator or PageAllocator(num_pages,
                                                     recorder=recorder)
-        # +1 physical page: the trash page is always the LAST one
-        self.trash = num_pages
+        # +1 physical page for the trash page, then the physical count up
+        # to a multiple of ``pad_to`` so the page axis divides the mesh;
+        # the trash page is always the LAST physical page
+        total = -(-(num_pages + 1) // pad_to) * pad_to
+        self.trash = total - 1
+        self.par = par if par is not None and par.pool_cut else None
+        if self.par is not None and total % self.par.dp:
+            raise ValueError(f"{total} physical pages do not cut over "
+                             f"{self.par.dp} data ranks (pad_to)")
+        # pages this rank holds (all of them off a cut pool); a cut pool's
+        # shard has one more, its write sink
+        self.held = total if self.par is None else total // self.par.dp
         self.buffers: Dict[str, torch.Tensor] = MD.init_paged_cache(
-            cfg, num_pages + 1, page_size, dtype, device)
+            cfg, self.held + (self.par is not None), page_size, dtype,
+            device)
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` cache rows."""
@@ -188,34 +218,70 @@ class PagedKVCache:
         row[: len(pages)] = pages
         return row
 
+    def _held(self, pages: List[int]):
+        """The pages of ``pages`` this rank holds (all of them off a cut
+        pool): their positions in ``pages`` and their local indices."""
+        if self.par is None:
+            return list(range(len(pages))), torch.as_tensor(
+                pages, dtype=torch.int64, device=self.buffers["k"].device)
+        placed = [self.par.pool_place(p, self.held) for p in pages]
+        pos = [i for i, (mine, _) in enumerate(placed) if mine]
+        return pos, torch.as_tensor([placed[i][1] for i in pos],
+                                    dtype=torch.int64,
+                                    device=self.buffers["k"].device)
+
     def clone_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate physical page ``src`` into ``dst``
-        (all layers, k and v), in place."""
-        for buf in self.buffers.values():
-            buf[:, dst] = buf[:, src]
+        (all layers, k and v), in place.  On a cut pool every rank calls
+        it (the host schedule is the same on every rank): the page goes
+        from the rank holding ``src`` to the one holding ``dst`` through a
+        bitwise sum over ``data`` (``ParallelContext.pool_sum``)."""
+        if self.par is None:
+            for buf in self.buffers.values():
+                buf[:, dst] = buf[:, src]
+        else:
+            mine_src, l_src = self.par.pool_place(src, self.held)
+            mine_dst, l_dst = self.par.pool_place(dst, self.held)
+            for buf in self.buffers.values():
+                page = self.par.pool_sum(
+                    buf[:, l_src] if mine_src else torch.zeros_like(
+                        buf[:, 0]), False)
+                if mine_dst:
+                    buf[:, l_dst] = page
         if self.obs:
             k = self.buffers["k"]
             self.obs.on_cow_clone(2 * k[:, 0].numel() * k.element_size())
 
     def gather_host(self, pages: List[int]) -> HostKV:
-        """Copy the given physical pages to host (swap-out)."""
-        idx = torch.as_tensor(pages, dtype=torch.int64,
-                              device=self.buffers["k"].device)
+        """Copy the given physical pages to host (swap-out): on a cut pool
+        those this rank holds."""
+        mine, idx = self._held(pages)
         host = HostKV(k=self.buffers["k"][:, idx].cpu(),
                       v=self.buffers["v"][:, idx].cpu())
+        if self.par is not None:
+            host.held, host.total = mine, len(pages)
         if self.obs:
             self.obs.on_swap_bytes("out", 2 * host.k.numel() * host.k.element_size())
         return host
 
     def scatter_host(self, host: HostKV, pages: List[int]) -> None:
-        """Write a host copy back into (newly allocated) pages (swap-in)."""
+        """Write a host copy back into (newly allocated) pages (swap-in).
+        On a cut pool every rank calls it: each puts the pages it copied
+        out into a device buffer of the swapped set, zeros elsewhere, the
+        buffers are summed over ``data`` bitwise, and each rank writes the
+        new pages it holds."""
         if len(pages) < host.num_pages:
             raise PageError(
                 f"swap-in needs {host.num_pages} pages, got {len(pages)}")
         if self.obs:
             self.obs.on_swap_bytes("in", 2 * host.k.numel() * host.k.element_size())
+        mine, idx = self._held(pages[: host.num_pages])
         for name, src in (("k", host.k), ("v", host.v)):
             buf = self.buffers[name]
-            idx = torch.as_tensor(pages[: host.num_pages], dtype=torch.int64,
-                                  device=buf.device)
-            buf[:, idx] = src.to(device=buf.device, dtype=buf.dtype)
+            src = src.to(device=buf.device, dtype=buf.dtype)
+            if self.par is not None:
+                whole = buf.new_zeros((buf.shape[0], host.total)
+                                      + tuple(buf.shape[2:]))
+                whole[:, host.held] = src
+                src = self.par.pool_sum(whole, False)[:, mine]
+            buf[:, idx] = src

@@ -8,13 +8,15 @@ cells (``launch/shapes.py``), the ``meta``-device dry-run
 * ``python -m repro_torch.launch.dryrun --smoke`` exits 0: the ten reduced
   configs × (train_4k, decode_32k) at 64 tokens × batch 4 on an abstract
   2×4 mesh.
-* Per-rank argument bytes of every full-width config's train_4k and
-  decode_32k cells on 16×16 and 2×16×16 equal the sum of
+* Per-rank argument bytes of every full-width config's train_4k,
+  prefill_32k and decode_32k cells on 16×16 and 2×16×16 equal the sum of
   ``NamedSharding.shard_shape`` bytes from ``jax.eval_shape`` and JAX's
   ``param_shardings`` / ``cache_shardings`` / ``batch_spec`` on an
-  ``AbstractMesh`` (``rule_argument_size_bytes``); the port's own bytes
-  equal them but for the fixed-slot cache, stored as the port computes on
-  it (ROADMAP C9).  No JAX mesh of devices is built (ROADMAP C3).
+  ``AbstractMesh`` (``rule_argument_size_bytes``), and so do the port's
+  own: a prefill computes its data rank's rows, and every decode cache
+  leaf holds JAX's shard but Mamba's SSM state and conv window, which the
+  port keeps whole over ``model`` (ROADMAP C9): those hold no less.  No
+  JAX mesh of devices is built (ROADMAP C3).
 * At 1×1 the dry-run's FLOPs equal ``FlopCounterMode`` over the plain
   single-device step, and equal the count stated from the code: every
   layer's products four times (forward, remat recompute, two backward
@@ -51,6 +53,7 @@ from repro_torch.analysis import cost as COST
 from repro_torch.analysis import roofline as TRF
 from repro_torch.convert import config_from_jax
 from repro_torch.device import MetaGenerator
+from repro_torch.distributed import sharding as TSH
 from repro_torch.distributed.sharding import AbstractMesh
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import shapes as TSHAPES
@@ -111,6 +114,15 @@ def _jax_bytes(shape_tree, sharding_tree, itemsizes=None) -> int:
                for a, s, n in zip(shapes, shardings, itemsizes))
 
 
+def _jax_leaf_bytes(shape_tree, sharding_tree) -> dict:
+    """Path → the bytes of a rank's shard of each leaf."""
+    shapes = jax.tree_util.tree_flatten_with_path(shape_tree)[0]
+    shardings = jax.tree.leaves(
+        sharding_tree, is_leaf=lambda x: isinstance(x, NamedSharding))
+    return {JSH._leaf_path(p): math.prod(s.shard_shape(tuple(a.shape)))
+            * a.dtype.itemsize for (p, a), s in zip(shapes, shardings)}
+
+
 def _jax_input_bytes(specs, jmesh) -> int:
     return sum(math.prod(NamedSharding(jmesh, P(*(
         JSH.batch_spec(jmesh, v.shape[0]) if v.ndim else ()))).shard_shape(
@@ -133,7 +145,7 @@ def test_argument_bytes_equal_jax_rules(arch):
         jcfg, dcell.global_batch, dcell.seq_len, jax.numpy.bfloat16))
     for shape, names in MESHES:
         jmesh, tmesh = JAbstractMesh(shape, names), AbstractMesh(shape, names)
-        for name in ("train_4k", "decode_32k"):
+        for name in ("train_4k", "prefill_32k", "decode_32k"):
             jcell, tcell = JSHAPES.SHAPES[name], TSHAPES.SHAPES[name]
             inputs = _jax_input_bytes(JSHAPES.input_specs(jcfg, jcell), jmesh)
             got = DR.cell_arguments(tcfg, tcell, tmesh,
@@ -152,13 +164,25 @@ def test_argument_bytes_equal_jax_rules(arch):
             # shapes at the port's bf16 item sizes
             params = _jax_bytes(jparams, JSH.param_shardings(jparams, jcfg,
                                                              jmesh), sizes)
-            cache = _jax_bytes(jcache, JSH.cache_shardings(
-                jcache, jcfg, jmesh, dcell.global_batch))
             assert held["params"] == params, (arch, shape)
-            assert got["rule"] == params + cache + inputs, (arch, shape)
-            # the port's cache (C9): the layout it computes on, never less
-            # than the rule's share
-            assert held["cache"] >= cache
+            if name == "prefill_32k":  # the rank's rows by batch_spec
+                assert got["rule"] == params + inputs, (arch, shape)
+                continue
+            cache = _jax_leaf_bytes(jcache, JSH.cache_shardings(
+                jcache, jcfg, jmesh, dcell.global_batch))
+            assert got["rule"] == params + sum(cache.values()) + inputs, (
+                arch, shape)
+            local = {p: COST.nbytes(t)
+                     for p, t in TSH.flatten(got["args"][3]).items()}
+            assert set(local) == set(cache)
+            assert held["cache"] == sum(local.values())
+            for p, n in local.items():
+                if "mamba/" in p:  # C9: whole over model, never less
+                    assert n >= cache[p], (arch, shape, p)
+                else:
+                    assert n == cache[p], (arch, shape, p)
+            if not any("mamba/" in p for p in local):
+                assert got["rule"] == sum(held.values()), (arch, shape)
 
 
 def _small_cell(kind="train"):

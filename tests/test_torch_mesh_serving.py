@@ -13,16 +13,39 @@ mesh shape in one spawn.
   bitwise.
 * Engines: the paged ``ServeEngine`` on 1×2, 2×1 and 2×2 (the dense tiny
   config of ``tests/sharded_check.py``, the same with int8 LUT-MU MLPs
-  whose sharded outputs are bitwise, and reduced mixtral), with an
-  eviction and a prefix hit; the ``FixedSlotEngine`` on 1×2 and 2×2
-  (dense, reduced mamba2, reduced jamba with LUT-MU).  Streams equal the
+  whose sharded outputs are bitwise over an int8 KV cache, and reduced
+  mixtral), with an eviction swap, a prefix hit and a
+  copy-on-write clone (on 2×1 and 2×2 both cross data ranks: the pool is
+  cut over ``data``); the ``FixedSlotEngine`` on 1×2 and 2×2 (dense,
+  reduced mamba2, reduced jamba with LUT-MU).  Streams equal the
   single-device port engine's, which ``test_torch_serving.py`` and
   ``test_torch_fixed_engine.py`` hold to JAX's; a float stream may leave
   it only where the single-device top-2 margin is within ``LOGIT_TOL``
   (the rule of ``test_torch_fixed_engine.py``).  Every rank's scheduler
   plans and page tables (fixed: slots and positions) equal the
   single-device engine's, step by step, and its params hold exactly the
-  bytes of its shards (``local_shape`` of every leaf).
+  bytes of its shards (``local_shape`` of every leaf).  Each rank's page
+  pool has the shape of its shard of the pool padded to the data degree
+  by JAX's ``paged_cache_shardings`` (plus its write-sink page when the
+  pool is cut).
+* The placed fixed-slot cache (JAX's ``cache_shardings``): the dense
+  tiny config's one kv head does not divide tp, so on 1×2 and 2×2 the
+  cache sequence is cut over ``model``; with one slot on 2×1 and 2×2 the
+  batch is below the data degree and the sequence is cut over ``data``
+  (2×2: ``data``·``model``).  Teacher-forced on the single-device
+  stream, every logit the sharded engine samples from is within
+  ``LOGIT_TOL`` of the single-device engine's, and each rank's cache
+  holds its shard's shape.
+* A multi-row ``make_prefill_step`` on 2×1: each rank computes half the
+  rows, and the logits equal the single-device step's within
+  ``FLOAT_TOL``.  Reduced whisper with one row on 2×1: its self- and
+  cross-attention caches' sequences cut over ``data``; prefill and 3
+  decode steps within ``LOGIT_TOL`` of one device's.
+* ``make_host_mesh`` on worlds of 2 and 4 against JAX's fallback rule;
+  ``launch.serve --mesh 2x2``: every rank draws its shards leaf by leaf
+  (the params' peak host bytes at most its shards plus one whole layer
+  and its shard, below the whole tree) and serves the streams served
+  without a mesh.
 * Refusals and launchers: ``SpeculativeEngine(mesh=…)`` and ``launch.serve
   --speculative --mesh`` with JAX's messages; ``make_serve_mesh`` on junk
   and on a world of the wrong size; ``launch.serve --mesh 1x1`` serves the
@@ -43,7 +66,9 @@ LOGIT_TOL = 1e-4
 FLOAT_TOL = 1e-5        # float32 sums of ≤ 8 codebook or k expert terms,
                         # reassociated across ranks
 LUT_SHAPE = dict(b=16, c=8, n=32, depth=3, d_sub=4)
-PROMPTS = [list(range(1, 13)), list(range(1, 13)) + [13, 14],
+# the second prompt shares two pages and part of a third with the first: a
+# prefix hit and a copy-on-write clone
+PROMPTS = [list(range(1, 13)), list(range(1, 11)) + [30, 31],
            [20, 21, 22, 23, 24, 25, 26, 27, 28, 29], [5, 6], [9, 9, 9, 2]]
 MAX_NEW = 8
 
@@ -67,10 +92,12 @@ def _rank(rank, world, spec, init, out, checks):
     from repro_torch.launch.mesh import make_serve_mesh
     mesh = make_serve_mesh(spec, "cpu", init_method=init, rank=rank,
                            world_size=world)
+    # the launcher's check runs last: it leaves the process group
     res = {name: _CHECKS[name](mesh) for name in checks}
     torch.save(res, f"{out}/rank{rank}.pt")
-    dist.barrier()
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def _lut_inputs(int8: bool, c: int, seed: int = 0):
@@ -195,8 +222,12 @@ def _tiny_cfg(amm: bool):
 
 def _family_cfg(name: str):
     from repro_torch.configs import get_config
-    if name in ("dense", "amm"):
-        return _tiny_cfg(name == "amm")
+    if name == "dense":
+        return _tiny_cfg(False)
+    if name == "int8kv":  # int8 LUT-MU MLPs over an int8 KV cache
+        cfg = _tiny_cfg(True)
+        return dataclasses.replace(cfg, amm=dataclasses.replace(
+            cfg.amm, kv_int8=True))
     if name == "moe":
         return _moe_cfg()
     cfg = get_config(name, reduced=True)
@@ -207,11 +238,12 @@ def _family_cfg(name: str):
     return cfg
 
 
-def _record(engine, paged: bool):
+def _record(engine, paged: bool, force=None):
     """Log each step's decisions: the scheduler's plan and every live
     request's pages (paged), or the slots and positions (fixed); and each
-    request's top-2 logit margin at every token it samples."""
-    log, margins = [], {}
+    request's top-2 logit margin and logits at every token it samples.
+    ``force`` (uid → stream) teacher-forces the tokens sampled."""
+    log, margins, logits_of = [], {}, {}
     sample = engine._sample
 
     def _sample(logits, rows_reqs, program):
@@ -219,7 +251,12 @@ def _record(engine, paged: bool):
         for row, req in rows_reqs:
             margins.setdefault(req.uid, []).append(
                 float(top[row, 0] - top[row, 1]))
-        return sample(logits, rows_reqs, program)
+            logits_of.setdefault(req.uid, []).append(logits[row].clone())
+        out = sample(logits, rows_reqs, program)
+        if force is not None:
+            for row, req in rows_reqs:
+                out[row] = force[req.uid][len(req.generated)]
+        return out
 
     engine._sample = _sample
     if paged:
@@ -250,15 +287,16 @@ def _record(engine, paged: bool):
             return done
 
         engine.step = _step
-    return log, margins
+    return log, margins, logits_of
 
 
-def _serve(engine, paged: bool):
-    log, margins = _record(engine, paged)
+def _serve(engine, paged: bool, force=None):
+    log, margins, logits_of = _record(engine, paged, force)
     hs = [engine.submit(p, max_new_tokens=MAX_NEW) for p in PROMPTS]
     engine.run_until_drained()
     return dict(streams=[list(h._req.generated) for h in hs], log=log,
-                margins=[margins.get(h._req.uid, []) for h in hs])
+                margins=[margins.get(h._req.uid, []) for h in hs],
+                logits=[torch.stack(logits_of[h._req.uid]) for h in hs])
 
 
 def _engine_cases(mesh, cases):
@@ -271,20 +309,29 @@ def _engine_cases(mesh, cases):
         cfg = _family_cfg(name)
         params = MD.init_params(cfg, torch.Generator().manual_seed(0),
                                 serving=True)
-        if kind == "paged":
-            # a pool of 6 pages of 4 for 2 rows: evictions; the second
-            # prompt extends the first: a prefix hit
+        paged = kind == "paged"
+        if paged:
+            # a pool of 6 pages of 4 for 2 rows: evictions; the prompts
+            # share pages: a prefix hit and a copy-on-write clone
             kw = dict(max_batch=2, max_len=32, page_size=4, prefill_chunk=8,
                       num_pages=6)
             make = ServeEngine
         else:
-            kw = dict(slots=2, max_len=32)
+            # "fixed1": one slot, a batch below a data degree of 2
+            kw = dict(slots=1 if kind == "fixed1" else 2, max_len=32)
             make = FixedSlotEngine
+        # the dense fixed cases teacher-force the single-device stream
+        forced = not paged and name == "dense"
         got = []
         for m in (None, mesh):
             engine = make(params, cfg, device="cpu", mesh=m, **kw)
-            got.append(dict(_serve(engine, kind == "paged"),
-                            param_bytes=_bytes(engine.params)))
+            force = ({i: s for i, s in enumerate(got[0]["streams"])}
+                     if forced and m is not None else None)
+            res = dict(_serve(engine, paged, force), forced=forced,
+                       param_bytes=_bytes(engine.params))
+            if m is not None:
+                res.update(_placement(engine, paged))
+            got.append(res)
         # what this rank's shards of the whole tree hold
         specs = flatten(param_shardings(params, cfg, mesh))
         got[1]["shard_bytes"] = sum(
@@ -292,6 +339,36 @@ def _engine_cases(mesh, cases):
             for p, t in flatten(params).items())
         out[(kind, name)] = got
     return out
+
+
+def _placement(engine, paged: bool) -> dict:
+    """What a rank holds of the serving state: the pool's shape and its
+    trash page, or each fixed cache leaf's shape beside the shard shape
+    JAX's ``cache_shardings`` gives it (Mamba leaves: its slots only)."""
+    from repro_torch.distributed.sharding import (cache_shardings, flatten,
+                                                  local_shape)
+    from repro_torch.models import model as MD
+    if paged:
+        return dict(pool=tuple(engine.kv.buffers["k"].shape),
+                    trash=engine.kv.trash, dp=engine.par.dp,
+                    tp=engine.par.tp, kv_heads=engine.cfg.num_kv_heads,
+                    attn_tp=engine.par.attn_tp)
+    meta = MD.init_cache(engine.cfg, engine.slots, engine.max_len,
+                         engine.cd, "meta")
+    rule = flatten(cache_shardings(meta, engine.cfg, engine.mesh,
+                                   engine.slots))
+    held, want = {}, {}
+    for p, t in flatten(engine.cache).items():
+        held[p] = tuple(t.shape)
+        spec = rule[p]
+        if "mamba/" in p:
+            spec = tuple(e if e is not None and "model" not in
+                         ((e,) if isinstance(e, str) else e) else None
+                         for e in spec)
+        want[p] = local_shape(flatten(meta)[p].shape, spec, engine.mesh)
+    return dict(cache=held, cache_rule=want,
+                seq_cut={p: engine.par.seq_split(p) for p in held
+                         if p.endswith("/k") or p == "k"})
 
 
 def _bytes(tree) -> int:
@@ -321,13 +398,125 @@ def _check_amm_mlp(mesh):
 
 
 def _check_paged(mesh):
-    return _engine_cases(mesh, [("paged", "dense"), ("paged", "amm"),
+    return _engine_cases(mesh, [("paged", "dense"), ("paged", "int8kv"),
                                 ("paged", "moe")])
 
 
 def _check_fixed(mesh):
     return _engine_cases(mesh, [("fixed", "dense"), ("fixed", "mamba2-370m"),
                                 ("fixed", "jamba-1.5-large-398b")])
+
+
+def _check_fixed1(mesh):
+    return _engine_cases(mesh, [("fixed1", "dense")])
+
+
+def _check_prefill(mesh):
+    """A 4-row ``make_prefill_step`` on the mesh and on one device."""
+    from repro_torch.distributed.sharding import (ParallelContext,
+                                                  shard_params)
+    from repro_torch.models import model as MD
+    from repro_torch.runtime.steps import make_prefill_step
+    cfg = _tiny_cfg(False)
+    params = MD.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 6)).astype(np.int32))
+    par = ParallelContext(cfg, mesh, params)
+    logits, cache = make_prefill_step(cfg, 16, torch.float32, par=par)(
+        shard_params(params, cfg, mesh), {"tokens": tokens})
+    want, _ = make_prefill_step(cfg, 16, torch.float32)(
+        params, {"tokens": tokens})
+    return dict(logits=logits, want=want, rows=cache["k"].shape[1],
+                dp=par.dp)
+
+
+def _check_encdec(mesh):
+    """Reduced whisper, one row (below the data degree: its self- and
+    cross-attention caches' sequences cut over ``data``): prefill, the
+    one-row cache spliced into the placed cache, then 3 decode steps, on
+    the mesh and on one device; the logits of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (ParallelContext, flatten,
+                                                  local_shape, shard_params,
+                                                  unflatten)
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import _splice_slot
+    cfg = get_config("whisper-tiny", reduced=True)
+    params = MD.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.normal(size=(
+        1, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32))
+    tokens = torch.tensor([[3, 1, 4, 1]])
+    par = ParallelContext(cfg, mesh, params)
+    meta = MD.init_cache(cfg, 1, 16, torch.float32, "meta")
+    specs = par.place_cache(meta, 1)
+    out = {"cut": {p: par.seq_split(p) for p in ("k", "cross_k")}}
+    for name, p, pc in (("want", params, None),
+                        ("got", shard_params(params, cfg, mesh), par)):
+        _, one = MD.prefill(p, tokens, cfg, 16, extra_embeds=frames,
+                            compute_dtype=torch.float32, par=pc)
+        if pc is None:
+            cache = one
+        else:
+            cache = unflatten({k: torch.zeros(local_shape(t.shape, specs[k],
+                                                          mesh))
+                               for k, t in flatten(meta).items()})
+            _splice_slot(cache, one, 0, 1, pc)
+        out[name] = [MD.decode_step(p, torch.tensor([[t]]),
+                                    torch.tensor([4 + i]), cache, cfg,
+                                    compute_dtype=torch.float32, par=pc)
+                     for i, t in enumerate((5, 9, 2))]
+    return out
+
+
+def _check_host_mesh(mesh):
+    """``make_host_mesh`` at shapes that fit the world, exceed it, and
+    take part of it: (shape, whether this rank has a coordinate)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    for data, model in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 2), (8, 1)):
+        m = make_host_mesh(data, model)
+        out[(data, model)] = (tuple(m.mesh.shape), m.mesh_dim_names,
+                              m.get_coordinate() is not None)
+    return out
+
+
+def _check_serve_cli(mesh):
+    """``launch.serve --mesh`` of this spawn's shape: the params' peak
+    host bytes while they are drawn (live storages, ``analysis.cost``'s
+    ``OpBytes``), the bytes kept, and rank 0's request lines.  The
+    launcher leaves the process group at its end."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.cost import OpBytes, tree_bytes
+    from repro_torch.device import MetaGenerator
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MD
+    draws = []
+    orig = MD.init_params
+
+    def spy(cfg, gen, *a, **kw):
+        if isinstance(gen, MetaGenerator):
+            return orig(cfg, gen, *a, **kw)
+        with OpBytes() as ob:
+            out = orig(cfg, gen, *a, **kw)
+        draws.append(dict(peak=ob.peak, kept=tree_bytes(out),
+                          sharded=kw.get("shard") is not None))
+        return out
+
+    shape = "x".join(str(n) for n in mesh.mesh.shape)
+    buf = io.StringIO()
+    MD.init_params = spy
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--arch", "qwen3-14b", "--reduced", "--amm",
+                        "--device", "cpu", "--requests", "2", "--max-new",
+                        "4", "--mesh", shape])
+    finally:
+        MD.init_params = orig
+    return dict(draws=draws, lines=[ln for ln in buf.getvalue().splitlines()
+                                    if ln.strip().startswith("req")])
 
 
 def _check_refusal(mesh):
@@ -343,7 +532,10 @@ def _check_refusal(mesh):
 
 
 _CHECKS = {"lutmu": _check_lutmu, "moe": _check_moe, "paged": _check_paged,
-           "fixed": _check_fixed, "amm_mlp": _check_amm_mlp,
+           "fixed": _check_fixed, "fixed1": _check_fixed1,
+           "encdec": _check_encdec,
+           "prefill": _check_prefill, "host_mesh": _check_host_mesh,
+           "serve_cli": _check_serve_cli, "amm_mlp": _check_amm_mlp,
            "refusal": _check_refusal}
 
 
@@ -410,6 +602,34 @@ def _hold_moe(ranks, experts):
             assert torch.equal(r["inv"].to(torch.int64), want)
 
 
+def _jax_cfg(name: str):
+    """The JAX config with the pool geometry of ``_family_cfg(name)``."""
+    from repro.configs import get_config
+    cfg = _family_cfg(name)
+    arch = "mixtral-8x7b" if name == "moe" else "qwen3-14b"
+    return dataclasses.replace(
+        get_config(arch, reduced=True), num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, d_model=cfg.d_model)
+
+
+def _jax_pool_shard(name: str, dp: int, tp: int, num_pages=6, ps=4):
+    """``(physical pages, a rank's K shard shape)`` of the pool padded to
+    the data degree, by JAX's ``PagedKVCache(pad_to=)`` arithmetic and
+    ``paged_cache_shardings``."""
+    import jax
+    from jax.sharding import AbstractMesh as JAbstractMesh
+
+    from repro.distributed import sharding as JSH
+    from repro.models import model as JMD
+    jcfg = _jax_cfg(name)
+    total = -(-(num_pages + 1) // dp) * dp
+    pool = jax.eval_shape(lambda: JMD.init_paged_cache(jcfg, total, ps))
+    sh = JSH.paged_cache_shardings(pool, jcfg, JAbstractMesh(
+        (dp, tp), ("data", "model")))["k"]
+    return total, tuple(sh.shard_shape(tuple(pool["k"].shape)))
+
+
 def _hold_engines(ranks, key):
     for res in ranks:
         for (kind, name), (single, sharded) in res[key].items():
@@ -418,6 +638,12 @@ def _hold_engines(ranks, key):
             assert sharded["param_bytes"] == sharded["shard_bytes"], (
                 kind, name)
             assert sharded["param_bytes"] < single["param_bytes"], (kind, name)
+            if sharded["forced"]:
+                # teacher-forced: every logit sampled from, token by token
+                assert sharded["streams"] == single["streams"]
+                for want, got in zip(single["logits"], sharded["logits"]):
+                    torch.testing.assert_close(got, want, rtol=0,
+                                               atol=LOGIT_TOL)
             for want, got, margin in zip(single["streams"],
                                          sharded["streams"],
                                          single["margins"]):
@@ -427,43 +653,136 @@ def _hold_engines(ranks, key):
                           if a != b)
                 assert margin[at] <= LOGIT_TOL, (kind, name, at, margin[at])
             if kind == "paged":
-                log = single["log"]
-                assert any(step[2] for step in log), "no eviction"
-                assert any(step[0] is not None and step[0][1] > 0
-                           and step[0][0] == 1 for step in log[:6]), \
-                    "no prefix hit"
+                _hold_pool(single["log"], sharded, name)
+            else:
+                assert sharded["cache"] == sharded["cache_rule"], (kind, name)
+
+
+def _hold_pool(log, sharded, name):
+    """The schedule swaps, hits a prefix and clones a page (across data
+    ranks on a cut pool); each rank holds its shard of the padded pool."""
+    dp = sharded["dp"]
+    total, shard = _jax_pool_shard(name, dp, sharded["tp"])
+    sink = 1 if dp > 1 else 0
+    assert sharded["pool"] == (shard[0], shard[1] + sink) + shard[2:], name
+    assert sharded["trash"] == total - 1
+    assert any(step[2] for step in log), "no eviction"
+    assert any(step[3] for step in log), "no swap-in"
+    assert any(step[0] is not None and step[0][1] > 0
+               and step[0][0] == 1 for step in log[:6]), "no prefix hit"
+    clones = [c for step in log for c in step[4]]
+    assert clones, "no copy-on-write clone"
+    if dp > 1:
+        held = total // dp
+        assert any(src // held != dst // held for src, dst in clones), (
+            "no clone across data ranks")
+
+
+def _hold_seq_cut(ranks, key, axes):
+    """The dense fixed case's K leaf is cut over ``axes``; over the whole
+    world each rank's shard is its rank (row-major, as JAX orders it)."""
+    for rank, res in enumerate(ranks):
+        (_, sharded), = [v for (kind, name), v in res[key].items()
+                         if name == "dense"]
+        got = sharded["seq_cut"]["k"]
+        assert got is not None and got[0] == axes, got
+        if axes == ("data", "model"):
+            assert got[1] == rank
+
+
+def _hold_host_mesh(ranks, world):
+    """``make_host_mesh`` against JAX's rule on a JAX of ``world`` host
+    devices (``jax.devices`` and ``jax.make_mesh`` stubbed in
+    ``repro.launch.mesh``)."""
+    import repro.launch.mesh as JM
+    with pytest.MonkeyPatch.context() as mp_:
+        mp_.setattr(JM.jax, "devices", lambda: list(range(world)))
+        mp_.setattr(JM.jax, "make_mesh",
+                    lambda shape, axes: (tuple(shape), tuple(axes)))
+        for (data, model) in ranks[0]["host_mesh"]:
+            want = JM.make_host_mesh(data, model)
+            for rank, res in enumerate(ranks):
+                shape, names, coord = res["host_mesh"][(data, model)]
+                assert (shape, names) == want, (data, model)
+                assert coord == (rank < math.prod(shape)), (data, model)
+
+
+def _hold_serve_cli(ranks, plain):
+    """Every rank drew its shards, leaf by leaf: the params' peak host
+    bytes at most the kept shards plus one whole layer and its shard (the
+    layer drawn, then cut), below the whole tree; rank 0 served the
+    streams served without a mesh."""
+    from repro_torch.analysis.cost import tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.device import MetaGenerator
+    from repro_torch.models import model as MD
+    cfg = get_config("qwen3-14b", reduced=True)
+    cfg = dataclasses.replace(cfg, amm=dataclasses.replace(cfg.amm,
+                                                           enabled=True))
+    whole = MD.init_params(cfg, MetaGenerator(), serving=True)
+    layer = tree_bytes(whole["layers"]) // cfg.num_layers
+    for res in ranks:
+        (draw,) = res["serve_cli"]["draws"]
+        assert draw["sharded"]
+        assert draw["kept"] < tree_bytes(whole)
+        assert draw["peak"] <= draw["kept"] + 2 * layer, draw
+        assert draw["peak"] < tree_bytes(whole), draw
+    assert ranks[0]["serve_cli"]["lines"] == plain
 
 
 def test_mesh_1x2(tmp_path):
     ranks = _spawn(tmp_path, "1x2", ["lutmu", "moe", "paged", "fixed",
-                                     "amm_mlp", "refusal"])
+                                     "amm_mlp", "host_mesh", "refusal"])
     _hold_lutmu(ranks, "1x2")
     _hold_moe(ranks, (4, 3))
     _hold_engines(ranks, "paged")
     _hold_engines(ranks, "fixed")
+    _hold_seq_cut(ranks, "fixed", ("model",))
     assert all(r["amm_mlp"] for r in ranks)
     from repro.serving.speculative import SpeculativeEngine as JSpec
     with pytest.raises(NotImplementedError) as e:
         JSpec(None, None, None, mesh="a mesh")
     assert all(r["refusal"] == str(e.value) for r in ranks)
+    _hold_host_mesh(ranks, 2)
 
 
-def test_mesh_2x2(tmp_path):
+def test_mesh_2x2(tmp_path, capsys):
     ranks = _spawn(tmp_path, "2x2", ["lutmu", "moe", "paged", "fixed",
-                                     "amm_mlp"])
+                                     "fixed1", "amm_mlp", "serve_cli"])
     _hold_lutmu(ranks, "2x2")
     _hold_moe(ranks, (4, 3))
     _hold_engines(ranks, "paged")
     _hold_engines(ranks, "fixed")
+    _hold_engines(ranks, "fixed1")
+    _hold_seq_cut(ranks, "fixed", ("model",))
+    _hold_seq_cut(ranks, "fixed1", ("data", "model"))
     assert all(r["amm_mlp"] for r in ranks)
+    _hold_serve_cli(ranks, _serve_cli(capsys))
 
 
 def test_mesh_2x1(tmp_path):
-    _hold_engines(_spawn(tmp_path, "2x1", ["paged"]), "paged")
+    ranks = _spawn(tmp_path, "2x1", ["paged", "fixed1", "prefill", "encdec"])
+    _hold_engines(ranks, "paged")
+    _hold_engines(ranks, "fixed1")
+    _hold_seq_cut(ranks, "fixed1", ("data",))
+    for rank, r in enumerate(ranks):
+        # both of whisper's caches cut over data, this rank's half each
+        assert r["encdec"]["cut"] == {"k": (("data",), rank),
+                                      "cross_k": (("data",), rank)}
+        for got, want in zip(r["encdec"]["got"], r["encdec"]["want"]):
+            torch.testing.assert_close(got, want, rtol=0, atol=LOGIT_TOL)
+    for r in ranks:
+        # each rank computed half of the 4 rows; the logits are all 4
+        assert r["prefill"]["dp"] == 2 and r["prefill"]["rows"] == 2
+        torch.testing.assert_close(r["prefill"]["logits"],
+                                   r["prefill"]["want"], rtol=FLOAT_TOL,
+                                   atol=FLOAT_TOL)
 
 
 def test_mesh_1x4(tmp_path):
-    _hold_lutmu(_spawn(tmp_path, "1x4", ["lutmu"]), "1x4")
+    ranks = _spawn(tmp_path, "1x4", ["lutmu", "host_mesh"])
+    _hold_lutmu(ranks, "1x4")
+    _hold_host_mesh(ranks, 4)
 
 
 # ---------------------------------------------------------------------------
