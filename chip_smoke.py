@@ -241,6 +241,32 @@ Phases, each fatal on failure:
     on the host in a process of its own (started after (a)): per-rank
     GiB against 80, FLOPs, collective bytes, the roofline's bound.
 
+28. mamba-tp — (after 25 (b)-(e)) tensor parallelism inside the Mamba
+    block: (a) mamba2-370m at full width and depth, bf16, through the
+    fixed engine on a 1×1 NCCL mesh (the block's stages and collectives
+    at tp 1): streams equal 25 (b)'s, 3+ decode replays bit-equal to
+    eager ``decode_step(..., par=)``, 146 collectives a decode step; tok/s,
+    graph nodes, the decode replay's ms and an 8-token eager prefill
+    through the mesh and without it, beside 25 (b)'s; then reduced jamba
+    with LUT-MU on the mesh: 25 (e)'s streams, ``fused_lutmu`` 3 launches
+    per dense layer per forward, replays bit-equal; (b) one full-width
+    mamba2-370m layer and one full-width jamba Mamba layer cut for tp 2,
+    4, 8 and 16 (``shard_params`` on an abstract mesh, rank by rank), the
+    ranks' stages chained in rank order (``mamba_forward_split`` /
+    ``mamba_decode_split``): a 2,048-token prefill and 3 decode steps of
+    8 rows against the whole block, float32 within ``MTP_F32_REL``
+    (the prefill's outputs ``MTP_F32_SSD_REL``) and bf16 within the whole
+    bf16 block's own distance plus ``MTP_BF16_STEP`` a rounding the split
+    adds; each rank's state bytes exactly whole/tp; rank 0's bf16 decode
+    step alone (``RankAlone``) and the whole block's, each one replayed
+    CUDA graph (CUDA events, L2 flushed), in turns, beside bytes ÷ 3.35
+    TB/s; (c) the 4-layer full-width mamba2-370m train step, bf16
+    compute, two steps through the 1×1 mesh beside one device under
+    deterministic algorithms: losses and state bitwise; ms per step;
+    (d) the 16×16 dry-run of mamba2-370m and jamba (host processes of
+    their own, at the lowest priority, started with 27 (c)'s): per-rank
+    arguments equal to JAX's rule, beside the figures before Mamba TP.
+
 The line before the last is ``{"kernels": [...]}`` (the ``fused_lutmu``
 and ``verify_window`` entries also carry the heuristic and measured plans
 and their ms at their reported case; the LUT-MU entries their ResNet-9
@@ -2754,24 +2780,40 @@ def train_phase(torch):
 # ---------------------------------------------------------------------------
 
 DRYRUN_ARCH = "qwen3-14b"      # the 16x16 dry-run's cells, run on the host
+# phase 28 (d)'s: the Mamba families' cells on 16x16
+DRYRUN_MAMBA_ARCHS = ("mamba2-370m", "jamba-1.5-large-398b")
 # its per-rank GiB before the serving state was placed by the JAX rules
 # (recorded in PERF.md §6)
 DRYRUN_BEFORE = {"train_4k": 110.32, "prefill_32k": 873.89,
                  "decode_32k": 41.65}
 
 
-def start_dryrun():
-    """``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH --force``
-    (its cells on 16x16, written to ``dryrun_results_torch/`` in the
-    checkout), in a process of its own on the host (CPU only; started
-    after phase 27 (a)'s timed steps, it overlaps 27 (b)-(c), which time
-    nothing on the host clock).  The caller ends it."""
+def start_dryrun(arch: str = DRYRUN_ARCH):
+    """``python -m repro_torch.launch.dryrun --arch ARCH --force`` (its
+    cells on 16x16, written to ``dryrun_results_torch/`` in the checkout),
+    in a process of its own on the host (CPU only; started after phase 27
+    (a)'s timed steps, one process per arch, one thread each).  The caller
+    ends it."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
+    # at the lowest priority, so the phases timed meanwhile keep the host
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DRYRUN_ARCH, "--force"], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+         arch, "--force"], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(19))
+
+
+def end_dryrun(proc, timeout: float) -> str:
+    """Wait for a ``start_dryrun`` process (killing it after ``timeout``
+    seconds); its log.  Fails if it failed."""
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    ensure(proc.returncode == 0, f"a 16x16 dry-run failed:\n{log[-3000:]}")
+    return log
 
 
 def mesh_train_phase(torch, p24, smi, dry):
@@ -2785,7 +2827,8 @@ def mesh_train_phase(torch, p24, smi, dry):
     (a)'s cell on an abstract 1x1 mesh: its argument bytes equal the live
     state's, its FLOPs over (a)'s step time; the 16x16 cells of
     ``DRYRUN_ARCH`` from the host process (``start_dryrun``, kept in
-    ``dry["proc"]`` for the caller to end) started after (a)."""
+    ``dry["proc"]``) started after (a), beside phase 28 (d)'s (kept in
+    ``dry`` by arch for phase 28; the caller ends what is left)."""
     from repro_torch import pytree as T
     from repro_torch.analysis import roofline as RF
     from repro_torch.checkpoint import restore_into
@@ -2850,7 +2893,10 @@ def mesh_train_phase(torch, p24, smi, dry):
               f"tokens/s, {p24['peak_gb']:.2f} GB, and run again after the "
               f"mesh {again_ms:.1f} ms/step (its losses bitwise phase 24's); "
               f"collectives a step {per_step}", flush=True)
-        dry["proc"] = start_dryrun()  # after every timed step
+        # after every timed step: qwen3-14b's cells, and phase 28 (d)'s
+        dry["proc"] = start_dryrun()
+        for arch in DRYRUN_MAMBA_ARCHS:
+            dry[arch] = start_dryrun(arch)
 
         # (b) the reduced Trainer on the mesh
         rcfg = get_config("qwen3-14b", reduced=True)
@@ -2917,14 +2963,7 @@ def mesh_train_phase(torch, p24, smi, dry):
           f"{rec['flops_per_device']:.4e} FLOPs a step over {step_ms:.1f} ms "
           f"= {tflops:.1f} TFLOP/s, {100 * tflops / 989:.1f} % of 989 "
           f"(bf16 dense peak) on {smi}", flush=True)
-    proc = dry["proc"]
-    try:
-        log, _ = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    ensure(proc.returncode == 0, f"the 16x16 dry-run failed:\n{log[-3000:]}")
+    end_dryrun(dry.pop("proc"), 300)
     for f in sorted(DR.RESULTS_DIR.glob(f"{DRYRUN_ARCH}__*__16x16.json")):
         r = json.loads(f.read_text())
         terms = RF.roofline_terms(r)
@@ -3170,7 +3209,9 @@ def fixed_qwen_phase(torch, cfg, params, MD, load_engine, FL, dispatch,
 
 
 def mamba_phase(torch, MD, MB, ES, load_engine, get_config):
-    """(b) mamba2-370m at full width and depth through the fixed engine."""
+    """(b) mamba2-370m at full width and depth through the fixed engine.
+    Returns its streams, tok/s and graph nodes (phase 28 (a) serves them
+    again on a mesh)."""
     cfg = get_config("mamba2-370m")
     params = MD.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
                             torch.bfloat16)
@@ -3188,6 +3229,9 @@ def mamba_phase(torch, MD, MB, ES, load_engine, get_config):
           f"{differ} of 6 streams differ from each request served alone "
           f"(eager prefill + decode_step); {step_ms(torch, engine, MD)}",
           flush=True)
+    n_tok = sum(len(h.generated) for h in handles)
+    served = {"streams": [list(h.generated) for h in handles],
+              "tok_s": n_tok / dt, "graph_nodes": engine.stats["graph_nodes"]}
     n = check_replays(torch, engine, MD, "mamba2")
     del engine
     # the chunked SSD over 2,048 tokens against the recurrence, layer 0 in
@@ -3210,6 +3254,7 @@ def mamba_phase(torch, MD, MB, ES, load_engine, get_config):
           f"max |state| ssm {rel['ssm']:.2e}, conv {rel['conv']:.2e} "
           f"(tolerance {SSD_STATE_TOL})", flush=True)
     del params
+    return served
 
 
 def _leaves(tree):
@@ -3370,7 +3415,7 @@ def jamba_phase(torch, MD, FL, dispatch, load_engine, get_config):
     width is ≈ 90 GB in bf16: the MoE layers alone ≈ 77 GB) with LUT-MU
     serving params through the fixed engine: ``fused_lutmu`` 3 launches
     per dense layer per forward, decode replays bit-equal to eager.
-    Returns its fused_lutmu launches."""
+    Returns its fused_lutmu launches and streams."""
     cfg = get_config("jamba-1.5-large-398b", reduced=True)
     cfg = dataclasses.replace(cfg, amm=dataclasses.replace(
         cfg.amm, enabled=True, backend="auto"))
@@ -3398,25 +3443,28 @@ def jamba_phase(torch, MD, FL, dispatch, load_engine, get_config):
           f"card: one 8-layer period is ≈ {JAMBA_FULL_PERIOD_GB} GB in bf16 "
           f"(4 MoE layers of 16 x 3 x 8192 x 24576 ≈ 77 GB), so it waits "
           f"for multi-device serving (ROADMAP A11)", flush=True)
+    streams = [list(h.generated) for h in handles]
     del engine, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, streams
 
 
 def families_phase(torch, mods, load_engine, get_config):
     """(b)-(e) of phase 25 (and the MoE part of 26 (a)); returns the jamba
-    fused_lutmu launches."""
+    fused_lutmu launches, and what (b) and (e) served."""
     MD, MB, MOE, ES, ST, FL, dispatch = mods
     t0 = time.perf_counter()
-    mamba_phase(torch, MD, MB, ES, load_engine, get_config)
+    mamba = mamba_phase(torch, MD, MB, ES, load_engine, get_config)
     gc.collect()
     moe_phase(torch, MD, MOE, load_engine, get_config, on_mesh=True)
     gc.collect()
     teacher_phase(torch, MD, ST, get_config)
-    launches = jamba_phase(torch, MD, FL, dispatch, load_engine, get_config)
+    launches, jamba = jamba_phase(torch, MD, FL, dispatch, load_engine,
+                                  get_config)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"fused_lutmu": launches, "s": time.perf_counter() - t0}
+    return {"fused_lutmu": launches, "s": time.perf_counter() - t0,
+            "mamba": mamba, "jamba": jamba}
 
 
 # ---------------------------------------------------------------------------
@@ -3715,6 +3763,510 @@ def shard_kernel_phase(torch, timer, mods):
           f"{FLOAT_RTOL}/{FLOAT_ATOL}, fused and encode + aggregate; "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return out
+
+# ---------------------------------------------------------------------------
+# phase 28: tensor parallelism inside the Mamba block
+# ---------------------------------------------------------------------------
+
+MTP_DEGREES = (2, 4, 8, 16)    # (b)'s simulated model ranks
+MTP_SLOTS = 8                  # (b)'s decode rows (decode_32k's per data rank)
+MTP_TOKENS = 2048              # (b)'s prefill
+MTP_STEPS = 3                  # (b)'s decode steps
+# (b) float32: the split regroups three sums over the ranks (the norm's
+# mean of squares, the out projection's d_inner rows, the narrower
+# products' blocking), each a sum of at most d_inner = 16,384 terms of
+# random sign: a regrouping moves it by ≈ √K · 2^-24 ≈ 7.6e-6 of its
+# terms' magnitude, within a few times its own size; 1e-4 of max |out|
+# leaves a margin of 10, where a misplaced slice moves it by O(1)
+MTP_F32_REL = 1e-4
+# ... but the SSD rounds its intra-chunk operands to bfloat16, as the
+# reference does, so float32 inputs that differ in their last bits (each
+# rank's projection is a GEMM of another shape) can round one bfloat16
+# step apart: the prefill's outputs are held to one bfloat16 step of the
+# largest output
+MTP_F32_SSD_REL = 2.0 ** -8
+# (b) bfloat16, the served type: the split lies no further from the
+# float32 block than the whole bfloat16 block does (its weights, inputs
+# and outputs rounded; each rank's projections round alike), plus half a
+# bfloat16 step (2^-9 of the largest output, which no random-signed
+# partial or partial sum exceeds) for each rounding the split adds: the
+# tp partial products of the out projection and the tp - 1 sums of them
+MTP_BF16_STEP = 2.0 ** -9
+MTP_TRAIN_LAYERS = 4           # (c)'s mamba2-370m depth cut
+
+
+class RankAlone:
+    """A stand-in parallel context that times one model rank's share of a
+    Mamba block on the one card (one card cannot hold two NCCL ranks): the
+    rank's stages run as on a mesh of ``tp``, and each collective is a
+    local op of the same output: the B/C all-gather a concatenation of
+    ``tp`` copies, the sums identities."""
+
+    mamba_tp = True
+
+    def __init__(self, torch, tp: int, rank: int):
+        self.torch, self.tp, self.tp_rank = torch, tp, rank
+
+    def enter_tp(self, x):
+        return x
+
+    def share_tp(self, x, dim: int):
+        return self.torch.cat([x] * self.tp, dim)
+
+    def sum_tp(self, x):
+        return x
+
+    def reduce_tp(self, x):
+        return x
+
+
+def _rel(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def mamba_mesh_serve(torch, MD, FL, dispatch, load_engine, get_config, fam):
+    """28 (a): mamba2-370m at full width and depth, bf16, through the
+    fixed engine on a 1x1 NCCL mesh (Mamba TP at tp 1), phase 25 (b)'s
+    6 x 16 greedy requests: streams equal 25 (b)'s, 3+ decode replays
+    bit-equal to eager ``decode_step(..., par=)``; tok/s, graph nodes and
+    the collectives of a decode step beside 25 (b)'s.  Then reduced jamba
+    with LUT-MU on the same mesh: streams equal 25 (e)'s, ``fused_lutmu``
+    3 launches per dense layer per forward.  Returns the fused_lutmu
+    launches."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_serve_mesh
+    mesh = make_serve_mesh("1x1", "cuda")
+    try:
+        cfg = get_config("mamba2-370m")
+        params = MD.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(5), torch.bfloat16)
+        engine = load_engine(None, params, cfg, max_batch=FIXED_SLOTS,
+                             max_len=128, compute_dtype=torch.bfloat16,
+                             device=DEVICE, mesh=mesh)
+        par = engine.par
+        ensure(type(engine).__name__ == "FixedSlotEngine" and par is not None
+               and par.mamba_tp and par.tp == 1,
+               "mamba2 on the mesh: not the fixed engine under Mamba TP")
+        handles, dt, ttft, engine = drive(torch, engine, cfg, 6, 16)
+        want = fam["mamba"]
+        ensure([list(h.generated) for h in handles] == want["streams"],
+               "mamba2 on the mesh: streams differ from phase 25 (b)'s")
+        line = serve_line("mamba-tp", handles, dt, ttft, engine)
+        n = check_replays(torch, engine, MD, "mamba2-mesh")
+        # the collectives of one eager decode step (idle rows, a copy of
+        # the cache) and the NCCL kernels of one replay
+        prog = engine._decode
+        arrays = {k: np.full(tuple(t.shape), 8 if k == "pos" else 0,
+                             np.int32) for k, t in prog.inputs.items()}
+        before = par.collectives
+        MD.decode_step(engine.params, *(torch.from_numpy(arrays[k]).cuda()
+                                        for k in ("token", "pos")),
+                       tree_clone(engine.cache), cfg,
+                       compute_dtype=torch.bfloat16, par=par)
+        per_step = par.collectives - before
+        ensure(per_step == 3 * cfg.num_layers + 2,
+               f"mamba2 on the mesh: {per_step} collectives a decode step")
+        n_nccl = nccl_kernels(torch, lambda: prog(**arrays))
+        costs = _mesh_costs(torch, engine, MD, prog, arrays)
+        print(line +
+              f"; streams equal phase 25 (b)'s; {n} decode replays bit-equal "
+              f"to eager decode_step(par=); collectives a decode step "
+              f"{per_step} (3 a Mamba layer: the B/C all-gather, the norm's "
+              f"and the out projection's all-reduces; 2 the head's); NCCL "
+              f"kernels in one replay {n_nccl}; phase 25 (b) in this call "
+              f"{want['tok_s']:.2f} tok/s, graph nodes "
+              f"{want['graph_nodes']}, 0 collectives; {costs}", flush=True)
+        del engine, handles, prog, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # reduced jamba with LUT-MU: its Mamba layers cut, its dense
+        # LUT-MU layers through lutmu_matmul_sharded
+        jcfg = get_config("jamba-1.5-large-398b", reduced=True)
+        jcfg = dataclasses.replace(jcfg, amm=dataclasses.replace(
+            jcfg.amm, enabled=True, backend="auto"))
+        params = MD.init_params(
+            jcfg, torch.Generator(device="cuda").manual_seed(9),
+            torch.bfloat16, serving=True)
+        dense = sum(1 for i in range(jcfg.num_layers)
+                    if not jcfg.layer_is_moe(i))
+        engine = load_engine(None, params, jcfg, max_batch=FIXED_SLOTS,
+                             max_len=64, compute_dtype=torch.bfloat16,
+                             device=DEVICE, mesh=mesh)
+        ensure(engine.par.mamba_tp, "jamba on the mesh: not under Mamba TP")
+        handles, jdt, _, engine = drive(torch, engine, jcfg, 6, 8)
+        calls = engine.stats["prefill_calls"] + engine.stats["decode_calls"]
+        launches = FL.LAUNCHES.n
+        ensure(launches == 3 * dense * calls and dispatch.REF_ON_CUDA.n == 0,
+               f"jamba on the mesh: fused_lutmu launches {launches} != 3 x "
+               f"{dense} x {calls}")
+        ensure([list(h.generated) for h in handles] == fam["jamba"],
+               "jamba on the mesh: streams differ from phase 25 (e)'s")
+        jn = check_replays(torch, engine, MD, "jamba-mesh")
+        print(f"[mamba-tp] reduced jamba with LUT-MU on the 1x1 mesh: 6 x 8 "
+              f"tokens {sum(len(h.generated) for h in handles) / jdt:.2f} "
+              f"tok/s, streams equal phase 25 (e)'s; fused_lutmu {launches} "
+              f"launches = 3 x {dense} x {calls} forward calls; {jn} decode "
+              f"replays bit-equal to eager", flush=True)
+        del engine, handles, params
+    finally:
+        gc.collect()
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_costs(torch, engine, MD, prog, arrays, iters: int = 5) -> str:
+    """A mesh engine's decode replay ms (CUDA events; idle inputs) and one
+    8-token eager ``MD.prefill`` through its parallel context and without
+    one, on the same params (host clock, synced; alternated)."""
+    def events(fn):
+        fn()
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    t = torch.tensor([prompts(engine.cfg.vocab_size, 1)[0]], device="cuda")
+    times = {"mesh": [], "one": []}
+    for _ in range(iters):
+        for k, par in (("mesh", engine.par), ("one", None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            MD.prefill(engine.params, t, engine.cfg, engine.max_len,
+                       compute_dtype=engine.cd, par=par)
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    pf = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return (f"decode replay {events(lambda: prog(**arrays)):.3f} ms (CUDA "
+            f"events); 8-token eager prefill median {pf['mesh']:.3f} ms "
+            f"through the mesh, {pf['one']:.3f} ms without it (host clock)")
+
+
+def _mamba_layer(torch, MB, cfg, seed: int):
+    """One Mamba layer's params drawn on the card in float32, with small
+    random norm, bias and skip vectors (the init's zeros would hide a
+    misplaced slice), and the same rounded to bfloat16 as the bf16 init
+    types them (``a_log`` stays float32)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lp = MB.init_mamba_params(cfg, gen, torch.float32)
+    for k in ("norm_w", "dt_bias", "conv_b", "d_skip"):
+        lp[k] = lp[k] + 0.1 * torch.randn(lp[k].shape, generator=gen,
+                                          device="cuda")
+    return {torch.float32: lp,
+            torch.bfloat16: {k: v if k == "a_log" else v.to(torch.bfloat16)
+                             for k, v in lp.items()}}
+
+
+def graph_of(torch, fn):
+    """``fn`` (warmed up on a side stream) captured as one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    return g
+
+
+def fmt_ms(xs) -> str:
+    return " / ".join(f"{x:.4f}" for x in xs)
+
+
+def _mtp_results(torch, run):
+    """A block's prefill and decode results by name, in float32."""
+    (out, st), (outs, cache) = run["prefill"], run["decode"]
+    return {"prefill": out.float(), "prefill_conv": st["conv"].float(),
+            "prefill_ssm": st["ssm"], "decode": torch.stack(outs).float(),
+            "decode_conv": cache["conv"].float(), "decode_ssm": cache["ssm"]}
+
+
+def _mtp_errors(torch, got, want):
+    """max |got - want| / max |want| of each result."""
+    return {k: _rel(torch, got[k], want[k]) for k in want}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def mamba_tp_ranks(torch, MB, SH, get_config, smi):
+    """28 (b): one full-width mamba2-370m layer and one full-width jamba
+    Mamba layer cut for tp 2, 4, 8 and 16, each rank's stages run in rank
+    order on the card (``mamba_forward_split`` / ``mamba_decode_split``):
+    a MTP_TOKENS-token prefill and MTP_STEPS decode steps of MTP_SLOTS
+    rows, outputs and new state against the whole float32 block: float32
+    within MTP_F32_REL of max |out| (the prefill's outputs
+    MTP_F32_SSD_REL), bfloat16 within the whole bfloat16 block's own
+    distance plus MTP_BF16_STEP for each rounding the split adds; each
+    rank's state bytes whole/tp; a rank's bfloat16 decode step
+    (``RankAlone``) beside the whole block's, each captured as one CUDA
+    graph and replayed (CUDA events, L2 flushed), in turns, and their
+    bounds."""
+    timer = Timer(torch)
+    for arch in ("mamba2-370m", "jamba-1.5-large-398b"):
+        cfg = get_config(arch)
+        nh = cfg.d_inner // cfg.ssm_headdim
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        x_pf = torch.randn((1, MTP_TOKENS, cfg.d_model), generator=gen,
+                           device="cuda")
+        x_dec = torch.randn((MTP_STEPS, MTP_SLOTS, 1, cfg.d_model),
+                            generator=gen, device="cuda")
+        state0 = {"conv": torch.randn((MTP_SLOTS, cfg.ssm_conv - 1, conv_dim),
+                                      generator=gen, device="cuda"),
+                  "ssm": torch.randn((MTP_SLOTS, nh, cfg.ssm_state,
+                                      cfg.ssm_headdim), generator=gen,
+                                     device="cuda")}
+        runs = {}
+        for dtype, lp in _mamba_layer(torch, MB, cfg, 7).items():
+            xp, xd = x_pf.to(dtype), x_dec.to(dtype)
+            whole = {"prefill": MB.mamba_forward(lp, xp, cfg,
+                                                 return_state=True)}
+            cache = {"conv": state0["conv"].to(dtype, copy=True),
+                     "ssm": state0["ssm"].clone()}
+            whole["decode"] = ([MB.mamba_decode_step(lp, xd[i], cfg, cache)
+                                for i in range(MTP_STEPS)], cache)
+            runs[dtype] = (lp, whole)
+        f32 = _mtp_results(torch, runs[torch.float32][1])
+        # the whole bfloat16 block's own distance to the float32 block
+        own = _mtp_errors(torch, _mtp_results(torch,
+                                              runs[torch.bfloat16][1]), f32)
+        lp16, whole16 = runs[torch.bfloat16]
+        whole_state = _nbytes(whole16["decode"][1])
+        cache = {k: v.clone() for k, v in whole16["decode"][1].items()}
+        w_bytes = _nbytes(lp16) + 2 * whole_state
+        print(f"[mamba-tp] {arch} layer (d_model {cfg.d_model}, d_inner "
+              f"{cfg.d_inner}, {nh} heads, {_nbytes(lp16) / 1e6:.1f} MB of "
+              f"bf16 weights): the whole bf16 block against the float32 "
+              f"one, max |diff| / max: "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in own.items())}; the "
+              f"whole {MTP_SLOTS}-row decode step's bound "
+              f"{1e3 * w_bytes / HBM_BYTES_PER_S:.4f} ms ({w_bytes / 1e6:.1f}"
+              f" MB at 3.35 TB/s) on {smi}", flush=True)
+        for tp in MTP_DEGREES:
+            ensure(SH.mamba_tp_ok(cfg, tp), f"{arch}: no Mamba TP at tp {tp}")
+            mesh = SH.AbstractMesh((1, tp), ("data", "model"))
+            parts = SH.mamba_parts(cfg, "mamba/conv")
+            errs, rank_state = {}, None
+            for dtype, (lp, whole) in runs.items():
+                shards = [SH.shard_params({"mamba": lp}, cfg, mesh,
+                                          {"data": 0, "model": r})["mamba"]
+                          for r in range(tp)]
+                got, states = MB.mamba_forward_split(
+                    shards, x_pf.to(dtype), cfg, return_state=True)
+                caches = [{"conv": SH.cut_parts(state0["conv"].to(dtype), 2,
+                                                parts, tp, r),
+                           "ssm": state0["ssm"].chunk(tp, 1)[r].clone()}
+                          for r in range(tp)]
+                outs = [MB.mamba_decode_split(shards, x_dec[i].to(dtype), cfg,
+                                              caches)
+                        for i in range(MTP_STEPS)]
+
+                def joined(sts):
+                    return {"conv": SH.join_parts(torch.cat(
+                        [st["conv"] for st in sts], -1), 2, parts, tp),
+                        "ssm": torch.cat([st["ssm"] for st in sts], 1)}
+
+                # every result against the float32 whole block
+                errs[dtype] = _mtp_errors(torch, _mtp_results(
+                    torch, {"prefill": (got, joined(states)),
+                            "decode": (outs, joined(caches))}), f32)
+                if dtype == torch.bfloat16:
+                    rank_state = _nbytes(caches[0])
+                    ensure(all(_nbytes(c) * tp == whole_state for c in caches),
+                           f"{arch} tp {tp}: a rank's state is not whole/tp")
+                    shard0, cache0 = shards[0], caches[0]
+                del shards, caches, states, got
+            e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+            ensure(all(v <= (MTP_F32_SSD_REL if k == "prefill" else
+                             MTP_F32_REL) for k, v in e32.items()),
+                   f"{arch} tp {tp} float32: {e32}")
+            lim = {k: own[k] + (2 * tp - 1) * MTP_BF16_STEP for k in own}
+            bad = {k: v for k, v in e16.items() if v > lim[k]}
+            ensure(not bad, f"{arch} tp {tp} bfloat16: {bad} against the "
+                   f"whole block's {own}")
+            alone = RankAlone(torch, tp, 0)
+            xd0 = x_dec[0].to(torch.bfloat16)
+            # the whole block and rank 0 in turns, twice, each one replayed
+            # graph (as the fixed engine replays its decode step)
+            whole_ms, rank_ms = [], []
+            whole_g = graph_of(torch, lambda: MB.mamba_decode_step(
+                lp16, xd0, cfg, cache))
+            rank_g = graph_of(torch, lambda: MB.mamba_decode_step(
+                shard0, xd0, cfg, cache0, par=alone))
+            for _ in range(2):
+                whole_ms.append(timer.ms(whole_g.replay, 10))
+                rank_ms.append(timer.ms(rank_g.replay, 10))
+            del whole_g, rank_g
+            # what a rank must move: its weights (its slices of the
+            # replicated vectors), its state read and written, the input
+            # and its output partial
+            vec = sum(shard0[k].numel() * shard0[k].element_size() // tp
+                      for k in ("a_log", "dt_bias", "d_skip", "norm_w"))
+            r_bytes = (sum(shard0[k].numel() * shard0[k].element_size()
+                           for k in ("in_proj", "out_proj", "conv_w",
+                                     "conv_b")) + vec + 2 * rank_state
+                       + 2 * xd0.numel() * xd0.element_size())
+            r_bound = 1e3 * r_bytes / HBM_BYTES_PER_S
+            print(f"[mamba-tp] {arch} tp {tp}: {MTP_TOKENS}-token prefill "
+                  f"and {MTP_STEPS} {MTP_SLOTS}-row decode steps over {tp} "
+                  f"ranks in rank order against the whole block: float32 "
+                  f"max |diff| / max |out| "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in e32.items())} "
+                  f"(tolerance {MTP_F32_REL}, prefill {MTP_F32_SSD_REL}); "
+                  f"bfloat16 against the float32 "
+                  f"block {', '.join(f'{k} {v:.2e}' for k, v in e16.items())}"
+                  f" (within the whole bf16 block's + {2 * tp - 1} x 2^-9); a "
+                  f"rank's state {rank_state} bytes = whole {whole_state} / "
+                  f"{tp}; rank 0's decode step {fmt_ms(rank_ms)} ms (bound "
+                  f"{r_bound:.4f} ms: {r_bytes / 1e6:.2f} MB) against the "
+                  f"whole block's {fmt_ms(whole_ms)} ms (bound "
+                  f"{1e3 * w_bytes / HBM_BYTES_PER_S:.4f}), in turns",
+                  flush=True)
+            del shard0, cache0
+        del runs, f32, lp16, whole16, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mamba_tp_train(torch, get_config):
+    """28 (c): mamba2-370m at full width, depth cut to MTP_TRAIN_LAYERS,
+    bf16 compute: two steps of the train step through a 1x1 NCCL mesh
+    (Mamba TP at tp 1) beside the one-device step in the same call, under
+    deterministic algorithms: the losses and the state bitwise; the ms per
+    step of both."""
+    from repro_torch import pytree as T
+    from repro_torch.data import TokenStream
+    from repro_torch.device import MetaGenerator
+    from repro_torch.distributed.sharding import ParallelContext, shard_state
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import model as MD
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("mamba2-370m"),
+                              num_layers=MTP_TRAIN_LAYERS)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch_size=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ)
+
+    def run(par):
+        state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        if par is not None:
+            state = shard_state(state, cfg, par.mesh)
+        step = make_train_step(cfg, cosine_schedule(1e-4, 10, 100),
+                               compute_dtype=torch.bfloat16, par=par)
+        losses, times = [], []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in stream.batch(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(1e3 * (time.perf_counter() - t0))
+        return losses, times, [t.cpu() for t in T.leaves(state)]
+
+    mesh = make_serve_mesh("1x1", "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        one = run(None)
+        par = ParallelContext(cfg, mesh, MD.init_params(cfg, MetaGenerator()))
+        ensure(par.mamba_tp, "mamba2 training: not under Mamba TP")
+        before = par.collectives
+        sharded = run(par)
+        per_step = (par.collectives - before) // 2
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.distributed.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    ensure(sharded[0] == one[0], f"mamba2 training on the mesh: losses "
+           f"{sharded[0]} != one device's {one[0]}")
+    ensure(all(torch.equal(a, b) for a, b in zip(sharded[2], one[2])),
+           "mamba2 training on the mesh: the state differs from one device's")
+    print(f"[mamba-tp] (c) mamba2-370m full width, {MTP_TRAIN_LAYERS} layers, "
+          f"bf16 compute, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, deterministic "
+          f"algorithms: two steps through the 1x1 mesh, losses "
+          f"{[round(v, 5) for v in sharded[0]]} and the state bitwise the one "
+          f"device's; ms per step mesh {[round(v, 1) for v in sharded[1]]}, "
+          f"one device {[round(v, 1) for v in one[1]]}; collectives a step "
+          f"{per_step}", flush=True)
+
+
+# per-rank GiB (arguments, temp) of the Mamba families' 16x16 cells before
+# Mamba TP, from launch/dryrun.py on the code without it (recorded in
+# PERF.md §6)
+DRYRUN_MAMBA_BEFORE = {
+    ("mamba2-370m", "train_4k"): (0.09, 34.13),
+    ("mamba2-370m", "prefill_32k"): (0.01, 22.56),
+    ("mamba2-370m", "decode_32k"): (0.39, 0.10),
+    ("mamba2-370m", "long_500k"): (0.06, 0.10),
+    ("jamba-1.5-large-398b", "train_4k"): (17.54, 40.83),
+    ("jamba-1.5-large-398b", "prefill_32k"): (2.93, 203.63),
+    ("jamba-1.5-large-398b", "decode_32k"): (7.48, 2.07),
+    ("jamba-1.5-large-398b", "long_500k"): (3.50, 1.91)}
+
+
+def mamba_dryrun_lines(dry, timeout: float) -> None:
+    """28 (d): the Mamba families' 16x16 cells from the host dry-runs
+    started in 27 (a): per-rank arguments and temp beside the figures
+    before Mamba TP, the arguments equal to JAX's rule."""
+    from repro_torch.analysis import roofline as RF
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    for arch in DRYRUN_MAMBA_ARCHS:
+        end_dryrun(dry.pop(arch), max(timeout - (time.perf_counter() - t0),
+                                      1.0))
+        for f in sorted(DR.RESULTS_DIR.glob(f"{arch}__*__16x16.json")):
+            r = json.loads(f.read_text())
+            m = r["memory_analysis"]
+            args, temp = (m["argument_size_bytes"] / 2**30,
+                          m["temp_size_bytes"] / 2**30)
+            ensure(m["argument_size_bytes"] == m["rule_argument_size_bytes"],
+                   f"{arch} {r['shape']}: arguments != JAX's rule")
+            b_args, b_temp = DRYRUN_MAMBA_BEFORE[(arch, r["shape"])]
+            terms = RF.roofline_terms(r)
+            print(f"[dryrun] {arch} {r['shape']} {r['mesh']}: per rank "
+                  f"arguments {args:.2f} GiB (before Mamba TP {b_args:.2f}; "
+                  f"JAX's rule {m['rule_argument_size_bytes'] / 2**30:.2f}) + "
+                  f"temp {temp:.2f} GiB (before {b_temp:.2f}) against 80; "
+                  f"{r['flops_per_device']:.4e} FLOPs; collectives "
+                  f"{r['collectives']['total_bytes'] / 2**30:.3f} GiB; bound "
+                  f"by {terms['bottleneck']} ({terms['bound_s']:.4f} s); host "
+                  f"{r['run_s']:.1f}s", flush=True)
+
+
+def mamba_tp_phase(torch, mods, load_engine, get_config, fam, smi, dry):
+    """28. (a) the Mamba families served through a 1x1 mesh, (b) the
+    stages over simulated ranks at full width, (c) training through the
+    1x1 mesh, (d) the host dry-run's Mamba cells.  Returns the fused_lutmu
+    launches of (a)."""
+    from repro_torch.distributed import sharding as SH
+    MD, MB, ES, FL, dispatch = mods
+    t0 = time.perf_counter()
+    launches = mamba_mesh_serve(torch, MD, FL, dispatch, load_engine,
+                                get_config, fam)
+    t_a = time.perf_counter()
+    mamba_tp_ranks(torch, MB, SH, get_config, smi)
+    t_b = time.perf_counter()
+    mamba_tp_train(torch, get_config)
+    t_c = time.perf_counter()
+    mamba_dryrun_lines(dry, 600)
+    print(f"[mamba-tp] phase 28 in {time.perf_counter() - t0:.1f}s ((a) "
+          f"{t_a - t0:.1f}s, (b) {t_b - t_a:.1f}s, (c) {t_c - t_b:.1f}s, (d) "
+          f"waited {time.perf_counter() - t_c:.1f}s)", flush=True)
+    return {"fused_lutmu": launches}
 
 
 def main() -> int:
@@ -4027,31 +4579,38 @@ def main() -> int:
     case_res = case_resnet9_phase(torch, (FL, ME, LA, dispatch), counters)
     gc.collect()
     torch.cuda.empty_cache()
-    dry = {}  # 27 (c)'s host dry-run, started after 27 (a)'s timed steps
+    # the host dry-runs of 27 (c) and 28 (d), started after 27 (a)'s timed
+    # steps, by arch; every one still running is ended below
+    dry = {}
     try:
         p24 = train_phase(torch)
         print(f"[case] phases 22-24 in {time.perf_counter() - t_case:.1f}s",
               flush=True)
         # 27. training on a 1x1 NCCL mesh, and the dry-run
         mesh_train_phase(torch, p24, smi, dry)
-    finally:
-        proc = dry.get("proc")
-        if proc is not None and proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    del p24
+        del p24
 
-    # 25 (b)-(e). the non-paged families and MoE at full width
-    gc.collect()
-    torch.cuda.empty_cache()
-    fam = families_phase(torch, (MD, MB, MOE, ES, ST, FL, dispatch),
-                         load_engine, get_config)
+        # 25 (b)-(e). the non-paged families and MoE at full width
+        gc.collect()
+        torch.cuda.empty_cache()
+        fam = families_phase(torch, (MD, MB, MOE, ES, ST, FL, dispatch),
+                             load_engine, get_config)
+        print(f"[families] phase 25 in {fixed['s'] + fam['s']:.1f}s ((a) "
+              f"{fixed['s']:.1f}s, (b)-(e) {fam['s']:.1f}s); fused_lutmu "
+              f"launches (a) {fixed['fused_lutmu']} (e) "
+              f"{fam['fused_lutmu']}", flush=True)
+        # 28. tensor parallelism inside the Mamba block
+        gc.collect()
+        torch.cuda.empty_cache()
+        mtp = mamba_tp_phase(torch, (MD, MB, ES, FL, dispatch), load_engine,
+                             get_config, fam, smi, dry)
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     launches["fused_lutmu"] += (fixed["fused_lutmu"] + fam["fused_lutmu"]
-                                + mesh_launches)
-    print(f"[families] phase 25 in {fixed['s'] + fam['s']:.1f}s ((a) "
-          f"{fixed['s']:.1f}s, (b)-(e) {fam['s']:.1f}s); fused_lutmu "
-          f"launches (a) {fixed['fused_lutmu']} (e) {fam['fused_lutmu']}",
-          flush=True)
+                                + mesh_launches + mtp["fused_lutmu"])
 
     lutmu_shape = "down C=2176 N=5120, B=4, int8"
     int16_shape = "chain C=98 N=128, B=256, int16"

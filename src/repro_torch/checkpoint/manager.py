@@ -78,12 +78,12 @@ class CheckpointManager:
         the other ranks keep nothing."""
         par, keep = self.par, self._writes()
 
-        def one(t, spec):
-            whole = par.unshard(t, spec)
+        def one(path, t, spec):
+            whole = par.unshard(t, spec, parts=par.parts(path))
             return whole.to("cpu", copy=True) if keep else None
 
         with torch.no_grad():
-            return T.map_tree(one, tree, par.state_specs(tree))
+            return T.map_with_path(one, tree, par.state_specs(tree))
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Tree, blocking: bool = False) -> None:
@@ -173,11 +173,12 @@ class CheckpointManager:
         path = self.dir / f"step_{step:08d}"
         cuts = None
         if self.par is not None:
-            mesh = self.par.mesh
-            cuts = T.leaves(T.map_tree(
-                lambda t, spec: functools.partial(take_shard, spec=spec,
-                                                  mesh=mesh),
-                template, self.par.state_specs(template)))
+            par = self.par
+            cuts = T.leaves(T.map_with_path(
+                lambda p, t, spec: functools.partial(
+                    take_shard, spec=spec, mesh=par.mesh,
+                    parts=par.parts(p)),
+                template, par.state_specs(template)))
         return restore_into(template, path, device=device, cuts=cuts)
 
 

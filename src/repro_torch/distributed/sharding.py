@@ -25,16 +25,20 @@ meshes this host cannot build).
 
 :func:`shard_params` cuts a whole params tree to one rank's local shards,
 :func:`shard_state` a train state (:func:`state_shardings`), and
-:func:`unshard_state` gathers one whole again.  :class:`ParallelContext`
-takes the role of JAX's ``make_constrainer``: JAX constrains shardings and
-lets GSPMD insert collectives and differentiate them; here every rank
-holds its local shards and the model functions call the collectives
-themselves, through the context (``None`` off a mesh), each a
-``torch.autograd.Function`` with its adjoint: leaving a TP region sums
-forward, entering one sums the gradient, an FSDP gather reduce-scatters
-it, the gather of a block every rank computes whole slices it.  The train
-step's reduction of the gradients follows one rule,
-:meth:`ParallelContext.grad_sum_axes`.
+:func:`unshard_state` gathers one whole again.  Mamba's packed leaves
+(``in_proj``'s ``z | x | B | C | dt`` columns, the conv's ``x | B | C``
+channels) are cut over ``model`` part by part where the block is cut
+(:func:`mamba_tp_ok`): one table (:data:`_MAMBA_PARTS`) and one pair
+(:func:`cut_parts` / :func:`join_parts`) that every cut and gather uses.
+:class:`ParallelContext` takes the role of JAX's ``make_constrainer``:
+JAX constrains shardings and lets GSPMD insert collectives and
+differentiate them; here every rank holds its local shards and the model
+functions call the collectives themselves, through the context
+(``None`` off a mesh), each a ``torch.autograd.Function`` with its
+adjoint: leaving a TP region sums forward, entering one sums the
+gradient, an FSDP gather reduce-scatters it, the gather of a block every
+rank computes whole slices it.  The train step's reduction of the
+gradients follows one rule, :meth:`ParallelContext.grad_sum_axes`.
 """
 from __future__ import annotations
 
@@ -323,17 +327,99 @@ def mesh_coord(mesh) -> Dict[str, int]:
     return {name: mesh.get_local_rank(name) for name in mesh.mesh_dim_names}
 
 
-def take_shard(t: Tensor, spec: Spec, mesh, coord=None) -> Tensor:
+# Mamba's packed leaves: path → the parts their last dim packs, in order
+# (``di`` = d_inner, ``gn`` = groups × state, ``nh`` = heads).  JAX's spec
+# cuts the dim contiguously, which would mix the parts across ranks; under
+# :func:`mamba_tp_ok` each part is cut on its own instead, so a rank holds
+# its heads' z, x and dt columns and one slice of B and of C, and the
+# conv's (and the cache's conv window's) channels to match
+_MAMBA_PARTS = (
+    (re.compile(r"(^|/)mamba/in_proj$"), ("di", "di", "gn", "gn", "nh")),
+    (re.compile(r"(^|/)mamba/conv(_w|_b)?$"), ("di", "gn", "gn")),
+)
+
+
+def mamba_tp_ok(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a Mamba block is cut over ``tp`` model ranks: ``d_inner``,
+    ``g·n`` and the head count divide ``tp``, and a rank's heads lie in
+    whole groups or within one (``g % tp == 0`` or ``tp % g == 0``).
+    Otherwise every model rank computes the block whole."""
+    if not (cfg.is_ssm or cfg.is_hybrid):
+        return False
+    g = cfg.ssm_ngroups
+    nh = cfg.d_inner // cfg.ssm_headdim
+    return (cfg.d_inner % tp == 0 and (g * cfg.ssm_state) % tp == 0
+            and nh % tp == 0 and (g % tp == 0 or tp % g == 0))
+
+
+def mamba_parts(cfg: ModelConfig, path: str) -> Optional[Tuple[int, ...]]:
+    """The part sizes of the last dim of the packed Mamba leaf at ``path``
+    (:data:`_MAMBA_PARTS`); ``None`` for any other leaf."""
+    sizes = {"di": cfg.d_inner, "gn": cfg.ssm_ngroups * cfg.ssm_state,
+             "nh": cfg.d_inner // cfg.ssm_headdim}
+    for pattern, parts in _MAMBA_PARTS:
+        if pattern.search(path):
+            return tuple(sizes[p] for p in parts)
+    return None
+
+
+def leaf_parts(cfg: ModelConfig, mesh, path: str
+               ) -> Optional[Tuple[int, ...]]:
+    """The parts the leaf at ``path`` is cut by over ``mesh``'s model axis
+    (:func:`mamba_parts` where :func:`mamba_tp_ok` holds), else ``None``:
+    a contiguous cut."""
+    if not mamba_tp_ok(cfg, MeshAxes.for_mesh(mesh).tp_size(mesh)):
+        return None
+    return mamba_parts(cfg, path)
+
+
+def cut_parts(t: Tensor, dim: int, parts: Sequence[int], n: int,
+              i: int) -> Tensor:
+    """Shard ``i`` of ``n`` of ``t`` along ``dim``, which packs ``parts``:
+    each part's ``i``-th ``1/n``, in part order."""
+    pieces, at = [], 0
+    for size in parts:
+        step = size // n
+        pieces.append(t.narrow(dim, at + i * step, step))
+        at += size
+    return torch.cat(pieces, dim)
+
+
+def join_parts(t: Tensor, dim: int, parts: Sequence[int], n: int) -> Tensor:
+    """The whole of ``n`` shards made by :func:`cut_parts`, concatenated
+    along ``dim`` in rank order (its inverse, bit for bit)."""
+    shards = t.chunk(n, dim)
+    pieces, at = [], 0
+    for size in parts:
+        step = size // n
+        pieces.extend(s.narrow(dim, at, step) for s in shards)
+        at += step
+    return torch.cat(pieces, dim)
+
+
+def take_shard(t: Tensor, spec: Spec, mesh, coord=None,
+               parts: Optional[Sequence[int]] = None) -> Tensor:
     """The shard of ``t`` a rank at ``coord`` (default: this rank) holds:
-    a contiguous copy when any dim is cut, else ``t`` itself."""
+    a contiguous copy when any dim is cut, else ``t`` itself.  With
+    ``parts`` (:func:`leaf_parts`) the last dim is cut part by part."""
     coord = mesh_coord(mesh) if coord is None else coord
     sizes, out = mesh_shape(mesh), t
     for d, entry in enumerate(spec):
         n, i = _shard_index(entry, sizes, coord)
-        if n > 1:
+        if n > 1 and parts is not None and d == t.dim() - 1:
+            out = cut_parts(out, d, parts, n, i)
+        elif n > 1:
             step = out.shape[d] // n
             out = out.narrow(d, i * step, step)
     return t if out is t else out.contiguous().clone()
+
+
+def leaf_cutter(cfg: ModelConfig, mesh, specs: Dict[str, Spec], coord=None):
+    """``shard(path, leaf)`` → the shard of the leaf at ``path`` a rank
+    holds (``specs``: path → spec), as ``init_params(shard=)`` and
+    :func:`shard_params` cut each leaf."""
+    return lambda path, t: take_shard(t, specs[path], mesh, coord,
+                                      leaf_parts(cfg, mesh, path))
 
 
 def shard_params(params: dict, cfg: ModelConfig, mesh, coord=None,
@@ -344,10 +430,11 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, coord=None,
     :class:`AbstractMesh`.  The shards are cut where the tree lies and
     moved to ``device`` (default: left there): a tree on the host puts
     only this rank's shards on the card."""
-    flat = flatten(param_shardings(params, cfg, mesh))
+    cut = leaf_cutter(cfg, mesh, flatten(param_shardings(params, cfg, mesh)),
+                      coord)
 
     def one(path, t):
-        s = take_shard(t, flat[path], mesh, coord)
+        s = cut(path, t)
         return s if device is None else s.to(device)
 
     return _map_with_path(one, params)
@@ -375,8 +462,10 @@ def shard_state(state, cfg: ModelConfig, mesh, coord=None):
     (:func:`state_shardings`; ``coord`` as :func:`shard_params` takes it),
     cut where the state lies.  A leaf no axis cuts is the whole leaf
     itself, not a copy."""
-    return T.map_tree(lambda t, spec: take_shard(t, spec, mesh, coord),
-                      state, state_shardings(state, cfg, mesh))
+    return T.map_with_path(
+        lambda path, t, spec: take_shard(t, spec, mesh, coord,
+                                         leaf_parts(cfg, mesh, path)),
+        state, state_shardings(state, cfg, mesh))
 
 
 def unshard_state(state, par: "ParallelContext"):
@@ -384,8 +473,9 @@ def unshard_state(state, par: "ParallelContext"):
     by leaf (one whole leaf on the device at a time).  Every rank of the
     mesh calls it: the leaves are all-gathered."""
     with torch.no_grad():
-        return T.map_tree(
-            lambda t, spec: par.unshard(t, spec).to("cpu", copy=True),
+        return T.map_with_path(
+            lambda path, t, spec: par.unshard(
+                t, spec, parts=par.parts(path)).to("cpu", copy=True),
             state, par.state_specs(state))
 
 
@@ -525,17 +615,19 @@ class _Gather(torch.autograd.Function):
 
 # leaves the model functions read as TP shards (the others are gathered
 # over ``model`` at use): attention and cross-attention only when both
-# head counts divide tp (whole heads); Mamba's packed projections never
-# (no op splits in_proj's concatenated z, x, B, C, dt cleanly, and the
-# block is computed whole on every model rank), nor the learned position
-# tables (the rules' ``embed$`` puts their positions over ``model``, but
-# every rank adds every position)
-_GATHER_TP_ALWAYS = re.compile(r"(^|/)mamba/|(^|/)pos_embed$")
+# head counts divide tp (whole heads), Mamba's only under ``mamba_tp``
+# (its part-wise shards: the rank's heads and channels), never the learned
+# position tables (the rules' ``embed$`` puts their positions over
+# ``model``, but every rank adds every position)
+_GATHER_TP_ALWAYS = re.compile(r"(^|/)pos_embed$")
 _ATTN_LEAF = re.compile(r"(^|/)(attn|cross)/")
+_MAMBA_LEAF = re.compile(r"(^|/)mamba/")
 # replicated leaves read inside a TP region, whose gradient on a model rank
 # covers only that rank's heads (the per-head q/k norms under attention
-# TP) or experts and FF slice (the MoE router under EP or TP in the expert)
+# TP; Mamba's per-head and per-channel vectors under Mamba TP) or experts
+# and FF slice (the MoE router under EP or TP in the expert)
 _TP_PARTIAL_ATTN = re.compile(r"(^|/)attn/(q_norm|k_norm)$")
+_TP_PARTIAL_MAMBA = re.compile(r"(^|/)mamba/(norm_w|a_log|dt_bias|d_skip)$")
 _TP_PARTIAL_MOE = re.compile(r"(^|/)moe/router$")
 
 
@@ -550,12 +642,14 @@ class ParallelContext:
     train step's rows are the rank's :meth:`local_rows`.  Weights are read
     through :meth:`layer` / :meth:`read` / :meth:`leaf`, which all-gather
     the dims the rules put on ``data`` (FSDP) and, where the model computes
-    a block whole, those on ``model``.  The activations' collectives over
-    ``model`` run on a group of one rank too (the path is the same at any
-    tp); over one ``data`` rank none is issued, and no stored tensor is
-    gathered over a group of one.  Every collective is differentiable (:meth:`enter_tp`,
-    :meth:`reduce_tp`, the gathers); under no grad they run as plain
-    collectives.
+    a block whole, those on ``model``.  A Mamba block is cut over
+    ``model`` under :attr:`mamba_tp` (its heads and channels; the packed
+    leaves by :meth:`parts`), else computed whole.  The activations'
+    collectives over ``model`` run on a group of one rank too (the path
+    is the same at any tp); over one ``data`` rank none is issued, and no
+    stored tensor is gathered over a group of one.  Every collective is
+    differentiable (:meth:`enter_tp`, :meth:`reduce_tp`, the gathers);
+    under no grad they run as plain collectives.
 
     ``comm`` is the one seam to the devices: :class:`MeshComm` on a
     ``DeviceMesh`` (the default), or a shape-only communicator on an
@@ -585,6 +679,7 @@ class ParallelContext:
         self.mlp_tp = cfg.d_ff % tp == 0
         self.moe_tp = (cfg.moe_d_ff or cfg.d_ff) % tp == 0
         self.vocab_tp = cfg.vocab_size % tp == 0
+        self.mamba_tp = mamba_tp_ok(cfg, tp)
         self.collectives = 0  # collectives issued (a replay issues its own)
         self.cache_specs: Optional[Dict[str, Spec]] = None  # place_cache
 
@@ -651,17 +746,39 @@ class ParallelContext:
         the gradient of this rank's slice passes back."""
         return _Gather.apply(x, self, dim, self.tp_axes, False)
 
+    def share_tp(self, x: Tensor, dim: int) -> Tensor:
+        """All-gather along ``dim`` over ``model`` of slices every rank
+        then reads whole inside its TP region (Mamba's B and C): the
+        gradient is summed over ``model`` and each rank keeps its slice
+        (a reduce-scatter)."""
+        return _Gather.apply(x, self, dim, self.tp_axes, True)
+
+    def sum_tp(self, x: Tensor) -> Tensor:
+        """``x`` summed over ``model`` where every rank goes on with its
+        own part of the work (a norm's partial sums over the rank's
+        channels): the gradient is summed over ``model`` too."""
+        return self.enter_tp(self.reduce_tp(x))
+
     # -- stored tensors ------------------------------------------------------------
-    def unshard(self, t: Tensor, spec: Spec, keep=()) -> Tensor:
+    def parts(self, path: str) -> Optional[Tuple[int, ...]]:
+        """The parts the leaf at ``path`` (a param, a train-state or cache
+        leaf) is cut by over ``model`` (:func:`leaf_parts`), or ``None``."""
+        return mamba_parts(self.cfg, path) if self.mamba_tp else None
+
+    def unshard(self, t: Tensor, spec: Spec, keep=(),
+                parts: Optional[Sequence[int]] = None) -> Tensor:
         """``t`` (a local shard placed by ``spec``) gathered whole on every
         dim but those in ``keep``; groups of one rank are skipped.  Over
         ``data`` the gradient is reduce-scattered (summed), over ``model``
-        sliced."""
+        sliced.  With ``parts`` (:meth:`parts`) the last dim was cut part
+        by part, and is joined so (:func:`join_parts`)."""
         for d, entry in enumerate(spec):
             axes = _entry_axes(entry)
             if d in keep or not axes or self.comm.size(axes) == 1:
                 continue
             t = _Gather.apply(t, self, d, axes, axes != self.tp_axes)
+            if parts is not None and d == t.dim() - 1:
+                t = join_parts(t, d, parts, self.comm.size(axes))
         return t
 
     def _keep_tp(self, path: str, spec: Spec) -> tuple:
@@ -669,6 +786,8 @@ class ParallelContext:
         if _GATHER_TP_ALWAYS.search(path):
             return ()
         if _ATTN_LEAF.search(path) and not self.attn_tp:
+            return ()
+        if _MAMBA_LEAF.search(path) and not self.mamba_tp:
             return ()
         return tuple(d for d, e in enumerate(spec) if "model" in _entry_axes(e))
 
@@ -706,19 +825,22 @@ class ParallelContext:
             (reduce-scattered) the rows' gradients.
           * ``model``, only for a replicated leaf read inside a TP region:
             the q/k norms under attention TP (each rank normalises its own
-            heads) and the MoE router under expert parallelism or TP inside
-            the expert (each rank weighs its own experts' or FF slice's
-            outputs).  A TP-sharded leaf holds its own disjoint part; every
-            other leaf is read outside a TP region (norms, the head's
-            input, Mamba and attention whose heads do not divide tp, both
-            computed whole), where the enter ops' sums leave every model
-            rank the same whole gradient.
+            heads), Mamba's ``norm_w``, ``a_log``, ``dt_bias`` and
+            ``d_skip`` under Mamba TP (each rank reads its heads' and
+            channels' slice) and the MoE router under expert parallelism
+            or TP inside the expert (each rank weighs its own experts' or
+            FF slice's outputs).  A TP-sharded leaf holds its own disjoint
+            part; every other leaf is read outside a TP region (norms, the
+            head's input, and attention or Mamba whose heads do not divide
+            tp, computed whole), where the enter ops' sums leave every
+            model rank the same whole gradient.
         """
         sharded = {a for e in self.specs[path] for a in _entry_axes(e)}
         out = []
         if not sharded & set(self.dp_axes):
             out.append(self.dp_axes)
         partial = ((self.attn_tp and _TP_PARTIAL_ATTN.search(path))
+                   or (self.mamba_tp and _TP_PARTIAL_MAMBA.search(path))
                    or ((self.ep or self.moe_tp)
                        and _TP_PARTIAL_MOE.search(path)))
         if "model" not in sharded and partial:
@@ -776,13 +898,14 @@ class ParallelContext:
         cache *sequence* over ``model``, and for a batch that does not
         divide the data degree the sequence over ``data`` (and ``model``);
         a split sequence is read by the partial softmax of
-        :meth:`seq_split`.  Mamba's SSM state and conv window keep only
-        their slots over ``data``: the port computes their heads and
-        channels whole on every model rank (ROADMAP C9)."""
+        :meth:`seq_split`.  Under :attr:`mamba_tp` Mamba's SSM state holds
+        the rank's heads and its conv window the rank's channels, cut part
+        by part (:meth:`parts`); where the block is computed whole, both
+        keep only their slots over ``data``."""
         specs = {}
         for path, spec in flatten(cache_shardings(
                 cache_shape, self.cfg, self.mesh, slots)).items():
-            if re.search(r"(^|/)mamba/", path):
+            if _MAMBA_LEAF.search(path) and not self.mamba_tp:
                 spec = tuple(e if e is not None and "model" not in
                              _entry_axes(e) else None for e in spec)
             specs[path] = spec

@@ -23,10 +23,14 @@ the rank holds (train state or params and cache) and of the input rows it
 computes (``batch_spec``: a prefill or train step computes its data
 rank's rows).  ``rule_argument_size_bytes`` is the same sum under JAX's
 placement (params and state by ``param_shardings``, the cache by
-``cache_shardings``, inputs by ``batch_spec``); the two are equal but for
-Mamba's SSM state and conv window, which the port keeps whole over
-``model`` (``ParallelContext.place_cache``, ROADMAP C9).  ``temp_size_bytes`` is the peak of the bytes the step
-allocates beyond its arguments; ``output_size_bytes`` the bytes of what it
+``cache_shardings``, inputs by ``batch_spec``); the two are equal for
+every config: the Mamba state's heads and conv channels are cut over
+``model`` as JAX cuts them (``ParallelContext.place_cache``), and the
+Mamba block computes its rank's share.  Only where a config's Mamba parts
+do not divide tp (``mamba_tp_ok``; none of the 16×16 cells) does the
+port keep the Mamba state whole over ``model``, and hold more.
+``temp_size_bytes`` is the peak of the bytes the step allocates beyond
+its arguments; ``output_size_bytes`` the bytes of what it
 returns (and, for decode, the cache it updates in place, which the JAX step
 returns).
 
@@ -137,7 +141,7 @@ def cell_arguments(cfg, cell: ShapeCell, mesh, comm: ShapeComm) -> dict:
                           device="meta")
     specs = par.place_cache(cache, cell.global_batch)
     local_cache = unflatten({
-        p: take_shard(t, specs[p], mesh, coord)
+        p: take_shard(t, specs[p], mesh, coord, par.parts(p))
         for p, t in flatten(cache).items()})
     rule_cache = _shard_bytes(cache, flatten(cache_shardings(
         cache, cfg, mesh, cell.global_batch)), mesh)

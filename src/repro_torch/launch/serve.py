@@ -77,8 +77,8 @@ from repro_torch.compiler.artifact import ArtifactError, peek_manifest
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import TokenStream
 from repro_torch.device import MetaGenerator, resolve_device
-from repro_torch.distributed.sharding import (flatten, param_shardings,
-                                              take_shard)
+from repro_torch.distributed.sharding import (flatten, leaf_cutter,
+                                              param_shardings)
 from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import model as MD
 from repro_torch.serving import (AsyncServer, KernelProfiler, QualityProbe,
@@ -331,8 +331,7 @@ def _serve(args, device, mesh) -> None:
         shape = MD.init_params(cfg, MetaGenerator(), dtype, serving=serving)
         specs = flatten(param_shardings(shape, cfg, mesh))
         params = MD.init_params(cfg, gen, dtype, serving=serving,
-                                shard=lambda path, t: take_shard(
-                                    t, specs[path], mesh))
+                                shard=leaf_cutter(cfg, mesh, specs))
     else:
         params = MD.init_params(cfg, gen, dtype, serving=serving)
     if args.ckpt:

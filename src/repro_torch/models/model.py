@@ -324,7 +324,8 @@ def _block_apply(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
         lp = par.read(lp, path)
     if "mamba" in lp:
         h = h + MB.mamba_forward(lp["mamba"],
-                                 L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg)
+                                 L.rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                                 par=par)
         if "ln2" not in lp:
             return h
     else:
@@ -544,7 +545,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     max_len, n_kv, hd)``, Mamba state ``{"conv", "ssm"}`` per layer; the
     hybrid stack one of these per position of its period (``(L / period,
     B, …)``); enc-dec adds the cross-attention K/V ``(L, B, T, n_kv, hd)``
-    and the encoder states ``(B, T, D)``."""
+    and the encoder states ``(B, T, D)``.  On a mesh a rank holds its
+    part of this tree, placed by ``ParallelContext.place_cache``."""
     hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
 
     def zeros(*shape):
@@ -590,7 +592,8 @@ def _decode_block(cfg: ModelConfig, lp: dict, h: Tensor, cache: dict,
     place; ``path`` names its K leaf in the cache tree."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if "mamba" in lp:
-        h = h + MB.mamba_decode_step(lp["mamba"], x, cfg, cache["mamba"])
+        h = h + MB.mamba_decode_step(lp["mamba"], x, cfg, cache["mamba"],
+                                     par)
         if "ln2" not in lp:
             return h
     else:
@@ -680,7 +683,8 @@ def _prefill_block(cfg: ModelConfig, lp: dict, h: Tensor, positions: Tensor,
     states and this layer's cache."""
     x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
     if "mamba" in lp:
-        out, st = MB.mamba_forward(lp["mamba"], x, cfg, return_state=True)
+        out, st = MB.mamba_forward(lp["mamba"], x, cfg, return_state=True,
+                                   par=par)
         h, cache = h + out, {"mamba": st}
         if "ln2" not in lp:
             return h, cache
@@ -709,7 +713,8 @@ def prefill(params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int, *,
     ``data`` (as :func:`decode_step` does), else every row (an admission's
     one prompt).  The logits are the whole batch's; the cache holds the
     rows the rank computed in the compute layout (local kv heads under
-    attention TP, every other dim whole).
+    attention TP, the Mamba state's local heads and conv channels under
+    Mamba TP, every other dim whole).
     """
     cd = compute_dtype
     tokens = tokens.to(torch.int64)

@@ -69,6 +69,30 @@ def map_tree(fn: Callable, tree, *rest):
     return type(tree)(*kids)
 
 
+def map_with_path(fn: Callable, tree, *rest, prefix: str = ""):
+    """:func:`map_tree` with each leaf's path first: ``fn(path, leaf,
+    *rest_leaves)``, paths as :func:`leaves_with_paths` names them."""
+    if tree is None:
+        return None
+    if _is_leaf(tree):
+        return fn(prefix, tree, *rest)
+
+    def sub(key) -> str:
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                 prefix=sub(k)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, *(r[i] for r in rest),
+                                        prefix=sub(i))
+                          for i, v in enumerate(tree))
+    kids = [map_with_path(fn, c, *(r.children()[i] for r in rest),
+                          prefix=sub(i))
+            for i, c in enumerate(tree.children())]
+    return type(tree)(*kids)
+
+
 def unflatten_like(template, values: list):
     """A tree of ``template``'s structure with ``values`` as its leaves, in
     flatten order."""

@@ -33,7 +33,8 @@ from repro_torch import pytree as T
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import MetaGenerator, resolve_device
 from repro_torch.distributed.sharding import (ParallelContext, flatten,
-                                              take_shard, unshard_state)
+                                              leaf_cutter, take_shard,
+                                              unshard_state)
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import cosine_schedule
@@ -121,9 +122,8 @@ class Trainer:
         the next is drawn."""
         if self.par is None:
             return init_train_state(self.cfg, gen)
-        specs, mesh = self.par.specs, self.mesh
-        return init_train_state(self.cfg, gen, shard=lambda path, t:
-                                take_shard(t, specs[path], mesh))
+        return init_train_state(self.cfg, gen, shard=leaf_cutter(
+            self.cfg, self.mesh, self.par.specs))
 
     # -- lifecycle ------------------------------------------------------------
     def _fresh(self, seed: int = 0) -> TrainState:
@@ -223,6 +223,8 @@ class Trainer:
             raise ValueError("the sharded step reads the state as "
                              "state_shardings places it; shardings_fn gave "
                              "another placement")
-        self.state = T.map_tree(
-            lambda t, spec: take_shard(t, spec, new_mesh).to(self.device),
-            host, self.par.state_specs(host))
+        par = self.par
+        self.state = T.map_with_path(
+            lambda p, t, spec: take_shard(t, spec, new_mesh,
+                                          parts=par.parts(p)).to(self.device),
+            host, par.state_specs(host))

@@ -486,10 +486,11 @@ def _splice_slot(full: dict, one: dict, slot: int, slots: int,
     slots``, the JAX engine's rule), cast to the leaf's type.
 
     On a mesh (``par``) ``one`` is in the layout the model computes on
-    (whole sequence) and ``full`` placed by ``par.place_cache``: a leaf
-    whose slots split over ``data`` is written only by the data rank that
-    holds ``slot``, at its local row, and a K/V leaf whose sequence is cut
-    takes this rank's slice of the prompt's."""
+    (whole sequence; under Mamba TP the rank's Mamba heads and channels,
+    as ``full`` holds them) and ``full`` placed by ``par.place_cache``: a
+    leaf whose slots split over ``data`` is written only by the data rank
+    that holds ``slot``, at its local row, and a K/V leaf whose sequence
+    is cut takes this rank's slice of the prompt's."""
     ones = flatten(one)
     for path, f in flatten(full).items():
         o = ones[path]
@@ -548,8 +549,9 @@ class FixedSlotEngine:
                                        compute_dtype, self.device)
         else:
             # this rank's part, placed as JAX's cache_shardings places it
-            # (the sequence cut where the rule cuts it; Mamba state by its
-            # slots only, ROADMAP C9)
+            # (the sequence cut where the rule cuts it; the Mamba state's
+            # heads and conv channels over model under Mamba TP, else by
+            # its slots only)
             meta = MD.init_cache(cfg, self.slots, max_len, compute_dtype,
                                  "meta")
             specs = par.place_cache(meta, self.slots)

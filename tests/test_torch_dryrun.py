@@ -14,9 +14,9 @@ cells (``launch/shapes.py``), the ``meta``-device dry-run
   ``param_shardings`` / ``cache_shardings`` / ``batch_spec`` on an
   ``AbstractMesh`` (``rule_argument_size_bytes``), and so do the port's
   own: a prefill computes its data rank's rows, and every decode cache
-  leaf holds JAX's shard but Mamba's SSM state and conv window, which the
-  port keeps whole over ``model`` (ROADMAP C9): those hold no less.  No
-  JAX mesh of devices is built (ROADMAP C3).
+  leaf holds exactly JAX's shard, Mamba's SSM state and conv window
+  included (their heads and channels cut over ``model``).  No JAX mesh of
+  devices is built (ROADMAP C3).
 * At 1×1 the dry-run's FLOPs equal ``FlopCounterMode`` over the plain
   single-device step, and equal the count stated from the code: every
   layer's products four times (forward, remat recompute, two backward
@@ -177,12 +177,8 @@ def test_argument_bytes_equal_jax_rules(arch):
             assert set(local) == set(cache)
             assert held["cache"] == sum(local.values())
             for p, n in local.items():
-                if "mamba/" in p:  # C9: whole over model, never less
-                    assert n >= cache[p], (arch, shape, p)
-                else:
-                    assert n == cache[p], (arch, shape, p)
-            if not any("mamba/" in p for p in local):
-                assert got["rule"] == sum(held.values()), (arch, shape)
+                assert n == cache[p], (arch, shape, p)
+            assert got["rule"] == sum(held.values()), (arch, shape)
 
 
 def _small_cell(kind="train"):

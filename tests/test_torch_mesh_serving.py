@@ -17,7 +17,10 @@ mesh shape in one spawn.
   mixtral), with an eviction swap, a prefix hit and a
   copy-on-write clone (on 2×1 and 2×2 both cross data ranks: the pool is
   cut over ``data``); the ``FixedSlotEngine`` on 1×2 and 2×2 (dense,
-  reduced mamba2, reduced jamba with LUT-MU).  Streams equal the
+  reduced mamba2, reduced jamba with LUT-MU) and on 1×4 (the two Mamba
+  configs), their Mamba blocks cut over ``model`` (Mamba TP: each rank
+  its heads and channels, the state by JAX's ``cache_shardings``).
+  Streams equal the
   single-device port engine's, which ``test_torch_serving.py`` and
   ``test_torch_fixed_engine.py`` hold to JAX's; a float stream may leave
   it only where the single-device top-2 margin is within ``LOGIT_TOL``
@@ -344,7 +347,8 @@ def _engine_cases(mesh, cases):
 def _placement(engine, paged: bool) -> dict:
     """What a rank holds of the serving state: the pool's shape and its
     trash page, or each fixed cache leaf's shape beside the shard shape
-    JAX's ``cache_shardings`` gives it (Mamba leaves: its slots only)."""
+    JAX's ``cache_shardings`` gives it (Mamba leaves where the block is
+    computed whole: their slots only)."""
     from repro_torch.distributed.sharding import (cache_shardings, flatten,
                                                   local_shape)
     from repro_torch.models import model as MD
@@ -361,12 +365,12 @@ def _placement(engine, paged: bool) -> dict:
     for p, t in flatten(engine.cache).items():
         held[p] = tuple(t.shape)
         spec = rule[p]
-        if "mamba/" in p:
+        if "mamba/" in p and not engine.par.mamba_tp:
             spec = tuple(e if e is not None and "model" not in
                          ((e,) if isinstance(e, str) else e) else None
                          for e in spec)
         want[p] = local_shape(flatten(meta)[p].shape, spec, engine.mesh)
-    return dict(cache=held, cache_rule=want,
+    return dict(cache=held, cache_rule=want, mamba_tp=engine.par.mamba_tp,
                 seq_cut={p: engine.par.seq_split(p) for p in held
                          if p.endswith("/k") or p == "k"})
 
@@ -404,6 +408,11 @@ def _check_paged(mesh):
 
 def _check_fixed(mesh):
     return _engine_cases(mesh, [("fixed", "dense"), ("fixed", "mamba2-370m"),
+                                ("fixed", "jamba-1.5-large-398b")])
+
+
+def _check_fixed_mamba(mesh):
+    return _engine_cases(mesh, [("fixed", "mamba2-370m"),
                                 ("fixed", "jamba-1.5-large-398b")])
 
 
@@ -533,6 +542,7 @@ def _check_refusal(mesh):
 
 _CHECKS = {"lutmu": _check_lutmu, "moe": _check_moe, "paged": _check_paged,
            "fixed": _check_fixed, "fixed1": _check_fixed1,
+           "fixed_mamba": _check_fixed_mamba,
            "encdec": _check_encdec,
            "prefill": _check_prefill, "host_mesh": _check_host_mesh,
            "serve_cli": _check_serve_cli, "amm_mlp": _check_amm_mlp,
@@ -656,6 +666,8 @@ def _hold_engines(ranks, key):
                 _hold_pool(single["log"], sharded, name)
             else:
                 assert sharded["cache"] == sharded["cache_rule"], (kind, name)
+                # the Mamba blocks are cut over model at every tp here
+                assert sharded["mamba_tp"] == (name != "dense"), (kind, name)
 
 
 def _hold_pool(log, sharded, name):
@@ -780,8 +792,9 @@ def test_mesh_2x1(tmp_path):
 
 
 def test_mesh_1x4(tmp_path):
-    ranks = _spawn(tmp_path, "1x4", ["lutmu", "host_mesh"])
+    ranks = _spawn(tmp_path, "1x4", ["lutmu", "host_mesh", "fixed_mamba"])
     _hold_lutmu(ranks, "1x4")
+    _hold_engines(ranks, "fixed_mamba")
     _hold_host_mesh(ranks, 4)
 
 
