@@ -2202,8 +2202,9 @@ def observed_serve(torch, cfg, params, load_engine, counters, plain_streams,
           f", on unprofiled {by_kind(on_ms, False)}, on profiled "
           f"{by_kind(on_ms, True)}; streams equal phase 5's", flush=True)
     print(f"[observed] profiled serve.decode p50 {1e3 * dec['p50_s']:.3f} ms "
-          f"mean {1e3 * dec['mean_s']:.3f} ms (n={dec['count']}; host clock "
-          f"between device syncs) against the profile phase's decode replay "
+          f"mean {1e3 * dec['mean_s']:.3f} ms (n={dec['count']}; CUDA events "
+          f"inside the program, no sync) against the profile phase's decode "
+          f"replay "
           f"{profile['replay_events_ms']:.3f} device ms (CUDA events), "
           f"{profile['replay_profiler_ms']:.3f} ms of kernels (profiler); "
           f"serve.decode flops, bytes {eng._decode_cost({'token': [0] * 4})}"

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.annotate import annotate
 from repro_torch.core import conv as CV
 from repro_torch.core import lut_mu as LM
 from repro_torch.core import maddness as M
@@ -176,25 +177,30 @@ def _pool(x: Tensor) -> Tensor:
 def resnet9_forward(params: dict, x: Tensor,
                     conv_fns: Optional[dict] = None) -> Tensor:
     """``conv_fns`` optionally maps a layer name to ``callable(x, w)``
-    substituting its convolution (the LUT-MU path); exact otherwise."""
+    substituting its convolution (the LUT-MU path); exact otherwise.
+    Each conv with its ReLU, each pool and the head is a ``torch.profiler``
+    range of its name while the profiler records (``repro_torch.annotate``;
+    one check a layer otherwise)."""
     def conv(name, h):
-        w = params[name]
-        if conv_fns and name in conv_fns:
-            return conv_fns[name](h, w)
-        return CV.conv_reference(h, w)
+        with annotate(name):
+            w = params[name]
+            if conv_fns and name in conv_fns:
+                return F.relu(conv_fns[name](h, w))
+            return F.relu(CV.conv_reference(h, w))
 
-    h = F.relu(conv("conv0", x))
-    h = _pool(F.relu(conv("conv1", h)))
-    r = F.relu(conv("res1a", h))
-    r = F.relu(conv("res1b", r))
-    h = h + r
-    h = _pool(F.relu(conv("conv2", h)))
-    h = _pool(F.relu(conv("conv3", h)))
-    r = F.relu(conv("res2a", h))
-    r = F.relu(conv("res2b", r))
-    h = h + r
-    h = h.mean(dim=(1, 2))
-    return h @ params["head"] + params["head_b"]
+    def pool(name, h):
+        with annotate(name):
+            return _pool(h)
+
+    h = conv("conv0", x)
+    h = pool("pool1", conv("conv1", h))
+    h = h + conv("res1b", conv("res1a", h))
+    h = pool("pool2", conv("conv2", h))
+    h = pool("pool3", conv("conv3", h))
+    h = h + conv("res2b", conv("res2a", h))
+    with annotate("head"):
+        h = h.mean(dim=(1, 2))
+        return h @ params["head"] + params["head_b"]
 
 
 def resnet9_train(cfg: ResNet9Config, x: np.ndarray, y: np.ndarray, *,

@@ -34,10 +34,13 @@ scheduler, the cache and its allocator, and the engine's own hook sites,
 the JAX engine's: request lifecycle, prefill and decode spans, tokens, pool
 gauges and the step programs' builds (as ``jit_cache_misses_total``).  A
 kernel profiler on the recorder (``profiler.py``) times the program calls
-of every ``every``-th step; a quality probe (``quality.py``) is bound to
-the params the engine serves.  Every hook runs on the host around a
-program call, never inside a captured graph; with the default
-``NullRecorder`` each site costs one truthiness check.
+of every ``every``-th step by CUDA events, with no sync; a quality probe
+(``quality.py``) is bound to the params the engine serves.  Every hook
+runs on the host around a program call, never inside a captured graph;
+with the default ``NullRecorder`` each site costs one truthiness check.
+While ``torch.profiler`` records, the spans the engine opens around its
+step programs (``decode``, ``prefill[i]``, ``spec-round``) are also
+profiler ranges of the same names (``obs.Span``).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.annotate import NO_RANGE
 from repro_torch.compiler.artifact import ArtifactError, load_artifact
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (ParallelContext, flatten,
@@ -296,8 +300,9 @@ class ServeEngine:
         """One engine iteration: execute the scheduler's plan — swap-outs,
         swap-ins, copy-on-write clones, at most one prefill chunk, one
         batched decode — and retire finished requests."""
+        prof = None
         if self.obs:
-            prof = getattr(self.obs, "profiler", None)
+            prof = self.obs.profiler
             if prof is not None:
                 prof.tick()
         plan = self.sched.schedule()
@@ -320,6 +325,8 @@ class ServeEngine:
         if self.obs:
             self.obs.sample_pool(self.kv.allocator)
             self.obs.poll_jit()
+            if prof is not None and prof.active:
+                prof.end_step(self.has_work)
         return finished
 
     def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
@@ -341,7 +348,7 @@ class ServeEngine:
                  cost=None) -> StepProgram:
         return StepProgram(fn, inputs, self.device, name=name,
                            pool=self._pool, stats=self.stats, tensors=tensors,
-                           cost=cost)
+                           cost=cost, obs=self.obs)
 
     def _forward_cost(self, cfg: ModelConfig, rows: int, tokens: int,
                       head_tokens: int, param_bytes: int):
@@ -418,33 +425,32 @@ class ServeEngine:
                                               chunk.start + chunk.n_valid]
         page_row = self.kv.page_row(req.pages, self.max_pages_per_seq)
         obs = self.obs
-        t0 = obs.now() if obs else 0.0
-        # (1, 1, V) target logits; the speculative engine's program also
-        # prefills its draft cache
-        logits = _profiled_call(obs, self._prefill_site, self._prefill,
-                                tokens=toks, start=chunk.start,
-                                n_valid=chunk.n_valid, row=page_row)
+        index = chunk.start // self.prefill_chunk
+        last = req.pf_done + chunk.n_valid == len(req.prompt)
+        # the last chunk's sampled token comes to the host; for any other
+        # chunk the span measures staging and the replay's launch
+        with obs.span(f"prefill[{index}]") if obs else NO_RANGE as sp:
+            # (1, 1, V) target logits; the speculative engine's program
+            # also prefills its draft cache
+            logits = _profiled_call(obs, self._prefill_site, self._prefill,
+                                    tokens=toks, start=chunk.start,
+                                    n_valid=chunk.n_valid, row=page_row)
+            if last:
+                req.generated.append(int(self._sample(
+                    logits[0, -1:], [(0, req)], self._sample_prefill)[0]))
         self.stats["prefill_calls"] += 1
         req.pf_done += chunk.n_valid
-        if req.pf_done == len(req.prompt):
-            req.generated.append(int(self._sample(
-                logits[0, -1:], [(0, req)], self._sample_prefill)[0]))
+        if obs:
+            obs.on_prefill(req, index, chunk.n_valid, sp.t0, sp.t1)
+        if last:
             if obs:
-                t1 = obs.now()
-                obs.on_prefill(req, chunk.start // self.prefill_chunk,
-                               chunk.n_valid, t0, t1)
-                obs.on_tokens(req, 1, t1, source="prefill")
+                obs.on_tokens(req, 1, sp.t1, source="prefill")
             # prefill_finished first — it indexes the prompt pages for
             # prefix reuse, which a budget-limited request still provides
             self.sched.prefill_finished(req)
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)
-        elif obs:
-            # a chunk that is not the last: no host sync happens here, so
-            # the span measures staging and the replay's launch
-            obs.on_prefill(req, chunk.start // self.prefill_chunk,
-                           chunk.n_valid, t0, obs.now())
 
     def _run_decode(self, decode, finished: List[Request]) -> None:
         token = np.zeros((self.max_batch, 1), np.int32)
@@ -456,20 +462,19 @@ class ServeEngine:
             pos[row] = req.next_pos
             table[row, : len(req.pages)] = req.pages
         obs = self.obs
-        t0 = obs.now() if obs else 0.0
-        logits = _profiled_call(obs, "serve.decode", self._decode,
-                                token=token, pos=pos, table=table)
+        with obs.span("decode") if obs else NO_RANGE as sp:
+            logits = _profiled_call(obs, "serve.decode", self._decode,
+                                    token=token, pos=pos, table=table)
+            # the sampled tokens come to the host, so the span covers the
+            # step's device time without a sync of the recorder's own
+            nxt = self._sample(logits[:, 0], decode, self._sample_decode)
         self.stats["decode_calls"] += 1
-        nxt = self._sample(logits[:, 0], decode, self._sample_decode)
         if obs:
-            # the sampled tokens came to the host, so t1 covers the step's
-            # device time without a sync of the recorder's own
-            t1 = obs.now()
-            obs.on_decode(decode, t0, t1)
+            obs.on_decode(decode, sp.t0, sp.t1, name=sp.name)
         for row, req in decode:
             req.generated.append(int(nxt[row]))
             if obs:
-                obs.on_tokens(req, 1, t1)
+                obs.on_tokens(req, 1, sp.t1)
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)
@@ -648,33 +653,36 @@ class FixedSlotEngine:
     def step(self) -> List[Request]:
         """One engine iteration: admit, one batched decode, retire."""
         obs = self.obs
+        prof = None
         if obs:
-            prof = getattr(obs, "profiler", None)
+            prof = obs.profiler
             if prof is not None:
                 prof.tick()
         finished = self._admit()
         if not self.active:
             if obs:
                 obs.poll_jit()
+                if prof is not None and prof.active:
+                    prof.end_step(self.has_work)
             return finished
         token = np.zeros((self.slots, 1), dtype=np.int32)
         for slot, req in self.active.items():
             token[slot, 0] = req.generated[-1]
         rows = list(self.active.items())
-        t0 = obs.now() if obs else 0.0
-        logits = _profiled_call(obs, "fixed.decode", self._decode,
-                                token=token, pos=self.pos.astype(np.int32))
+        with obs.span("decode") if obs else NO_RANGE as sp:
+            logits = _profiled_call(obs, "fixed.decode", self._decode,
+                                    token=token,
+                                    pos=self.pos.astype(np.int32))
+            nxt = self._sample(logits[:, 0], rows, self._sample_decode)
         self.stats["decode_calls"] += 1
-        nxt = self._sample(logits[:, 0], rows, self._sample_decode)
         if obs:
-            t1 = obs.now()
-            obs.on_decode(rows, t0, t1)
+            obs.on_decode(rows, sp.t0, sp.t1, name=sp.name)
         for slot, req in rows:
             tok = int(nxt[slot])
             req.generated.append(tok)
             self.pos[slot] += 1
             if obs:
-                obs.on_tokens(req, 1, t1)
+                obs.on_tokens(req, 1, sp.t1)
             # a slot retires at max_len - 1, so every position an idle
             # slot decodes at stays inside the cache
             if (len(req.generated) >= req.max_new_tokens
@@ -684,6 +692,8 @@ class FixedSlotEngine:
                 del self.active[slot]
         if obs:
             obs.poll_jit()
+            if prof is not None and prof.active:
+                prof.end_step(self.has_work)
         return finished
 
     def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
@@ -724,23 +734,23 @@ class FixedSlotEngine:
             req.state = SCH.RUNNING  # for RequestHandle.status
             if obs:
                 obs.on_admit(req)
-                t0 = obs.now()
-            tokens = torch.tensor([req.prompt], dtype=torch.int32,
-                                  device=self.device)
-            logits, one = MD.prefill(self.params, tokens, self.cfg,
-                                     self.max_len, compute_dtype=self.cd,
-                                     par=self.par)
-            with torch.inference_mode():
-                _splice_slot(self.cache, one, slot, self.slots, self.par)
-                self._prefill_logits.copy_(logits[0, -1:])
-            del one
+            with obs.span("prefill[0]") if obs else NO_RANGE as sp:
+                tokens = torch.tensor([req.prompt], dtype=torch.int32,
+                                      device=self.device)
+                logits, one = MD.prefill(self.params, tokens, self.cfg,
+                                         self.max_len, compute_dtype=self.cd,
+                                         par=self.par)
+                with torch.inference_mode():
+                    _splice_slot(self.cache, one, slot, self.slots, self.par)
+                    self._prefill_logits.copy_(logits[0, -1:])
+                del one
+                req.generated.append(int(self._sample(
+                    self._prefill_logits, [(0, req)],
+                    self._sample_prefill)[0]))
             self.stats["prefill_calls"] += 1
-            req.generated.append(int(self._sample(
-                self._prefill_logits, [(0, req)], self._sample_prefill)[0]))
             if obs:
-                t1 = obs.now()
-                obs.on_prefill(req, 0, len(req.prompt), t0, t1)
-                obs.on_tokens(req, 1, t1, source="prefill")
+                obs.on_prefill(req, 0, len(req.prompt), sp.t0, sp.t1)
+                obs.on_tokens(req, 1, sp.t1, source="prefill")
             if req.budget_reached(self.max_len):
                 self._retire(req, finished)
                 free.insert(0, slot)

@@ -24,8 +24,10 @@ are byte-equal (``tests/test_torch_obs.py``).
 Overhead policy: the recorder only ever runs on the host, *around* the
 engines' step programs (outside every captured graph — a hook inside one
 would run once, at capture, and never on a replay).  It never synchronises
-the device, never reads tensor values and never changes batch composition,
-so streams are bit-equal with recording on.  Timestamps around a program
+the device while serving (an attached kernel profiler waits once when it
+is attached, at ``reset()`` and at an export, to resolve its events),
+never reads tensor values and never changes batch composition, so
+streams are bit-equal with recording on.  Timestamps around a program
 call measure staging plus the replay's launch, and whatever host-side sync
 the engine already does (the sampled tokens come to the host each step,
 which is a natural sync point).
@@ -56,11 +58,13 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch.annotate import annotate
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "Tracer",
-    "Recorder", "NullRecorder", "NULL_RECORDER", "SloThresholds",
+    "Span", "Recorder", "NullRecorder", "NULL_RECORDER", "SloThresholds",
     "SloTracker", "log", "log_enabled", "summary_table", "slo_report",
-    "validate_prometheus", "validate_chrome_trace",
+    "validate_prometheus", "validate_chrome_trace", "profiler_offset_us",
 ]
 
 
@@ -324,20 +328,35 @@ class Tracer:
     """Accumulates Chrome trace events (``ph: X`` complete spans and
     ``ph: i`` instants) on a monotonic clock.  ``tid`` is the request
     uid, so Perfetto renders one lane per request; engine-wide events
-    (batched decode dispatches) go to the reserved ``tid 0`` lane, and
-    sampled kernel-profiler spans go to a dedicated ``kernels`` lane
-    (``KERNEL_TID``) so per-lane span-overlap validation keeps holding:
-    a profiled kernel span always nests inside the engine step span on
-    ``tid 0`` and would otherwise trip the overlap check."""
+    (batched decode dispatches) go to the reserved ``tid 0`` lane, the
+    kernel profiler's device intervals to a dedicated ``kernels`` lane
+    (``KERNEL_TID``) and each step program's staging and launch to a
+    ``programs`` lane (``PROGRAM_TID``), so per-lane span-overlap
+    validation keeps holding: both nest inside the engine step span on
+    ``tid 0`` and would otherwise trip the overlap check.  A span that
+    encloses other spans of its own lane (``first_token`` on a request's
+    lane) is a ``B``/``E`` pair (:meth:`enclosing`).
+
+    The clock is ``time.perf_counter`` (CLOCK_MONOTONIC).  The epoch is
+    taken beside ``time.time_ns()`` (CLOCK_REALTIME) and both go out in
+    ``otherData["clock_pair"]``: a ``torch.profiler`` trace stamps
+    realtime µs less its ``baseTimeNanoseconds``, so adding
+    :func:`profiler_offset_us` to this trace's timestamps lays it onto
+    that one."""
 
     ENGINE_TID = 0
     KERNEL_TID = 1_000_000_000  # far above any request uid + 1
+    PROGRAM_TID = 1_000_000_001
 
     def __init__(self, clock=time.perf_counter):
         self._clock = clock
-        self._epoch = clock()
+        self._set_epoch()
         self.events: List[dict] = []
         self._named_tids = set()
+
+    def _set_epoch(self) -> None:
+        self._epoch = self._clock()
+        self._epoch_ns = time.time_ns()
 
     def _us(self, ts: float) -> float:
         return round((ts - self._epoch) * 1e6, 3)
@@ -349,6 +368,8 @@ class Tracer:
                 name = "engine"
             elif tid == self.KERNEL_TID:
                 name = "kernels"
+            elif tid == self.PROGRAM_TID:
+                name = "programs"
             else:
                 name = f"req {tid - 1}"
             self.events.append({"ph": "M", "name": "thread_name",
@@ -365,6 +386,15 @@ class Tracer:
             ev["args"] = args
         self.events.append(ev)
 
+    def enclosing(self, tid: int, name: str, t0: float, t1: float) -> None:
+        """A span that may enclose the lane's complete spans, as a
+        ``B``/``E`` pair (duration events nest on a lane; complete spans
+        of one lane must not overlap)."""
+        self._name_tid(tid)
+        for ph, ts in (("B", t0), ("E", t1)):
+            self.events.append({"name": name, "ph": ph, "cat": "serving",
+                                "pid": _PID, "tid": tid, "ts": self._us(ts)})
+
     def instant(self, tid: int, name: str, ts: float, **args) -> None:
         self._name_tid(tid)
         ev = {"name": name, "ph": "i", "s": "t", "cat": "serving",
@@ -380,12 +410,23 @@ class Tracer:
         rest = sorted((e for e in self.events if e["ph"] != "M"),
                       key=lambda e: (e["ts"], e["tid"]))
         return {"traceEvents": meta + rest, "displayTimeUnit": "ms",
-                "otherData": {"producer": "repro.serving.obs"}}
+                "otherData": {"producer": "repro.serving.obs",
+                              "clock_pair": {
+                                  "perf_counter_s": self._epoch,
+                                  "time_ns": self._epoch_ns}}}
 
     def reset(self) -> None:
         self.events = []
         self._named_tids = set()
-        self._epoch = self._clock()
+        self._set_epoch()
+
+
+def profiler_offset_us(trace: dict, profiler_trace: dict) -> float:
+    """µs to add to a :class:`Tracer` trace's timestamps to put them on a
+    ``torch.profiler`` Chrome trace's timeline (its ``ts`` are realtime µs
+    less ``baseTimeNanoseconds``), from the tracer's exported clock pair."""
+    wall_ns = trace["otherData"]["clock_pair"]["time_ns"]
+    return (wall_ns - int(profiler_trace["baseTimeNanoseconds"])) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +664,32 @@ def slo_report(slo: "SloTracker") -> str:
     return "\n".join(lines)
 
 
+class Span:
+    """One timed phase of the program, as a context: ``t0``/``t1`` on the
+    recorder's clock, a ``torch.profiler`` range of the same name while the
+    profiler records (``repro_torch.annotate``), and, where ``tid`` is
+    given, a tracer span on that lane at exit.  Sites whose hook writes
+    the spans itself (``on_decode``, ``on_prefill``) read ``t0``/``t1``."""
+
+    __slots__ = ("_rec", "name", "tid", "t0", "t1", "_range")
+
+    def __init__(self, rec: "Recorder", name: str, tid: Optional[int]):
+        self._rec, self.name, self.tid = rec, name, tid
+
+    def __enter__(self) -> "Span":
+        self._range = annotate(self.name)
+        self._range.__enter__()
+        self.t0 = self._rec.now()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = self._rec.now()
+        self._range.__exit__(*exc)
+        tracer = self._rec.tracer
+        if self.tid is not None and tracer is not None:
+            tracer.span(self.tid, self.name, self.t0, self.t1)
+
+
 # ---------------------------------------------------------------------------
 # The recorder: engine-facing facade over registry + tracer.
 # ---------------------------------------------------------------------------
@@ -632,13 +699,14 @@ def slo_report(slo: "SloTracker") -> str:
 class _ReqState:
     """Host-side per-request lifecycle bookkeeping (uid-keyed)."""
     __slots__ = ("submit_ts", "queued_open", "swap_open", "first_tok_ts",
-                 "last_tok_ts", "tokens")
+                 "last_tok_ts", "tokens", "admit_ts")
     submit_ts: float
     queued_open: Optional[float]
     swap_open: Optional[float]
     first_tok_ts: Optional[float]
     last_tok_ts: Optional[float]
     tokens: int
+    admit_ts: Optional[float]  # the last admission (traced only)
 
 
 class Recorder:
@@ -757,7 +825,7 @@ class Recorder:
         # deep-observability attachments: a QualityProbe / KernelProfiler
         # set by the launcher; None keeps the hooks no-ops
         self.quality = None
-        self.profiler = None
+        self._profiler = None
         self.slo = SloTracker(self.registry, clock=clock)
 
     # -- plumbing ----------------------------------------------------------
@@ -771,14 +839,34 @@ class Recorder:
     def now(self) -> float:
         return self._clock()
 
+    def span(self, name: str, tid: Optional[int] = None) -> Span:
+        """A :class:`Span` named ``name``, on lane ``tid`` if given."""
+        return Span(self, name, tid)
+
+    @property
+    def profiler(self):
+        """The attached kernel profiler (``profiler.py``), or None.
+        Attaching one ties its device clock to the host clock
+        (``KernelProfiler.anchor``: one device sync, outside any window)."""
+        return self._profiler
+
+    @profiler.setter
+    def profiler(self, prof) -> None:
+        self._profiler = prof
+        if prof is not None:
+            prof.anchor()
+
     def reset(self) -> None:
         """Zero every metric and drop spans/lifecycle state (benchmarks
         call this after warm-up so warm-up requests don't pollute the
         measured cells).  Build-count baselines are re-snapshotted so
-        warm-up captures don't count as misses."""
+        warm-up captures don't count as misses; the kernel profiler drops
+        its unresolved calls and re-anchors its clock."""
         self.registry.reset()
         if self.tracer is not None:
             self.tracer.reset()
+        if self._profiler is not None:
+            self._profiler.anchor()
         self._req.clear()
         self.slo.reset()
         for site in self._jit_sites:
@@ -790,7 +878,7 @@ class Recorder:
         st = self._req.get(req.uid)
         if st is None:
             ts = self.now()
-            st = _ReqState(ts, ts, None, None, None, 0)
+            st = _ReqState(ts, ts, None, None, None, 0, None)
             self._req[req.uid] = st
         return st
 
@@ -798,13 +886,15 @@ class Recorder:
     def on_submit(self, req) -> None:
         self._c_submitted.inc()
         ts = self.now()
-        self._req[req.uid] = _ReqState(ts, ts, None, None, None, 0)
+        self._req[req.uid] = _ReqState(ts, ts, None, None, None, 0, None)
 
     def on_admit(self, req) -> None:
         self._c_admitted.inc()
         st = self._state(req)
         if st.queued_open is not None and self.tracer is not None:
-            self.tracer.span(req.uid + 1, "queued", st.queued_open, self.now())
+            st.admit_ts = self.now()
+            self.tracer.span(req.uid + 1, "queued", st.queued_open,
+                             st.admit_ts)
         st.queued_open = None
 
     def on_resume(self, req) -> None:
@@ -891,8 +981,9 @@ class Recorder:
     def on_tokens(self, req, n: int, ts: float, *,
                   source: str = "decode") -> None:
         """``n`` tokens appended to ``req`` at ``ts``.  First token →
-        TTFT; later emissions → ITL (per-gap, averaged over the ``n``
-        tokens a speculative round lands at once)."""
+        TTFT and a ``first_token`` span from the request's last admission;
+        later emissions → ITL (per-gap, averaged over the ``n`` tokens a
+        speculative round lands at once)."""
         if n <= 0:
             return
         self._c_generated_tok.inc(n)
@@ -904,6 +995,9 @@ class Recorder:
             st.first_tok_ts = ts
             self._h_ttft.observe(ts - st.submit_ts)
             self.slo.note_ttft(ts, ts - st.submit_ts)
+            if st.admit_ts is not None and self.tracer is not None:
+                self.tracer.enclosing(req.uid + 1, "first_token",
+                                      st.admit_ts, ts)
             gap_n = n - 1
         else:
             gap_n = n
@@ -1028,12 +1122,18 @@ class Recorder:
                 entry[2] = size
 
     # -- export ------------------------------------------------------------
+    def _flush(self) -> None:
+        if self._profiler is not None:
+            self._profiler.flush()  # the calls whose device time is pending
+
     def to_prometheus(self) -> str:
+        self._flush()
         return self.registry.to_prometheus()
 
     def to_chrome(self) -> dict:
         if self.tracer is None:
             raise RuntimeError("recorder was built with trace=False")
+        self._flush()
         return self.tracer.to_chrome()
 
     def write_metrics(self, path) -> None:

@@ -6,20 +6,31 @@ recorder's zero-overhead-off contract:
 
   * **Sampled timed steps** — the engine calls :meth:`KernelProfiler.tick`
     once per step; every ``every``-th step becomes a *profiled* step.  On
-    a profiled step the engine routes its step-program calls through
-    :meth:`timed`, which brackets the call with the host clock and
-    ``torch.cuda.synchronize`` (the counterpart of
-    ``jax.block_until_ready``) so the window covers the replay's device
-    execution, records a per-site latency histogram
-    (``kernel_latency_seconds{site=...}``) and puts a span on the
-    dedicated ``kernels`` tracer lane (``Tracer.KERNEL_TID``).  A program
-    not captured yet is captured first, outside the window
-    (``StepProgram.build``): the first profiled call times a replay, never
-    a capture.  On every other step the engine takes its normal path — no
-    wrapper, no sync; with the profiler off the hook sites reduce to the
-    usual ``if obs:`` check.  The sync of a profiled step is the one
-    exception to the recorder's no-sync rule: it changes when the host
-    waits, never a value.
+    a profiled step the engine routes its decode and prefill calls
+    through :meth:`timed`, which names the call's site.  On the card each
+    step-program call of a profiled step records a pair of CUDA events on
+    its stream, from inside the program (``programs.py``: before its
+    input copy and after its replay, so no wrapper around the program
+    hides them), and hands them here; nothing waits for them.  Each
+    :meth:`tick` resolves the pairs whose end event has completed
+    (``query()``), :meth:`flush` the rest with one sync (the exports
+    call it).  A resolved pair observes its device seconds in the per-site
+    histogram (``kernel_latency_seconds{site=...}``, the calls
+    :meth:`timed` ran) and becomes a span on the ``kernels`` tracer lane
+    (``Tracer.KERNEL_TID``) named by site, or by the program's name for
+    the untimed calls of the step (the samplers), with the engine's step
+    index in ``args``; a timed callable that hands no pair (a wrapper
+    around eager code) is timed by a pair recorded around it.  The spans
+    sit on the recorder's clock through an anchor: one event recorded
+    beside a host clock read after a device sync, when the profiler is
+    attached and at ``Recorder.reset()`` (:meth:`anchor`); each span is
+    placed from the previous one's end event, so the gaps between calls
+    keep the events' precision.  On the CPU a timed call is bracketed by
+    the host clock.  A program not
+    captured yet is captured first (``StepProgram.build``): the first
+    profiled call times a replay, never a capture.  With the profiler off
+    the hook sites reduce to the usual ``if obs:`` check, and profiling
+    every step costs a few event records and queries, no sync.
 
   * **Program cost** — once per (site, input-shape signature), the
     program's ``cost`` function (set by the engine from the config and the
@@ -41,6 +52,7 @@ about to consume anyway (``tests/test_torch_obs.py``).
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -55,6 +67,19 @@ __all__ = ["KernelProfiler", "attach_dispatch_hook", "forward_cost"]
 # µs-scale kernel latencies need finer buckets than request latencies
 KERNEL_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3,
                   5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.25, 0.5, 1.0)
+# the least gap between two kernels-lane spans: back-to-back calls share
+# an event timestamp, and one lane's spans must not overlap
+_LANE_GAP_S = 1e-8
+
+
+def _device_of(fn) -> torch.device:
+    """The device a timed callable runs on: its own ``device`` where it
+    has one (a step program), else the card once CUDA has started."""
+    device = getattr(fn, "device", None)
+    if device is not None:
+        return device
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    return torch.device("cuda" if cuda else "cpu")
 
 
 def forward_cost(cfg: ModelConfig, *, rows: int, tokens: int, ctx: int,
@@ -109,11 +134,95 @@ class KernelProfiler:
         self._cost_done: set = set()
         self._c_steps = registry.counter(
             "kernel_profiled_steps_total", "Engine steps profiled")
+        self._site: Optional[str] = None  # the site ``timed`` is running
+        self._paired = False              # its program handed events
+        # [site, timed, step, start, end, drained] in stream order
+        self._pending: deque = deque()
+        # (event, host seconds) the next resolved span is placed from
+        self._base: Optional[tuple] = None
+        self._lane_end = float("-inf")
+
+    # -- the device clock ----------------------------------------------------
+    def anchor(self) -> None:
+        """Tie the device's event clock to the host clock: sync the device,
+        record one event and read the clock beside it.  Drops the calls not
+        resolved yet.  Runs at attach and at ``Recorder.reset()``, outside
+        any measured window; a no-op until CUDA has started."""
+        self._pending.clear()
+        self._base, self._lane_end = None, float("-inf")
+        if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+            return
+        torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._base = (ev, self._clock())
+        ev.synchronize()
+
+    def start_event(self, device) -> Optional["torch.cuda.Event"]:
+        """An unrecorded start event for a step-program call on
+        ``device``, or None where the call is not timed by events (an
+        unprofiled step, the CPU).  The program records it before its
+        input copy and hands it back through :meth:`program_call`."""
+        if not self.active or device.type != "cuda":
+            return None
+        if self._base is None:
+            self.anchor()  # attached before CUDA started: one sync, once
+        return torch.cuda.Event(enable_timing=True)
+
+    def program_call(self, name: str, start) -> None:
+        """Record the end event of a program call whose ``start`` was
+        recorded; the pair waits in stream order until it resolves."""
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        timed = self._site is not None
+        self._paired |= timed
+        self._pending.append([self._site if timed else name, timed,
+                              self._step, start, end, False])
+
+    def end_step(self, has_work: bool) -> None:
+        """The engine's profiled step ended.  One that left the engine
+        without work marks its last call ``drained``: the device gap after
+        it is the engine waiting for requests, not host work between
+        steps."""
+        if not has_work and self._pending and (
+                self._pending[-1][2] == self._step):
+            self._pending[-1][5] = True
+
+    def _resolve(self, wait: bool) -> None:
+        pending = self._pending
+        while pending:
+            site, timed, step, start, end, drained = pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            pending.popleft()
+            dur = start.elapsed_time(end) / 1e3
+            if timed:
+                self._hist(site).observe(dur)
+            base_ev, base_t = self._base
+            t0 = max(base_t + base_ev.elapsed_time(start) / 1e3,
+                     self._lane_end + _LANE_GAP_S)
+            self._lane_end = t0 + dur
+            self._base = (end, self._lane_end)
+            if self.tracer is not None:
+                args = {"step": step, "drained": True} if drained else {
+                    "step": step}
+                self.tracer.span(Tracer.KERNEL_TID, site, t0, t0 + dur,
+                                 **args)
+
+    def flush(self) -> None:
+        """Resolve every pending call, waiting for the device once (the
+        pairs complete in stream order)."""
+        self._resolve(wait=True)
 
     # -- sampling ------------------------------------------------------------
     def tick(self) -> bool:
-        """Advance the step counter; returns (and latches) whether the
-        step that is about to run is a profiled one."""
+        """Resolve the calls the device has finished, advance the step
+        counter; returns (and latches) whether the step that is about to
+        run is a profiled one."""
+        if self._pending:
+            self._resolve(wait=False)
         self._step += 1
         self.active = self._step % self.every == 0
         if self.active:
@@ -132,25 +241,32 @@ class KernelProfiler:
         return h
 
     def timed(self, site: str, fn, **arrays):
-        """Run ``fn(**arrays)`` (a step program) between two device syncs
-        and record the host window as ``site``'s device latency.  Call
-        ONLY inside a profiled step (``self.active``)."""
+        """Run ``fn(**arrays)`` (a step program, or a wrapper of one) as
+        ``site``.  On the card the program's own event pair times it when
+        it resolves; where ``fn`` hands none (a wrapper around eager code)
+        a pair recorded here around the call does, so the histogram always
+        holds device seconds.  On the CPU the host clock around the call
+        times it.  Call ONLY inside a profiled step (``self.active``)."""
         self._maybe_cost(site, fn, arrays)
         build = getattr(fn, "build", None)
         if build is not None:
             build(**arrays)  # a capture is not a sample
-        device = getattr(fn, "device", None)
-        on_cuda = device is not None and device.type == "cuda"
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        self._site, self._paired = site, False
+        own = self.start_event(_device_of(fn))
+        if own is not None:
+            own.record()
         t0 = self._clock()
-        out = fn(**arrays)
-        if on_cuda:
-            torch.cuda.synchronize(device)
-        t1 = self._clock()
-        self._hist(site).observe(t1 - t0)
-        if self.tracer is not None:
-            self.tracer.span(Tracer.KERNEL_TID, site, t0, t1)
+        try:
+            out = fn(**arrays)
+            if own is not None and not self._paired:
+                self.program_call(site, own)
+        finally:
+            self._site = None
+        if not self._paired:
+            t1 = self._clock()
+            self._hist(site).observe(t1 - t0)
+            if self.tracer is not None:
+                self.tracer.span(Tracer.KERNEL_TID, site, t0, t1)
         return out
 
     # -- program cost --------------------------------------------------------
@@ -190,7 +306,9 @@ class KernelProfiler:
 
     # -- snapshot ------------------------------------------------------------
     def snapshot(self) -> dict:
-        """Per-site latency summary (the ``/debug`` surfaces read this)."""
+        """Per-site latency summary (the ``/debug`` surfaces read this),
+        every pending call resolved first."""
+        self.flush()
         sites = {}
         for site, h in sorted(self._hists.items()):
             if h.count:

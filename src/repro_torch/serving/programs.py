@@ -42,6 +42,16 @@ the capture, not its warm-up, and on the CPU not the calls after the first
 — so it counts built programs, as JAX's counts traces.  ``cost`` (set by
 the engine) gives the kernel profiler a program's flops and bytes from its
 inputs' shapes without running it.
+
+Observed: with the engine's recorder (``obs``), a call opens two host
+spans on the recorder's ``programs`` lane, ``<name>.stage`` (the wait on
+the last input copy, the pinned fill, the copy's enqueue) and
+``<name>.launch`` (the replay), each also a ``torch.profiler`` range
+while the profiler records (``obs.Span``).  On a profiled
+step of the recorder's kernel profiler the call also records a pair of
+CUDA events on its stream, before the input copy and after the replay,
+and hands them to the profiler unresolved: no sync.  With the default
+``NullRecorder`` a call pays one truthiness check.
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import dispatch as D
+from repro_torch.serving.obs import NULL_RECORDER, Tracer
 
 # name → (shape, idle value) of each int32 input
 InputSpec = Dict[str, Tuple[Tuple[int, ...], int]]
@@ -86,15 +97,18 @@ class StepProgram:
     ``graph_nodes[name]``.  ``tensors``: names of device-tensor inputs
     passed through unstaged, the same tensors on every call on the card.
     ``cost``: ``(arrays) -> (flops, bytes)`` of one call, for the kernel
-    profiler (``serving/profiler.py``).
+    profiler (``serving/profiler.py``).  ``obs``: the engine's recorder,
+    whose spans and kernel profiler observe each call.
     """
 
     def __init__(self, fn: Callable, inputs: InputSpec, device: torch.device,
                  *, name: str, pool=None, stats: Optional[dict] = None,
                  tensors: Tuple[str, ...] = (),
-                 cost: Optional[Callable] = None):
+                 cost: Optional[Callable] = None, obs=None):
         self.fn = fn
         self.name = name
+        self.obs = obs if obs is not None else NULL_RECORDER
+        self._spans = (f"{name}.stage", f"{name}.launch")
         self.tensors = tuple(tensors)
         self.cost = cost
         self.builds = 0
@@ -132,28 +146,46 @@ class StepProgram:
         if tensors.keys() != set(self.tensors):
             raise ValueError(f"{self.name} program takes tensors "
                              f"{list(self.tensors)}, got {sorted(tensors)}")
-        if self.device.type != "cuda":
+        if self.device.type == "cuda":
+            if self.graph is None:
+                self._capture(tensors)
+            for k, t in tensors.items():
+                b = self._bound[k]
+                if (t.data_ptr(), t.shape, t.stride()) != (
+                        b.data_ptr(), b.shape, b.stride()):
+                    raise ValueError(f"{self.name} program was captured "
+                                     f"reading another {k!r} tensor")
+        obs = self.obs
+        if not obs:
             self._stage(arrays)
-            sig = tuple((k, tuple(t.shape), t.dtype)
-                        for k, t in sorted(tensors.items()))
-            if sig not in self._signatures:
-                self._signatures.add(sig)
-                self.builds += 1
-                return self.fn(**self.inputs, **tensors)
-            with D.profile_hook_paused():
-                return self.fn(**self.inputs, **tensors)
-        if self.graph is None:
-            self._capture(tensors)
-        for k, t in tensors.items():
-            b = self._bound[k]
-            if (t.data_ptr(), t.shape, t.stride()) != (b.data_ptr(), b.shape,
-                                                       b.stride()):
-                raise ValueError(f"{self.name} program was captured reading "
-                                 f"another {k!r} tensor")
-        self._stage(arrays)
-        self.graph.replay()
-        self._launches.replay()
-        return self.outputs
+            return self._launch(tensors)
+        prof = obs.profiler
+        start = (prof.start_event(self.device) if prof is not None
+                 else None)
+        stage, launch = self._spans
+        with obs.span(stage, Tracer.PROGRAM_TID):
+            self._stage(arrays, start)
+        with obs.span(launch, Tracer.PROGRAM_TID):
+            out = self._launch(tensors)
+        if start is not None:
+            prof.program_call(self.name, start)
+        return out
+
+    def _launch(self, tensors: Dict[str, torch.Tensor]):
+        """Replay the graph (the card), or run the function on the staged
+        buffers (the CPU)."""
+        if self.graph is not None:
+            self.graph.replay()
+            self._launches.replay()
+            return self.outputs
+        sig = tuple((k, tuple(t.shape), t.dtype)
+                    for k, t in sorted(tensors.items()))
+        if sig not in self._signatures:
+            self._signatures.add(sig)
+            self.builds += 1
+            return self.fn(**self.inputs, **tensors)
+        with D.profile_hook_paused():
+            return self.fn(**self.inputs, **tensors)
 
     @torch.inference_mode()
     def build(self, **arrays) -> None:
@@ -163,7 +195,9 @@ class StepProgram:
         if self.device.type == "cuda" and self.graph is None:
             self._capture({k: arrays[k] for k in self.tensors})
 
-    def _stage(self, arrays) -> None:
+    def _stage(self, arrays, start=None) -> None:
+        """Fill the pinned buffer and enqueue its copy, recording ``start``
+        (a CUDA event, where given) just before the copy."""
         if arrays.keys() != self._host_np.keys():
             raise ValueError(f"{self.name} program takes inputs "
                              f"{sorted(self._host_np)}, got {sorted(arrays)}")
@@ -176,6 +210,8 @@ class StepProgram:
                                  f"!= {view.shape}")
             view[...] = a
         if self._copied is not None:
+            if start is not None:
+                start.record()
             self._dev.copy_(self._host, non_blocking=True)
             self._copied.record()
 

@@ -68,6 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.annotate import NO_RANGE
 from repro_torch.compiler.artifact import load_bundle
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
@@ -344,27 +345,26 @@ class SpeculativeEngine(ServeEngine):
                 self.max_len - len(req.prompt) - len(req.generated))
             table[row, : len(req.pages)] = req.pages
         obs = self.obs
-        tw0 = obs.now() if obs else 0.0
         greedy = S.all_greedy(decode)
-        if greedy:
-            # every row greedy: the greedy round, whose tokens the sampled
-            # round gives at T = 0
-            accepted, emit = _profiled_call(
-                obs, "spec.round_greedy", self._round_greedy, token=token,
-                pos=pos, n_valid=n_valid, table=table)
-        else:
-            accepted, emit = _profiled_call(
-                obs, "spec.round", self._round, token=token, pos=pos,
-                n_valid=n_valid, table=table,
-                **S.stage_rows(decode, self.max_batch))
-        accepted = accepted.cpu().numpy()  # (B,)   accepted-prefix lengths
-        emit = emit.cpu().numpy()          # (B, k+1) tokens to emit per row
+        with obs.span("spec-round") if obs else NO_RANGE as sp:
+            if greedy:
+                # every row greedy: the greedy round, whose tokens the
+                # sampled round gives at T = 0
+                accepted, emit = _profiled_call(
+                    obs, "spec.round_greedy", self._round_greedy,
+                    token=token, pos=pos, n_valid=n_valid, table=table)
+            else:
+                accepted, emit = _profiled_call(
+                    obs, "spec.round", self._round, token=token, pos=pos,
+                    n_valid=n_valid, table=table,
+                    **S.stage_rows(decode, self.max_batch))
+            # the round's outputs come to the host: the span covers its
+            # device time without a sync of the recorder's own
+            accepted = accepted.cpu().numpy()  # (B,) accepted-prefix lengths
+            emit = emit.cpu().numpy()          # (B, k+1) tokens to emit
         self.stats["decode_calls"] += 1
         if obs:
-            # the round's outputs came to the host: tw1 covers its device
-            # time without a sync of the recorder's own
-            tw1 = obs.now()
-            obs.on_decode(decode, tw0, tw1, name="spec-round")
+            obs.on_decode(decode, sp.t0, sp.t1, name=sp.name)
             obs.on_spec_round("greedy" if greedy else "sampled")
 
         st = self.stats
@@ -398,7 +398,7 @@ class SpeculativeEngine(ServeEngine):
             if obs:
                 obs.on_spec_row(w - 1, acc_emitted, correction, bonus,
                                 emitted_n)
-                obs.on_tokens(req, emitted_n, tw1)
+                obs.on_tokens(req, emitted_n, sp.t1)
             if req.budget_reached(self.max_len):
                 self.sched.retire(req)
                 finished.append(req)

@@ -21,8 +21,9 @@ Nothing reads those.  Sampled requests run the same way through the
 sampled round and the sampler programs, each replay bit-equal to
 ``sampled_round`` or ``sample_tokens`` called eagerly on the same inputs.
 With a recorder and a kernel profiler attached, the replays stay bit-equal
-to their eager twins, every program builds once, and a profiled step
-synchronises the device while an unprofiled one does not.  The
+to their eager twins, every program builds once, and no step synchronises
+the device, profiled or not: a profiled step's program calls are timed by
+CUDA events resolved later, one ``kernels``-lane span each.  The
 fixed-slot engine's decode program is checked the same way on a dense
 (LUT-MU), an SSM, a hybrid (LUT-MU in its dense layers) and an MoE stack:
 every slot's logits and the whole cache, which has no trash page.  Last,
@@ -30,6 +31,7 @@ two sharded train steps on a 1×1 NCCL mesh equal two single-device steps
 bit for bit (no graph: the train step runs eagerly).
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -45,6 +47,7 @@ from repro_torch.serving import (FixedSlotEngine, KernelProfiler, Recorder,
                                  SpeculativeEngine, validate_chrome_trace,
                                  validate_prometheus)
 from repro_torch.serving import sampling as S
+from repro_torch.serving.obs import Tracer
 from repro_torch.serving.programs import StepProgram
 from repro_torch.serving.speculative import (greedy_round, prefill_pair,
                                              sampled_round)
@@ -334,8 +337,9 @@ def _observed(every=2):
 
 def _as_program(call, prog):
     """The twin seen by the profiler as the program it wraps: it captures
-    before timing and syncs on the program's device."""
-    call.build, call.device, call.cost = prog.build, prog.device, prog.cost
+    before timing and reads the program's cost (the program times itself
+    by its own events)."""
+    call.build, call.cost = prog.build, prog.cost
     return call
 
 
@@ -398,10 +402,16 @@ def test_observed_replays_equal_eager(model, kind):
 
 @pytest.mark.cuda
 def test_profiled_step_syncs_and_unprofiled_does_not(model, monkeypatch):
+    """(Named before the event timer: now neither kind syncs.)  Every
+    program call of a profiled step becomes one ``kernels``-lane span of
+    its step, resolved without a sync, its device time inside the host
+    window around the call."""
     cfg, params, _ = model
     rec = _observed(every=2)
     eng = ServeEngine(params, cfg, recorder=rec, **KNOBS)
-    _drain(eng)  # every program captured: a capture syncs on its own
+    # every program captured, the samplers too: a capture syncs on its own
+    _drain(eng, sampled=True)
+    rec.reset()
     n = [0]
     sync = torch.cuda.synchronize
 
@@ -409,18 +419,37 @@ def test_profiled_step_syncs_and_unprofiled_does_not(model, monkeypatch):
         n[0] += 1
         return sync(*args, **kwargs)
 
+    calls = []  # (step, host seconds around the call) of profiled calls
+
+    def watched(prog):
+        def call(**arrays):
+            t0 = time.perf_counter()
+            out = prog(**arrays)
+            torch.cuda.current_stream().synchronize()  # the host window
+            if rec.profiler.active:
+                calls.append((rec.profiler._step, time.perf_counter() - t0))
+            return out
+        return call
+
+    progs = (eng._decode, eng._prefill)
+    for attr in ("_decode", "_prefill", "_sample_decode", "_sample_prefill"):
+        setattr(eng, attr, watched(getattr(eng, attr)))
     monkeypatch.setattr(torch.cuda, "synchronize", counted)
-    for p in PROMPTS:
-        eng.submit(p, max_new_tokens=6)
+    for i, p in enumerate(PROMPTS):
+        eng.submit(p, _sampled(i), max_new_tokens=6)
     steps = []
     while eng.has_work:
         before = n[0]
         eng.step()
         steps.append((rec.profiler.active, n[0] - before))
-    assert all(d == 0 for active, d in steps if not active), steps
-    assert all(d % 2 == 0 for active, d in steps if active), steps
-    assert any(active and d >= 2 for active, d in steps), steps
-    assert eng._decode.builds == eng._prefill.builds == 1
+    assert all(d == 0 for _, d in steps), steps
+    assert any(active for active, _ in steps), steps
+    spans = [e for e in rec.to_chrome()["traceEvents"] if e["ph"] == "X"
+             and e["tid"] == Tracer.KERNEL_TID]
+    assert [e["args"]["step"] for e in spans] == [s for s, _ in calls]
+    for e, (_, host_s) in zip(spans, calls):
+        assert 0 < e["dur"] <= 1e6 * host_s, (e, host_s)
+    assert all(p.builds == 1 for p in progs)
 
 
 def _tree_clone(t):
