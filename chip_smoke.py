@@ -22,7 +22,9 @@ Phases, each fatal on failure:
    launch floor (one ``zero_()`` of a 4-byte tensor under the same timer);
 4. agree — at full width, a prefill chunk and a decode step through the
    kernels give bit-identical logits to the same calls through the plain
-   ``ref`` LUT-MU path;
+   ``ref`` LUT-MU path; whether the decode step's logits with its
+   attention through the plain read (``paged_view`` + ``decode_attend``)
+   are bit-identical to the kernel read's is printed;
 5. serve — qwen3-14b at full width and depth (40 layers, bf16, random int8
    LUTs from a seeded generator on the card) through
    ``load_engine(None, ...)``: one short request captures the engine's
@@ -30,7 +32,9 @@ Phases, each fatal on failure:
    their own line), then 6 greedy requests, 16 new tokens each, with every
    launch counter set to 0 just before (every engine run below starts the
    same way); ``fused_lutmu`` must launch 120 times per forward call,
-   replays counted, and the ``ref`` path never; then a decode step's host
+   replays counted, and the ``ref`` path never; the decode read's kernel
+   40 times per decode call and the plain decode read never on CUDA;
+   then a decode step's host
    time and device busy time (``torch.profiler``), where each
    ``fused_lutmu`` call must be one kernel launch, and the decode program
    replayed against its eager twin (``MD.paged_decode_step`` on a copy of
@@ -44,7 +48,13 @@ Phases, each fatal on failure:
    page_size 16, rows of S=128 and S=4096; bf16, float32 and int8 KV)
    within ``VERIFY_TOL``; kernel, plain, bound and library (one
    ``scaled_dot_product_attention`` over the gathered view with the same
-   boolean mask, float only) times;
+   boolean mask, float only) times; (b) the paged decode read, the kernel
+   at W = 1, at B=32, n_kv=8, g=5, hd=128 and rows of S=1,024 and 1,536
+   (``DECODE_SHAPE``, ``DECODE_S``) under every split count the card runs,
+   against the plain read on the CPU: int8 bit for bit, float within
+   ``VERIFY_TOL``, and at the split count the decode path takes float bit
+   for bit the plain read on the card; kernel, plain, bound and SDPA times
+   (bf16);
 8. verify-agree (after 5) — at full width, one ``paged_verify_step``
    ``fused`` (the kernel, 40 launches) against ``scan`` on copies of one
    cache: logits within ``LOGIT_TOL``, the argmax equal wherever the top-2
@@ -326,6 +336,10 @@ ART_LAYERS = 2
 VERIFY_SHAPE = (4, 5, 8, 5, 128, 16)     # B, W=k+1, n_kv, g, hd, page_size
 VERIFY_S = (128, 4096)                   # cache positions of a row's table
 VERIFY_JSON_CASE = ("bfloat16", 128)     # the serve path's verify call
+DECODE_SHAPE = (32, 8, 5, 128, 16)       # B, n_kv, g, hd, page_size: the
+                                         # paged decode read of batch-decode
+DECODE_S = ((1024, 128), (1536, 64))     # (S, lowest pos): batch-decode's
+                                         # and chat-open's tables
 # verify window against its plain version, max abs error (as
 # tests/test_torch_cuda_kernels): float32 — sums in another order, expf:
 # atol 1e-5 + rtol 1e-5 on outputs ≤ 4;
@@ -649,6 +663,130 @@ def verify_kernel_checks(torch, timer, FV):
     return results
 
 
+def decode_inputs(torch, s_len: int, lo: int, kv_name: str, gen):
+    """The decode read's inputs at batch-decode's shape (DECODE_SHAPE): B
+    rows whose positions spread evenly over ``[lo, S)``, every table entry
+    a page of the pool in random order, q bf16-valued float32 (the serve
+    path's ``qg``)."""
+    b, nkv, g, hd, ps = DECODE_SHAPE
+    mp = s_len // ps
+    shape = (b * mp + 1, ps, nkv, hd)
+    if kv_name == "int8":
+        kp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+    else:
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[kv_name]
+        kp = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    pt = torch.randperm(b * mp, generator=gen, device="cuda").to(
+        torch.int32).reshape(b, mp)
+    pos = torch.linspace(lo, s_len - 1, b, device="cuda").round().to(torch.int32)
+    q = (torch.randn((b, 1, nkv, g, hd), generator=gen, device="cuda") * 2.0
+         ).to(torch.bfloat16).float()
+    return q, kp, vp, pt, pos
+
+
+def decode_read_checks(torch, timer, FV):
+    """7 (b): the paged decode step's attention read at batch-decode's and
+    chat-open's shapes (DECODE_SHAPE, DECODE_S): the verify kernel at W = 1
+    under every split count the card runs against the plain read
+    (``paged_view`` + ``decode_attend``) computed on the CPU, bf16,
+    float32 and int8 pages: int8 bit for bit (the plain read on the card,
+    unlike the CPU's, moves a few int8 weights of long rows by a step),
+    float within VERIFY_TOL; max abs difference and share of
+    outputs bit-equal to the CPU's and to the card's plain read, the float
+    read at the split count taken bit for bit the card's; times.  The bound is the bytes of the positions each row reaches
+    (``pos + 1``), q, out, the table and pos; the library column one SDPA
+    over the gathered bf16 view with the same mask.  Returns ``{(kv, S):
+    row}`` of the split count the decode path takes."""
+    import torch.nn.functional as F
+    b, nkv, g, hd, ps = DECODE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    results = {}
+    for s_len, lo in DECODE_S:
+        for kv_name in ("bfloat16", "float32", "int8"):
+            q, kp, vp, pt, pos = decode_inputs(torch, s_len, lo, kv_name, gen)
+            pos64 = pos.long()
+
+            def plain():
+                return FV.decode_attend(q, *FV.paged_view(kp, vp, pt), pos64,
+                                        None)
+
+            on_card = plain()
+            want = FV.decode_attend(q.cpu(), *FV.paged_view(
+                kp.cpu(), vp.cpu(), pt.cpu()), pos64.cpu(), None).cuda()
+            taken = FV.heuristic_splits(b, 1, nkv, g, hd, ps, s_len, kp.dtype)
+            positions = int((pos64 + 1).sum())
+            nbytes = (2 * positions * nkv * hd * kp.element_size()
+                      + 2 * q.numel() * 4 + pt.numel() * 4 + pos.numel() * 4)
+            bms, by = bound_ms(nbytes, 2 * 2 * g * hd * positions * nkv,
+                               PEAK_OPS[kv_name])
+            timed = kv_name == "bfloat16"
+            plain_ms = timer.ms(plain, 3) if timed else None
+            library_ms = None
+            if timed:
+                k_view, v_view = FV.paged_view(kp, vp, pt)
+                kq = k_view.permute(0, 2, 1, 3).contiguous()
+                vq = v_view.permute(0, 2, 1, 3).contiguous()
+                qq = q.reshape(b, nkv, g, hd).to(kp.dtype)
+                mask = (torch.arange(s_len, device="cuda")[None, :]
+                        <= pos64[:, None])[:, None, None, :]
+                library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                    qq, kq, vq, attn_mask=mask), 20)
+                del k_view, v_view, kq, vq, qq, mask
+            for splits in range(1, 9):
+                if FV.max_clusters(kp.dtype, 1, g, hd, ps, splits,
+                                   FV.split_cap(s_len, splits)) < 1:
+                    continue
+                if not timed and splits != taken:
+                    continue
+
+                def kernel(n=splits):
+                    return FV.decode_attend_paged_cuda(q, kp, vp, pt, pos,
+                                                       None, splits=n)
+
+                got = kernel()
+                torch.cuda.synchronize()
+                ensure(bool(torch.isfinite(got).all()),
+                       f"decode read {kv_name} S={s_len}: non-finite")
+                err = (got - want).abs().max().item()
+                if kv_name == "int8":
+                    ensure(torch.equal(got, want), f"decode read int8 S={s_len}"
+                           f" splits {splits}: not bitwise the plain read, max "
+                           f"abs err {err}")
+                ensure(err <= VERIFY_TOL[kv_name], f"decode read {kv_name} "
+                       f"S={s_len} splits {splits}: max abs err {err}")
+                share = (got == want).float().mean().item()
+                card_share = (got == on_card).float().mean().item()
+                if splits == taken and kv_name != "int8":
+                    # the served model's logits are a plain reference's bit
+                    # for bit only if this read is the card's plain read's
+                    ensure(card_share == 1.0, f"decode read {kv_name} "
+                           f"S={s_len}: {card_share:.6f} of the outputs "
+                           "bit-equal to the plain read on the card")
+                ms = timer.ms(kernel, 20)
+                r = dict(splits=splits, taken=splits == taken, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=library_ms, max_abs_err=err,
+                         equal_share=share, card_equal_share=card_share)
+                if splits == taken:
+                    results[(kv_name, s_len)] = r
+                lib = "null" if library_ms is None else f"{library_ms:.4f}"
+                pms = "null" if plain_ms is None else f"{plain_ms:.4f}"
+                print(f"[decode-read] B={b} W=1 n_kv={nkv} g={g} hd={hd} "
+                      f"S={s_len} pos {lo}-{s_len - 1} {kv_name:8s} splits="
+                      f"{splits}{' (taken)' if splits == taken else ''} "
+                      f"kernel_ms={ms:.4f} plain_ms={pms} bound_ms={bms:.4f} "
+                      f"({by}) library_ms={lib} max_abs_err={err:.3g} "
+                      f"bit_equal={share:.6f} (card's plain read "
+                      f"{card_share:.6f})", flush=True)
+            del q, kp, vp, pt, pos, want, on_card
+            torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the model
 # ---------------------------------------------------------------------------
@@ -667,11 +805,18 @@ def reset_counts(counters):
 def agree_phase(torch, cfg, params, MD):
     """Kernels vs the plain ``ref`` LUT-MU path inside the full model: the
     int8 sums are exact and the epilogue rounds the same way, so a prefill
-    chunk's and a decode step's logits must be bit-identical."""
+    chunk's and a decode step's logits must be bit-identical.  Then the
+    decode step once more with its attention read through the plain read
+    (``paged_view`` + ``decode_attend``) instead of the kernel: whether
+    its logits are bit-identical is printed, and how far they lie apart."""
+    from repro_torch.models import attention as A
     out = {}
-    for backend in ("fused", "ref"):
-        c = dataclasses.replace(cfg, amm=dataclasses.replace(cfg.amm,
-                                                             backend=backend))
+    for backend in ("fused", "ref", "plain-read"):
+        read = A.decode_read
+        if backend == "plain-read":
+            A.decode_read = lambda device, par: "plain"
+        c = dataclasses.replace(cfg, amm=dataclasses.replace(
+            cfg.amm, backend="ref" if backend == "ref" else "fused"))
         cache = MD.init_paged_cache(c, 3, 16, torch.bfloat16, "cuda")
         toks = torch.tensor([prompts(cfg.vocab_size, 1)[0] + [0] * 24],
                             dtype=torch.int32, device="cuda")  # 8 real of 32
@@ -690,14 +835,22 @@ def agree_phase(torch, cfg, params, MD):
                f"logit shapes {tuple(pf.shape)} {tuple(dec.shape)}")
         ensure(bool(torch.isfinite(pf).all() and torch.isfinite(dec[0]).all()),
                f"{backend}: non-finite logits")
+        A.decode_read = read
         out[backend] = (pf, dec[0])
         del cache
     ensure(torch.equal(out["fused"][0], out["ref"][0]),
            "prefill logits: kernels != plain path")
     ensure(torch.equal(out["fused"][1], out["ref"][1]),
            "decode logits: kernels != plain path")
+    got, want = out["fused"][1], out["plain-read"][1]
+    same = torch.equal(got, want)
     print("[agree] full-width prefill chunk + decode step: kernel logits "
-          "bit-identical to the plain LUT-MU path", flush=True)
+          "bit-identical to the plain LUT-MU path; decode logits through the "
+          f"decode-read kernel {'bit-identical to' if same else 'differ from'}"
+          f" the plain read's (max abs diff "
+          f"{(got - want).abs().max().item():.4g}, argmax "
+          f"{'equal' if int(got.argmax()) == int(want.argmax()) else 'differs'})",
+          flush=True)
 
 
 ENGINE_KNOBS = dict(max_batch=4, max_len=128, page_size=16, prefill_chunk=32)
@@ -4333,6 +4486,8 @@ def main() -> int:
     kres = kernel_checks(torch, timer, (FL, ME, LA, ref))
     # 7. the verify-window kernel at the full-width shapes
     vres = verify_kernel_checks(torch, timer, FV)
+    # 7 (b). the paged decode read through it at W = 1
+    dres = decode_read_checks(torch, timer, FV)
     # 26 (b). the per-shard LUT-MU problem at tp 2, 4, 8
     shard = shard_kernel_phase(torch, timer, (FL, ME, LA))
     # 26 (c). the split reads of the serving state at full width
@@ -4354,10 +4509,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     agree_phase(torch, cfg, params, MD)
     counters = (FL.LAUNCHES, ME.LAUNCHES, LA.LAUNCHES, dispatch.REF_ON_CUDA,
-                FV.LAUNCHES, FV.PLAIN_ON_CUDA)
+                FV.LAUNCHES, FV.PLAIN_ON_CUDA, FV.DECODE_LAUNCHES,
+                FV.PLAIN_DECODE_ON_CUDA)
     handles, dt, ttft, engine = serve(torch, cfg, params, load_engine, 6, 16)
     launches = {"fused_lutmu": FL.LAUNCHES.n, "encode_onehot": ME.LAUNCHES.n,
-                "lut_aggregate": LA.LAUNCHES.n}
+                "lut_aggregate": LA.LAUNCHES.n,
+                "decode_read": FV.DECODE_LAUNCHES.n}
     calls = engine.stats["prefill_calls"] + engine.stats["decode_calls"]
     for h in handles:
         ensure(h.done and len(h.generated) == 16,
@@ -4370,14 +4527,22 @@ def main() -> int:
            f"{per_call} x {calls} forward calls")
     ensure(dispatch.REF_ON_CUDA.n == 0,
            f"{dispatch.REF_ON_CUDA.n} ref LUT-MU calls ran on CUDA")
+    decodes = engine.stats["decode_calls"]
+    ensure(launches["decode_read"] == cfg.num_layers * decodes
+           and FV.PLAIN_DECODE_ON_CUDA.n == 0,
+           f"decode read: {launches['decode_read']} kernel launches for "
+           f"{cfg.num_layers} x {decodes} decode calls, "
+           f"{FV.PLAIN_DECODE_ON_CUDA.n} plain reads on CUDA")
     n_tok = sum(len(h.generated) for h in handles)
     peak = torch.cuda.max_memory_allocated()
     print(f"[serve] 6 requests x 16 tokens: {n_tok} tokens in {dt:.3f}s = "
           f"{n_tok / dt:.2f} tok/s; TTFT mean {sum(ttft) / len(ttft):.4f}s "
           f"min {min(ttft):.4f}s max {max(ttft):.4f}s; forward calls "
           f"{engine.stats['prefill_calls']} prefill + "
-          f"{engine.stats['decode_calls']} decode; fused_lutmu launches "
-          f"{launches['fused_lutmu']} = {per_call} x {calls}; ref on CUDA 0; "
+          f"{decodes} decode; fused_lutmu launches "
+          f"{launches['fused_lutmu']} = {per_call} x {calls}; decode-read "
+          f"kernel launches {launches['decode_read']} = {cfg.num_layers} x "
+          f"{decodes}, plain decode reads on CUDA 0; ref on CUDA 0; "
           f"peak memory {peak / 1e9:.2f} GB", flush=True)
     print(f"[serve] step programs, captured by a first short request (not "
           f"timed): capture_s {fmt(engine.stats['capture_s'])}; graph nodes "
@@ -4647,7 +4812,12 @@ def main() -> int:
                                  "src/repro/kernels/fused_verify.py:281",
                                  "speculative",
                                  "B=4 W=5 n_kv=8 g=5 hd=128, S=128 (page_size "
-                                 "16), bf16 KV", vres, VERIFY_JSON_CASE)}
+                                 "16), bf16 KV", vres, VERIFY_JSON_CASE),
+               "decode_read": ("src/repro_torch/csrc/verify_window.cu",
+                               "src/repro/models/attention.py:247 (plain jnp)",
+                               "paged decode",
+                               "B=32 W=1 n_kv=8 g=5 hd=128, S=1024 (page_size "
+                               "16), bf16 KV", dres, ("bfloat16", 1024))}
     # the measured plan beside the heuristic's at the reported case
     measured = {"fused_lutmu": tuned[("fused_lutmu", "down", 4)],
                 "verify_window": tuned[("verify_window", 128)]}

@@ -4,7 +4,10 @@
 // Replaces: repro/kernels/fused_verify.py::verify_window_attend_pallas
 // (_verify_window_kernel), the TPU kernel that DMAs a row's K/V pages into
 // VMEM block_s positions at a time and computes all W attends from the
-// staged copy with one flat softmax per query row.
+// staged copy with one flat softmax per query row.  At W = 1 it is also
+// the paged decode step's read on the card (kernels/fused_verify.py::
+// decode_attend_paged_cuda), which the JAX package computes with plain
+// jnp over the gathered view (repro/models/attention.py::_decode_attend).
 //
 // What bounds it on this card: device-memory bytes.  Per (row, kv head) the
 // work is 2·(W·g)·hd multiply-adds per reachable cache position against
@@ -53,6 +56,17 @@
 //   bit, enough to change a 40-layer model's logits through its LUT
 //   encoders, where this order leaves them bit-identical to the plain
 //   path's.  A split row is summed in split order anyway.
+// * A CUDA-core block of at most 8 query rows (the paged decode read, the
+//   verify kernel at W = 1: g = 5 rows) maps its threads onto those rows
+//   alone, one logit and four outputs a thread, instead of 2×2 and 4×4
+//   tiles over 32 padded rows.  At B = 32 rows of up to 1,024 positions
+//   (bf16, one split) that took the read from 0.144 to 0.085 ms, and to
+//   0.101 ms (4.4 × its bound) with the chunked sums below.  Its sums
+//   follow the plain decode read's library calls at the
+//   decode shapes, which sum each logit as one FMA chain over the head dim
+//   but each output in 256-position chunks (kAvChunk): the served model's
+//   logits then equal a plain reference's bit for bit, where one ulp of an
+//   attention output can move a LUT-MU tree encode to another table row.
 // Masked logits are -1e30, not -inf, as in the reference: a row whose mask
 // is empty widens the range to [0, S) and gets a uniform softmax.  The int8
 // rescales use __fmul_rn / __fdiv_rn in the plain version's association so
@@ -72,6 +86,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileS = 32;              // cache positions per staged tile
 constexpr int kRowsBlk = 32;            // query rows one block holds
+constexpr int kFewRows = kThreads / 32;  // rows of a block in the few-row roles
+// the few-row roles sum a value product as the plain read's library call
+// does at the paged decode shapes (cuBLAS gemmSN_NN on B = 32 rows of
+// 1,024 and 1,536 positions; its tree read off by probes of M, -M and
+// ones): the positions [0, S) in two halves, each half in chunks of
+// kAvChunk, each chunk one FMA chain in order, a half's chunks added in
+// order, then half 0 + half 1
+constexpr int kAvChunk = 256;
 constexpr int kMaxSplits = 8;           // portable cluster size
 constexpr float kNegInf = -1e30f;       // the reference's mask value
 constexpr float kKvInt8Scale = 0.05f;   // fused_verify.py KV_INT8_SCALE
@@ -189,6 +211,19 @@ __device__ __forceinline__ int8_t int8_step(float w) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(__fmul_rn(w, 127.0f)), 0.f), 127.f));
 }
 
+// a chunk's four sums added to the first or the second half's (register
+// indices fixed at compile time)
+__device__ __forceinline__ void add_to_half(float (&halves)[2][4], const float (&c)[4],
+                                            bool first) {
+  if (first) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) halves[0][h] = __fadd_rn(halves[0][h], c[h]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) halves[1][h] = __fadd_rn(halves[1][h], c[h]);
+  }
+}
+
 // float32 values of 8 (16-byte aligned) or 4 (8-byte aligned) cache entries
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -237,6 +272,9 @@ verify_window_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   const int R = W * g, r0 = (blockIdx.y / nkv) * kRowsBlk;
   const int RB = min(kRowsBlk, R - r0);
   const int S = ps * max_pages;
+  // a CUDA-core block of at most 8 query rows (a decode read, W = 1): its
+  // threads map onto those rows alone
+  const bool few = !kMma && RB <= kFewRows;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lstride = cap + 4;
 
@@ -451,6 +489,23 @@ verify_window_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           }
         }
       }
+    } else if (few) {
+      // one logit a thread: row tid / 32, position tid % 32; the same FMA
+      // chain over the head dim as below
+      const int tr = warp, tp = lane;
+      if (tr < RB && tp < nv) {
+        const T* k0 = reinterpret_cast<const T*>(st + tp * Lay::kRowBytes);
+        const float* q0 = reinterpret_cast<const float*>(qbuf + tr * Lay::kQRowBytes);
+        float c = 0.f;
+        for (int d = 0; d < hd; d += 8) {
+          float ka[8], qa[8];
+          load8(k0 + d, ka);
+          load8(q0 + d, qa);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) c = fmaf(qa[u], ka[u], c);
+        }
+        store_logit(tr, t0 + tp, __fmul_rn(c, scale));
+      }
     } else {
       // positions tp, tp+16 × rows tr, tr+16; each logit one FMA chain over
       // the head dim in order, as the plain version's float32 product
@@ -526,12 +581,21 @@ verify_window_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   const int amt = warp & 1, d0 = (warp >> 1) * (HDP / 4);  // mma roles
   constexpr int D4 = HDP / 4;
   const int d4 = tid % D4, rg = tid / D4;                    // float roles
+  constexpr int kFewIt = (kFewRows * D4 + kThreads - 1) / kThreads;  // few rows
+  static_assert(kFewIt <= NTW, "the few-row roles reuse acc");
+  float halves[kFewIt][2][4];  // the few-row roles' sums of whole chunks
+#pragma unroll
+  for (int i = 0; i < kFewIt; ++i)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) halves[i][k][h] = 0.f;
   for (int i = ntiles; i < total; ++i) {
     step(i);
     const unsigned char* st = ring + (i % kStages) * Lay::kStageBytes;
     const int t0 = (i - ntiles) * kTileS;
     const int nv = min(kTileS, len - t0);
-    for (int e = tid; e < kRowsBlk * kTileS; e += kThreads) {
+    for (int e = tid; e < (few ? kFewRows : kRowsBlk) * kTileS; e += kThreads) {
       const int r = e / kTileS, t = e - r * kTileS;
       float w = 0.f;
       if (r < RB && t < nv)
@@ -588,6 +652,48 @@ verify_window_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           mma(acc[2 * np + 1], af, bf[2], bf[3]);
         }
       }
+    } else if (few) {
+      // row e / D4, columns 4·(e % D4), for e = tid, tid + 256, ...; each
+      // output summed in the plain read's order (kAvChunk): acc holds the
+      // current chunk's chain, halves the sums of the chunks before.  bnd:
+      // the tile's position where a chunk after the block's first starts
+      constexpr int wstride = Lay::kWRowBytes / 4;
+      const int p0 = a + t0;
+      int bnd = (kAvChunk - p0 % kAvChunk) % kAvChunk;
+      if (bnd >= kTileS || p0 + bnd == a) bnd = -1;
+#pragma unroll
+      for (int i = 0; i < kFewIt; ++i) {
+        const int e = tid + i * kThreads, r = e / D4, c4 = e % D4;
+        if (r < RB) {
+          const float* ws = reinterpret_cast<const float*>(wtile) + r * wstride;
+          for (int t = 0; t < kTileS; t += 4) {
+            float v[4][4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              load4(reinterpret_cast<const T*>(st + (t + u) * Lay::kRowBytes) + 4 * c4, v[u]);
+            const float4 w4 = *reinterpret_cast<const float4*>(ws + t);
+            const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+            if (static_cast<unsigned>(bnd - t) < 4u) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                if (t + u == bnd) {
+                  // the chunk that ended joins its half's sum
+                  add_to_half(halves[i], acc[i], p0 + bnd - 1 < S / 2);
+#pragma unroll
+                  for (int h = 0; h < 4; ++h) acc[i][h] = 0.f;
+                }
+#pragma unroll
+                for (int h = 0; h < 4; ++h) acc[i][h] = fmaf(wv[u], v[u][h], acc[i][h]);
+              }
+            } else {
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+#pragma unroll
+                for (int h = 0; h < 4; ++h) acc[i][h] = fmaf(wv[u], v[u][h], acc[i][h]);
+            }
+          }
+        }
+      }
     } else {
       // rows rg·NTW.., columns 4·d4..; each output one FMA chain over the
       // positions in order, as the plain version's float32 product
@@ -611,6 +717,18 @@ verify_window_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     }
   }
   __syncthreads();  // every read of the logits is done: part overwrites them
+  if constexpr (!kMma) {
+    if (few && ntiles > 0) {
+      // the last chunk joins its half too, then half 0 + half 1
+      const bool first = a + ntiles * kTileS - 1 < S / 2;
+#pragma unroll
+      for (int i = 0; i < kFewIt; ++i) {
+        add_to_half(halves[i], acc[i], first);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[i][h] = __fadd_rn(halves[i][0][h], halves[i][1][h]);
+      }
+    }
+  }
 
   if constexpr (kMma) {
     if (16 * amt < RB) {
@@ -625,6 +743,14 @@ verify_window_kernel(const float* __restrict__ q, const T* __restrict__ kp,
         p1r[0] = acc[j][2];
         p1r[1] = acc[j][3];
       }
+    }
+  } else if (few) {
+#pragma unroll
+    for (int i = 0; i < kFewIt; ++i) {
+      const int e = tid + i * kThreads, r = e / D4, c4 = e % D4;
+      if (r < RB)
+        *reinterpret_cast<float4*>(part + r * HDP + 4 * c4) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   } else {
 #pragma unroll

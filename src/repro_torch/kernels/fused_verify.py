@@ -1,31 +1,41 @@
 """The masked attention read of the paged decode path, and the fused
 speculative-verify window, as in ``repro/kernels/fused_verify.py``.
 
-``decode_attend`` is the one masked read: the decode step, the scan oracle
-of ``models/model.py::paged_verify_step`` and the fused verify window all
-go through it, so their read paths cannot drift.  The verify window scores
-all ``W = k+1`` draft positions of a row against one view of its pages:
-position ``j``'s mask (``kv_pos <= pos + j``) already hides the later
-window slots, so the W attends are independent.
+``decode_attend`` is the plain masked read, over a gathered cache view.
+The verify window scores all ``W = k+1`` draft positions of a row against
+one view of its pages: position ``j``'s mask (``kv_pos <= pos + j``)
+already hides the later window slots, so the W attends are independent.
 
-Two implementations, selected by :func:`resolve_impl` (the counterparts of
-the JAX package's ``xla`` and ``pallas`` lowerings):
+Which read runs where:
 
-* ``plain`` — :func:`verify_window_attend_plain`: gather the page view
-  once (:func:`paged_view`), then :func:`verify_window_attend`, a loop over
-  window positions of the very :func:`decode_attend` call the scan oracle
-  makes, so it is bitwise the oracle for every cache dtype;
-* ``cuda`` — :func:`verify_window_attend_cuda`: one hand-written kernel
-  (``csrc/verify_window.cu``) that reads each row's pages through the page
-  table and computes all W attends without materialising the view, the
-  reachable positions split over a cluster of blocks (:func:`verify_splits`,
-  :func:`split_slice`) that share one flat softmax per row.  Its int8 path
-  sums in int32 (exact, any order).  A float row one block holds whole is
-  summed in the plain version's order (each logit and each output one FMA
-  chain), so it matches the plain version bit for bit wherever the library
-  products sum that way too, as on the serve path; split rows, and bf16
-  rows on the tensor cores, sum in another order, so the float paths are
-  held ``allclose``.
+* the paged decode step (``models/attention.py::paged_decode_step``, and
+  with it the scan oracle of ``models/model.py::paged_verify_step`` and
+  the draft loop): on a CUDA device :func:`decode_attend_paged_cuda`, the
+  kernel below at W = 1, reading the pages in place; on the CPU, and under
+  a pool cut over ``data``, ``decode_attend`` over :func:`paged_view`;
+* the verify window, by :func:`resolve_impl` (the counterparts of the JAX
+  package's ``xla`` and ``pallas`` lowerings):
+
+  * ``plain`` — :func:`verify_window_attend_plain`: gather the page view
+    once (:func:`paged_view`), then :func:`verify_window_attend`, a loop
+    over window positions of the very :func:`decode_attend` call the
+    plain decode read makes, so it is bitwise that read for every cache
+    dtype;
+  * ``cuda`` — :func:`verify_window_attend_cuda`.
+
+The kernel (``csrc/verify_window.cu``) reads each row's pages through the
+page table and computes all W attends without materialising the view,
+the reachable positions split over a cluster of blocks
+(:func:`verify_splits`, :func:`split_slice`) that share one flat softmax
+per row.  Its int8 path sums in int32 (exact, any order).  A float row
+one block holds whole is summed on the CUDA cores in the plain version's
+order as its library calls take it: each logit one FMA chain over the
+head dim; each output one FMA chain over the positions, or, in a block of
+at most 8 query rows (the decode read), four partials over 256-position
+chunks as the library's value product sums the decode shapes, so the
+decode read at B = 32, S = 1,024 and 1,536 is bitwise the plain read on
+the card.  Split rows, and bf16 rows on the tensor cores, sum in another
+order, so the float paths are held ``allclose``.
 
 ``auto`` picks ``cuda`` for CUDA tensors and ``plain`` for CPU tensors;
 the plain version runs on a CUDA tensor only when asked for by name.
@@ -52,6 +62,10 @@ LAUNCHES = _build.LaunchCount()
 # calls of the plain version on CUDA tensors (only ever by name); the chip
 # smoke run asserts the main path made none
 PLAIN_ON_CUDA = _build.LaunchCount()
+# the paged decode read: kernel launches (W = 1), and plain reads of CUDA
+# tensors (``models/attention.py::paged_decode_step`` under a pool cut)
+DECODE_LAUNCHES = _build.LaunchCount()
+PLAIN_DECODE_ON_CUDA = _build.LaunchCount()
 
 _MAX_ROWS = 64           # W·g query rows of one (row, kv head)
 _ROWS_PER_BLOCK = 32     # csrc/verify_window.cu kRowsBlk
@@ -143,6 +157,9 @@ def decode_attend(qg: Tensor, cache_k: Tensor, cache_v: Tensor, pos_b: Tensor,
                   window: Optional[int]) -> Tensor:
     """Masked one-token attention read over a ``(B, S, n_kv, hd)`` cache
     view.  qg: (B, 1, n_kv, g, hd); returns (B, 1, n_kv, g, hd) float32.
+    The plain read: the paged decode step's on the CPU and under a pool
+    cut (on a card it reads through :func:`decode_attend_paged_cuda`), the
+    slot cache's, and the oracle of the kernel's tests.
 
     Float caches: the products accumulate in float32 over the upcast cache,
     as the JAX ``preferred_element_type=f32`` einsums do; the softmax
@@ -431,6 +448,38 @@ def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
     if _build.on_cpu(qg, k_pages, v_pages, page_table, pos):
         return verify_window_attend_plain(qg, k_pages, v_pages, page_table,
                                           pos, window)
+    out = _launch(qg, k_pages, v_pages, page_table, pos, window, splits)
+    if out.numel():
+        LAUNCHES.bump()
+    return out
+
+
+def decode_attend_paged_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
+                             page_table: Tensor, pos: Tensor,
+                             window: Optional[int],
+                             splits: Optional[int] = None) -> Tensor:
+    """The paged decode step's masked read straight from the pages: the
+    verify kernel at W = 1, each row reading only the positions its mask
+    reaches.  Arguments as :func:`verify_window_attend_cuda`'s with
+    ``qg`` (B, 1, n_kv, g, hd) and ``pos`` the rows' positions; counted
+    in ``DECODE_LAUNCHES``.  Returns (B, 1, n_kv, g, hd) float32, what
+    :func:`decode_attend` returns over the :func:`paged_view`; CPU
+    tensors take that plain read."""
+    _build.require(qg.dim() == 5 and qg.shape[1] == 1,
+                   f"qg must be (B, 1, n_kv, g, hd), got {tuple(qg.shape)}")
+    if _build.on_cpu(qg, k_pages, v_pages, page_table, pos):
+        return decode_attend(qg, *paged_view(k_pages, v_pages, page_table),
+                             pos.to(torch.int64), window)
+    out = _launch(qg, k_pages, v_pages, page_table, pos, window, splits)
+    if out.numel():
+        DECODE_LAUNCHES.bump()
+    return out
+
+
+def _launch(qg: Tensor, k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
+            pos: Tensor, window: Optional[int],
+            splits: Optional[int]) -> Tensor:
+    """Check the CUDA tensors and launch ``csrc/verify_window.cu``."""
     win = GLOBAL_WINDOW if window is None else int(window)
     _build.require(qg.dim() == 5, f"qg must be (B, W, n_kv, g, hd), got "
                    f"{tuple(qg.shape)}")
@@ -483,5 +532,4 @@ def verify_window_attend_cuda(qg: Tensor, k_pages: Tensor, v_pages: Tensor,
         b, w, nkv, g, hd, ps, max_pages, win, splits, cap, int(in_smem),
         _build.stream_of(qg))
     _build.check(lib, err, "verify_window")
-    LAUNCHES.bump()
     return out

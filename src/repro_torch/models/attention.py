@@ -293,6 +293,15 @@ def _pool_view(k_pages: Tensor, v_pages: Tensor, table: Tensor, par,
     return kv[:, 0], kv[:, 1]
 
 
+def decode_read(device, par) -> str:
+    """The read :func:`paged_decode_step` runs after its page write:
+    ``kernel`` for tensors on a CUDA device whose pool is not cut over
+    ``data``; ``plain`` otherwise (the CPU, and a pool cut over ``data``,
+    whose view is a sum over ranks that no kernel reads in place)."""
+    on_card = torch.device(device).type == "cuda"
+    return "kernel" if on_card and (par is None or not par.pool_cut) else "plain"
+
+
 def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
                       k_pages: Tensor, v_pages: Tensor, page_table: Tensor,
                       pos: Tensor, window: Optional[int],
@@ -311,6 +320,13 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
     each rank writes the rows whose pages it holds (:func:`_page_write`),
     then reads its rows' views from every rank's pages
     (:func:`_pool_view`).
+
+    The read after the write (:func:`decode_read`): on a CUDA device the
+    hand-written kernel reads each row's pages in place, only the
+    positions its mask reaches (``FV.decode_attend_paged_cuda``, the
+    verify kernel at W = 1); on the CPU, and under a pool cut over
+    ``data``, the plain read, ``FV.decode_attend`` over the gathered
+    view.
     """
     b_all = page_table.shape[0]
     hd = cfg.resolved_head_dim
@@ -335,8 +351,17 @@ def paged_decode_step(params: dict, x: Tensor, cfg: ModelConfig,
     if write_ok is not None:
         phys = torch.where(write_ok, phys, torch.full_like(phys, trash))
     _page_write(k_pages, v_pages, phys, pos_all % ps, k[:, 0], v[:, 0], par)
-    k_view, v_view = _pool_view(k_pages, v_pages, page_table, par, split)
-    out = FV.decode_attend(_grouped(q, nkv), k_view, v_view, pos_b, window)
+    qg = _grouped(q, nkv)
+    if decode_read(x.device, par) == "kernel":  # one data rank: no row split
+        out = FV.decode_attend_paged_cuda(
+            qg.to(torch.float32).contiguous(), k_pages, v_pages,
+            page_table.to(torch.int32).contiguous(),
+            pos_b.to(torch.int32).contiguous(), window)
+    else:
+        if x.device.type == "cuda":
+            FV.PLAIN_DECODE_ON_CUDA.bump()
+        k_view, v_view = _pool_view(k_pages, v_pages, page_table, par, split)
+        out = FV.decode_attend(qg, k_view, v_view, pos_b, window)
     # contiguous before the product: a strided operand can take another
     # GEMM path, and the verify window must see the same bits
     out = out.reshape(b, 1, nq * hd).to(x.dtype).contiguous()

@@ -305,6 +305,20 @@ def test_launch_counts_follow_replays(model):
 
 
 @pytest.mark.cuda
+def test_decode_read_launches_follow_replays(model):
+    """The captured decode program reads the pages through the kernel once
+    per layer (replays counted) and never through the plain read."""
+    cfg, params, _ = model
+    eng = ServeEngine(params, cfg, **KNOBS)
+    FV.DECODE_LAUNCHES.reset()
+    FV.PLAIN_DECODE_ON_CUDA.reset()
+    _drain(eng)
+    assert eng.stats["decode_calls"] > 1
+    assert FV.DECODE_LAUNCHES.n == cfg.num_layers * eng.stats["decode_calls"]
+    assert FV.PLAIN_DECODE_ON_CUDA.n == 0
+
+
+@pytest.mark.cuda
 def test_failed_capture_raises(model):
     cfg, params, _ = model
     x = torch.randn((4, 16, 4), device="cuda")

@@ -671,6 +671,122 @@ def test_cuda_verify_window_rejects_bad_inputs(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the paged decode read: the verify kernel at W = 1 (decode_attend_paged_cuda)
+# ---------------------------------------------------------------------------
+
+# batch-decode's read: 32 rows, n_kv 8, g 5, hd 128, pages of 16
+DECODE_B, DECODE_NKV, DECODE_G, DECODE_HD, DECODE_PS = 32, 8, 5, 128, 16
+
+
+def _decode_inputs(dev, s_len, kv_dtype, seed=0, w=1):
+    """Rows 0..29 at positions spread over [64, S - w], their tables every
+    page of the pool in random order; rows 30 and 31 idle, as the engine
+    leaves a row without a request: the whole table on the trash page,
+    position 0.  q holds bf16 values (the serve path's)."""
+    rng = np.random.default_rng(seed)
+    b, nkv, g, hd, ps = DECODE_B, DECODE_NKV, DECODE_G, DECODE_HD, DECODE_PS
+    mp = s_len // ps
+    n_pages = b * mp + 1
+    shape = (n_pages, ps, nkv, hd)
+    if kv_dtype == "int8":
+        kp = rng.integers(-127, 128, shape).astype(np.int8)
+        vp = rng.integers(-127, 128, shape).astype(np.int8)
+    else:
+        kp = rng.normal(size=shape).astype(np.float32)
+        vp = rng.normal(size=shape).astype(np.float32)
+    pt = rng.permutation(b * mp).astype(np.int32).reshape(b, mp)
+    pt[30:] = n_pages - 1
+    pos = np.linspace(64, s_len - w, b).round().astype(np.int32)
+    pos[30:] = 0
+    q = rng.normal(size=(b, w, nkv, g, hd)).astype(np.float32) * 2.0
+    kt, vt = _on(dev, kp, vp)
+    if kv_dtype == "bfloat16":
+        kt, vt = kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+    (qt,) = _on(dev, q)
+    qt = qt.to(torch.bfloat16).float()
+    ptt, post = _on(dev, pt, pos)
+    return qt, kt, vt, ptt, post
+
+
+def _plain_decode_read_cpu(qt, kt, vt, ptt, post, window):
+    """The plain read, computed on the CPU."""
+    k_view, v_view = FV.paged_view(kt.cpu(), vt.cpu(), ptt.cpu())
+    return FV.decode_attend(qt.cpu(), k_view, v_view, post.cpu().long(),
+                            window)
+
+
+def _assert_decode_read(got, want, kv_dtype):
+    """int8: bit for bit (exact sums; the plain read on the card, unlike
+    the CPU's, moves a few int8 weights of long rows by one step: 0.6 % of
+    the outputs at S = 1,024); float within VERIFY_TOL."""
+    got = got.cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if kv_dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **VERIFY_TOL[kv_dtype])
+    share = (got == want).float().mean().item()
+    print(f"{kv_dtype}: bit-equal share {share:.6f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_len", [1024, 1536])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_decode_read_matches_plain(cuda_device, s_len, kv_dtype):
+    """B = 32, W = 1 at batch-decode's (S = 1,024) and chat-open's
+    (S = 1,536) tables, with two idle rows, through the split count the
+    decode path takes, against the plain read."""
+    qt, kt, vt, ptt, post = _decode_inputs(cuda_device, s_len, kv_dtype)
+    before, plain_before = FV.DECODE_LAUNCHES.n, FV.PLAIN_DECODE_ON_CUDA.n
+    verify_before = FV.LAUNCHES.n
+    got = FV.decode_attend_paged_cuda(qt, kt, vt, ptt, post, None)
+    torch.cuda.synchronize()
+    assert FV.DECODE_LAUNCHES.n == before + 1
+    assert FV.PLAIN_DECODE_ON_CUDA.n == plain_before
+    assert FV.LAUNCHES.n == verify_before
+    _assert_decode_read(got, _plain_decode_read_cpu(qt, kt, vt, ptt, post,
+                                                    None), kv_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window", [1, 37, 500])
+def test_cuda_decode_read_sliding_window(cuda_device, kv_dtype, window):
+    """gemma3's local layers: each row reads the ``window`` positions up
+    to its own."""
+    qt, kt, vt, ptt, post = _decode_inputs(cuda_device, 1024, kv_dtype, seed=1)
+    got = FV.decode_attend_paged_cuda(qt, kt, vt, ptt, post, window)
+    _assert_decode_read(got, _plain_decode_read_cpu(qt, kt, vt, ptt, post,
+                                                    window), kv_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_len", [1024, 1536])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_cuda_decode_read_is_the_plain_read_on_the_card(cuda_device, s_len,
+                                                        kv_dtype):
+    """At the benchmark's decode shapes the float read is bitwise the plain
+    read computed on the card (its library calls: each logit one FMA chain
+    over the head dim, each output the sum of four partials of 256-position
+    chunks), as the served model's logits must be bitwise a plain
+    reference's.  A cuBLAS that sums these shapes otherwise fails here."""
+    qt, kt, vt, ptt, post = _decode_inputs(cuda_device, s_len, kv_dtype,
+                                           seed=2)
+    got = FV.decode_attend_paged_cuda(qt, kt, vt, ptt, post, None)
+    k_view, v_view = FV.paged_view(kt, vt, ptt)
+    want = FV.decode_attend(qt, k_view, v_view, post.long(), None)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_read_rejects_a_window_of_several_positions(cuda_device):
+    qt, kt, vt, ptt, post = _decode_inputs(cuda_device, 1024, "float32",
+                                           w=2)
+    with pytest.raises(ValueError, match="qg must be"):
+        FV.decode_attend_paged_cuda(qt, kt, vt, ptt, post, None)
+
+
+# ---------------------------------------------------------------------------
 # autotuned launch plans (kernels/autotune.py) and the fit on the card
 # ---------------------------------------------------------------------------
 

@@ -34,6 +34,7 @@ from repro_torch.convert import config_from_jax, params_from_jax
 from repro_torch.kernels import fused_verify as TFV
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TMD
+from repro_torch.models.config import ModelConfig
 
 INT8_ATOL = 2 * 0.05
 INT8_MIN_EQUAL_SHARE = 0.99
@@ -224,6 +225,92 @@ def test_resolve_impl():
     assert TFV.resolve_impl("cuda") == "cuda"
     with pytest.raises(ValueError, match="verify attend impl"):
         TFV.resolve_impl("pallas")
+
+
+# ---------------------------------------------------------------------------
+# the paged decode read: which read runs where
+# ---------------------------------------------------------------------------
+
+
+def _decode_layer(kv_dtype, seed=0):
+    """One attention layer, a page pool with history, a trash-padded table
+    with an idle row, and the step's input."""
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=1, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64,
+                      head_dim=32, qk_norm=True)
+    gen = torch.Generator().manual_seed(seed)
+    cd = torch.bfloat16 if kv_dtype == torch.bfloat16 else torch.float32
+    params = TA.init_attn_params(cfg, gen, cd)
+    b, ps, mp = 3, 8, 4
+    shape = (b * mp + 1, ps, 2, 32)
+    if kv_dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    else:
+        kp = torch.randn(shape, generator=gen).to(kv_dtype)
+        vp = torch.randn(shape, generator=gen).to(kv_dtype)
+    pt = torch.randperm(b * mp, generator=gen).to(torch.int32).reshape(b, mp)
+    pt[2] = b * mp  # an idle row: the trash page, position 0
+    pos = torch.tensor([13, 30, 0], dtype=torch.int32)
+    x = torch.randn((b, 1, 64), generator=gen).to(cd)
+    return cfg, params, x, kp, vp, pt, pos
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32,
+                                      torch.int8], ids=["bf16", "f32", "int8"])
+def test_paged_decode_read_on_cpu_is_the_plain_read(monkeypatch, kv_dtype,
+                                                    window):
+    """On CPU tensors ``paged_decode_step`` reads through ``decode_attend``
+    over ``paged_view``; routed to the kernel's wrapper (as on a card), the
+    wrapper gets float32 contiguous ``qg``, the int32 table and int32
+    positions, its CPU branch returns bitwise that same plain read, and
+    the layer's output and pages are bitwise the plain route's.  Neither
+    route counts a kernel launch or a plain read on CUDA."""
+    cfg, params, x, kp, vp, pt, pos = _decode_layer(kv_dtype)
+    counts = TFV.DECODE_LAUNCHES.n, TFV.PLAIN_DECODE_ON_CUDA.n
+    assert TA.decode_read(x.device, None) == "plain"
+    k1, v1 = kp.clone(), vp.clone()
+    want = TA.paged_decode_step(params, x, cfg, k1, v1, pt, pos, window)
+
+    seen = []
+    wrapper = TFV.decode_attend_paged_cuda
+
+    def spy(*args):
+        out = wrapper(*args)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(TA, "decode_read", lambda device, par: "kernel")
+    monkeypatch.setattr(TFV, "decode_attend_paged_cuda", spy)
+    k2, v2 = kp.clone(), vp.clone()
+    got = TA.paged_decode_step(params, x, cfg, k2, v2, pt, pos, window)
+    assert torch.equal(got, want)
+    assert torch.equal(k2, k1) and torch.equal(v2, v1)
+    (qg, kpa, vpa, table, p, win), out = seen[0]
+    assert qg.dtype == torch.float32 and qg.is_contiguous()
+    assert tuple(qg.shape) == (3, 1, 2, 2, 32)
+    assert kpa is k2 and vpa is v2 and win == window
+    assert table.dtype == torch.int32 and torch.equal(table, pt)
+    assert p.dtype == torch.int32 and torch.equal(p, pos)
+    plain = TFV.decode_attend(qg, *TFV.paged_view(k2, v2, pt), pos.long(),
+                              window)
+    assert torch.equal(out, plain)
+    assert (TFV.DECODE_LAUNCHES.n, TFV.PLAIN_DECODE_ON_CUDA.n) == counts
+
+
+def test_decode_read_rule():
+    """The kernel for tensors on a CUDA device whose pool is not cut over
+    ``data``; the plain read on the CPU (and the dry-run's ``meta``) and
+    under a pool cut.  The rule reads the device and ``par`` alone."""
+    from types import SimpleNamespace
+    one_rank, cut = SimpleNamespace(pool_cut=False), SimpleNamespace(pool_cut=True)
+    assert TA.decode_read(torch.device("cuda"), None) == "kernel"
+    assert TA.decode_read(torch.device("cuda", 0), one_rank) == "kernel"
+    assert TA.decode_read(torch.device("cuda"), cut) == "plain"
+    assert TA.decode_read(torch.device("cpu"), None) == "plain"
+    assert TA.decode_read(torch.device("cpu"), one_rank) == "plain"
+    assert TA.decode_read(torch.device("meta"), None) == "plain"
 
 
 # ---------------------------------------------------------------------------

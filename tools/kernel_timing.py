@@ -26,7 +26,10 @@ int8 output (what the unfused path asks for with int8 tables); its line
 also names the launch plan where the tree's wrapper has ``plan``.  A first
 ``encode_onehot`` line at B=1, C=1 is the kernel's fixed cost.
 ``--kernels`` times only the named kernels (``verify_window``,
-``fused_lutmu``, ``encode_onehot``, ``lut_aggregate``).
+``decode_read``, ``fused_lutmu``, ``encode_onehot``, ``lut_aggregate``).
+``decode_read`` is the verify kernel at W = 1, the paged decode step's
+read, at ``chip_smoke.DECODE_SHAPE`` and ``DECODE_S`` (bf16 pages), under
+every split count the card runs and the one the tree's wrapper plans.
 
 ``--sweep`` times only ``fused_lutmu``, under every cluster size (of a
 tree whose wrapper has ``launch``), beside the plan ``fused_lutmu.plan``
@@ -111,8 +114,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--kernels", default="verify_window,fused_lutmu,"
-                    "encode_onehot,lut_aggregate")
+    ap.add_argument("--kernels", default="verify_window,decode_read,"
+                    "fused_lutmu,encode_onehot,lut_aggregate")
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))
     import torch
@@ -151,6 +154,23 @@ def main() -> int:
                                        timer.flush),
                    host_blocked_ms=host_blocked_ms(torch, fn))
             del q, kp, vp, pt, pos
+
+    for s_len, lo in CS.DECODE_S if "decode_read" in kernels else ():
+        q, kp, vp, pt, pos = CS.decode_inputs(torch, s_len, lo, "bfloat16", gen)
+        b, nkv, g, hd, ps = CS.DECODE_SHAPE
+        planned = FV.heuristic_splits(b, 1, nkv, g, hd, ps, s_len, kp.dtype)
+        for splits in range(1, 9):
+            if FV.max_clusters(kp.dtype, 1, g, hd, ps, splits,
+                               FV.split_cap(s_len, splits)) < 1:
+                continue
+            fn = lambda n=splits: FV.verify_window_attend_cuda(  # noqa: E731
+                q, kp, vp, pt, pos, None, splits=n)
+            report(kernel="decode_read", case=f"S={s_len} bfloat16",
+                   splits=splits, planned=splits == planned,
+                   event_ms=timer.ms(fn, 20),
+                   device_ms=device_ms(torch, fn, ["verify_window"], 20,
+                                       timer.flush))
+        del q, kp, vp, pt, pos
 
     sms = _build.sm_count()
     if "encode_onehot" in kernels:
